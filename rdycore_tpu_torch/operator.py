@@ -1,0 +1,318 @@
+"""The SWE spatial operator F(q, t) -> dq/dt, first-order flow path.
+
+The counterpart of rdycore_tpu/operator.py restricted to the flow
+equations (3 unknowns) at first order, without well-balancing. The JAX
+package's XLA gather form carries over:
+
+1. gather left/right cell states onto edges
+2. ghost states for boundary edges from their BC
+3. one Roe solve over ALL edges (interior + boundary)
+4. each cell *gathers* its <= 4 incident edge fluxes with precomputed
+   +-len/area coefficients (fixed summation order; no scatter, no atomics)
+5. cell-wise sources consuming the flux divergence
+
+Steps 1-3 are the edge kernel K1a (`ops/kernels/edge_flux.py`), 4-5 the
+cell kernel K1b (`ops/kernels/cell_stage.py`), and the Courant maximum with
+its location the reduction kernel K1c (`ops/kernels/courant.py`). On CPU
+tensors each runs its plain PyTorch version instead.
+
+Boundary edges carry a BC code each (`bnd_code`), so one launch covers all
+edges whatever the segments; the JAX XLA path loops over segments instead.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .constants import DEFAULT_H_ANUGA, DEFAULT_TINY_H, DEFAULT_XQ2018_THRESHOLD
+from .device import DeviceLike, resolve_device
+from .mesh.core import Mesh, named_boundary_sets
+from .ops.kernels.cell_stage import CellStageOut, swe_cell_stage
+from .ops.kernels.courant import courant_argmax
+from .ops.kernels.edge_flux import boundary_flux_plain, swe_edge_flux
+from .ops.swe import boundary as bc_mod
+from .ops.swe.sources import SOURCE_SEMI_IMPLICIT
+
+
+class BoundarySegment(NamedTuple):
+    """Static metadata for one named boundary (a contiguous edge slice)."""
+
+    name: str
+    bc_type: int  # bc_mod.BC_* code
+    start: int  # offset into the boundary-edge block
+    count: int
+    edge_ids: np.ndarray  # mesh edge ids (for time series metadata)
+
+
+@dataclasses.dataclass
+class OperatorArrays:
+    """Geometry and index tensors of the operator, all on one device."""
+
+    # cells [C]
+    area: torch.Tensor
+    dz_dx: torch.Tensor
+    dz_dy: torch.Tensor
+    cell_z: torch.Tensor  # vertex-averaged bed elevation
+    mannings_n: torch.Tensor
+    # interior edges [Ei]
+    int_left: torch.Tensor  # int32
+    int_right: torch.Tensor  # int32
+    int_cn: torch.Tensor
+    int_sn: torch.Tensor
+    # boundary edges [Eb] (ordered by segment)
+    bnd_left: torch.Tensor  # int32
+    bnd_cn: torch.Tensor
+    bnd_sn: torch.Tensor
+    bnd_code: torch.Tensor  # int8 BC code of each boundary edge
+    # cell -> edge gather maps [C, MAX_CE]
+    cell_edges: torch.Tensor  # int32 into [0, E]; E = dummy zero-flux edge
+    cell_edge_coef: torch.Tensor  # sign * edge_len / cell_area (0 on padding)
+    # per-edge Courant coefficient edge_len / min(adjacent areas) [E]
+    edge_courant_coef: torch.Tensor
+    # boundary edge lengths [Eb]
+    bnd_len: torch.Tensor
+
+    def numpy(self) -> Dict[str, np.ndarray]:
+        """Every field as a host numpy array."""
+        return {k: getattr(self, k).cpu().numpy() for k in ARRAY_FIELDS}
+
+
+ARRAY_FIELDS = tuple(f.name for f in dataclasses.fields(OperatorArrays))
+INDEX_FIELDS = {
+    "int_left": torch.int32, "int_right": torch.int32,
+    "bnd_left": torch.int32, "cell_edges": torch.int32,
+    "bnd_code": torch.int8,
+}
+
+
+def arrays_from_numpy(
+    d: Dict[str, np.ndarray], device: torch.device, dtype: torch.dtype
+) -> OperatorArrays:
+    """OperatorArrays from host arrays: index fields as int32 (bnd_code
+    int8), the rest as `dtype`, all on `device`."""
+    missing = [k for k in ARRAY_FIELDS if k not in d]
+    if missing:
+        raise KeyError(f"operator arrays lack {missing}")
+    return OperatorArrays(**{
+        k: torch.as_tensor(
+            np.array(d[k]), dtype=INDEX_FIELDS.get(k, dtype), device=device
+        )
+        for k in ARRAY_FIELDS
+    })
+
+
+class RHSResult(NamedTuple):
+    rhs: torch.Tensor  # [3, C] dq/dt
+    flux_div: torch.Tensor  # [3, C] flux-divergence part ("riemannf")
+    prim: torch.Tensor  # [3, C] primitive variables (h, u, v)
+    boundary_fluxes: torch.Tensor  # [3, Eb] raw Roe fluxes on boundary edges
+    max_courant_per_dt: torch.Tensor  # 0-dim: max over edges of amax*len/area
+    courant_edge: torch.Tensor  # 0-dim int32: index of that edge
+
+
+@dataclasses.dataclass(eq=False)
+class SWEOperator:
+    """Static operator configuration + device tensors (the reference's
+    Operator object, rdyoperatorimpl.h:107-206)."""
+
+    arrays: OperatorArrays
+    segments: Tuple[BoundarySegment, ...]
+    num_cells: int
+    num_internal_edges: int
+    num_boundary_edges: int
+    tiny_h: float = DEFAULT_TINY_H
+    h_anuga: float = DEFAULT_H_ANUGA
+    source_method: int = SOURCE_SEMI_IMPLICIT
+    xq2018_threshold: float = DEFAULT_XQ2018_THRESHOLD
+
+    @property
+    def num_edges(self) -> int:
+        return self.num_internal_edges + self.num_boundary_edges
+
+    # ------------------------------------------------------------ kernels
+    def edge_flux(
+        self, q: torch.Tensor, boundary_values: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """K1a: (flux [3, E + 1] with column E zero, courant [E])."""
+        return swe_edge_flux(
+            self.arrays, q, boundary_values, self.tiny_h, self.h_anuga
+        )
+
+    def courant_max(
+        self, courant: torch.Tensor, dt: Optional[torch.Tensor] = None,
+        run_max: Optional[torch.Tensor] = None,
+        run_idx: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """K1c: (max, first edge attaining it) of courant [E]; with dt,
+        run_max and run_idx, also folds max * dt into them in place."""
+        return courant_argmax(courant, dt, run_max, run_idx)
+
+    def cell_stage(
+        self, flux: torch.Tensor, q: torch.Tensor, dt: torch.Tensor,
+        ext_src: Optional[torch.Tensor], **mode,
+    ) -> CellStageOut:
+        """K1b in stage mode (stage=(alpha, beta, gamma), qA=...) or rhs
+        mode (no stage); emit_prim=True adds the primitives of q."""
+        return swe_cell_stage(
+            self.arrays, flux, q, dt, ext_src, tiny_h=self.tiny_h,
+            h_anuga=self.h_anuga, xq2018_threshold=self.xq2018_threshold,
+            source_method=self.source_method, **mode,
+        )
+
+    # ------------------------------------------------------------ apply
+    def apply(
+        self,
+        q: torch.Tensor,  # [3, C]
+        dt,  # 0-dim tensor or float
+        boundary_values: torch.Tensor,  # [3, >= Eb] Dirichlet values
+        ext_src: Optional[torch.Tensor],  # [3, C] external sources or None
+    ) -> RHSResult:
+        """Evaluate dq/dt: one edge launch, one Courant reduction and one
+        cell launch in rhs mode."""
+        dt = torch.as_tensor(dt, dtype=q.dtype, device=q.device)
+        flux, courant = self.edge_flux(q, boundary_values)
+        cmax, cedge = self.courant_max(courant)
+        out = self.cell_stage(flux, q, dt, ext_src, emit_prim=True)
+        Ei = self.num_internal_edges
+        return RHSResult(
+            rhs=out.rhs,
+            flux_div=out.flux_div,
+            prim=out.prim,
+            boundary_fluxes=flux[:, Ei:self.num_edges],
+            max_courant_per_dt=cmax,
+            courant_edge=cedge,
+        )
+
+    def boundary_fluxes(
+        self, q: torch.Tensor, boundary_values: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Roe fluxes + masked max wave speeds on the boundary edges
+        (fb [3, Eb], amax_b [Eb]) in plain PyTorch. The step loop takes fb
+        from the edge kernel's output instead."""
+        return boundary_flux_plain(
+            self.arrays, q, boundary_values, self.tiny_h, self.h_anuga
+        )
+
+
+# --------------------------------------------------------------------------
+# construction
+# --------------------------------------------------------------------------
+
+def bnd_codes(segments) -> np.ndarray:
+    """Per-boundary-edge BC codes [Eb] (int8) of segments in order."""
+    codes = [np.full(s.count, s.bc_type, np.int8) for s in segments]
+    return np.concatenate(codes) if codes else np.zeros(0, np.int8)
+
+
+def build_operator(
+    mesh: Mesh,
+    bc_types: Optional[Dict[str, int]] = None,
+    mannings_n: Optional[np.ndarray] = None,
+    tiny_h: float = DEFAULT_TINY_H,
+    h_anuga: float = DEFAULT_H_ANUGA,
+    source_method: int = SOURCE_SEMI_IMPLICIT,
+    xq2018_threshold: float = DEFAULT_XQ2018_THRESHOLD,
+    dtype: torch.dtype = torch.float64,
+    device: DeviceLike = None,
+) -> SWEOperator:
+    """Build an SWEOperator from a Mesh on `device` (CUDA unless "cpu").
+
+    bc_types maps boundary name -> BC_* code; unlisted boundaries get the
+    reflecting wall BC, like the reference's auto-assignment
+    (rdysetup.c:706-777).
+    """
+    device = resolve_device(device)
+    bc_types = dict(bc_types or {})
+    unknown = set(bc_types) - set(mesh.boundaries)
+    if unknown:
+        raise ValueError(
+            f"boundary condition(s) reference unknown boundaries: {sorted(unknown)}; "
+            f"mesh defines {sorted(n for n in mesh.boundaries if not n.startswith('__id_'))}"
+        )
+    Ei = mesh.num_internal_edges
+    E = mesh.num_edges
+    C = mesh.num_cells
+
+    # boundary segments: order boundary edges by (segment, edge id)
+    segments: List[BoundarySegment] = []
+    order: List[np.ndarray] = []
+    start = 0
+    for name, eids in named_boundary_sets(mesh).items():
+        bc = bc_types.get(name, bc_mod.BC_REFLECTING)
+        segments.append(
+            BoundarySegment(
+                name=name, bc_type=bc, start=start, count=len(eids), edge_ids=eids
+            )
+        )
+        order.append(np.asarray(eids, dtype=np.int64))
+        start += len(eids)
+    bnd_order = (
+        np.concatenate(order) if order else np.zeros(0, dtype=np.int64)
+    )
+    if start != E - Ei:
+        raise ValueError(
+            f"boundary segments cover {start} edges but mesh has {E - Ei}"
+        )
+
+    # remap edge index: new order = [internal (unchanged) | bnd_order]
+    edge_perm = np.concatenate([np.arange(Ei, dtype=np.int64), bnd_order])
+    inv_perm = np.empty(E + 1, dtype=np.int64)
+    inv_perm[edge_perm] = np.arange(E)
+    inv_perm[E] = E  # dummy stays dummy
+
+    cell_edges = inv_perm[mesh.cell_edges].astype(np.int32)
+
+    area = mesh.cell_area
+    lengths = mesh.edge_length[edge_perm]
+    left = mesh.edge_cells[edge_perm, 0]
+    right = mesh.edge_cells[edge_perm, 1]
+
+    # cell-edge coefficient: sign * len / area
+    elen_pad = np.concatenate([lengths, [0.0]])
+    coef = mesh.cell_edge_sign * elen_pad[cell_edges] / area[:, None]
+
+    # Courant coefficient len / min(adjacent areas)
+    area_l = area[left]
+    area_r = np.where(right >= 0, area[np.where(right >= 0, right, 0)], np.inf)
+    ccoef = lengths / np.minimum(area_l, area_r)
+
+    if mannings_n is None:
+        mannings_n = np.zeros(C)
+
+    arrays = arrays_from_numpy(
+        dict(
+            area=area,
+            dz_dx=mesh.cell_dz_dx,
+            dz_dy=mesh.cell_dz_dy,
+            cell_z=mesh.cell_z,
+            mannings_n=np.asarray(mannings_n),
+            int_left=left[:Ei],
+            int_right=right[:Ei],
+            int_cn=mesh.edge_cn[edge_perm][:Ei],
+            int_sn=mesh.edge_sn[edge_perm][:Ei],
+            bnd_left=left[Ei:],
+            bnd_cn=mesh.edge_cn[edge_perm][Ei:],
+            bnd_sn=mesh.edge_sn[edge_perm][Ei:],
+            bnd_code=bnd_codes(segments),
+            cell_edges=cell_edges,
+            cell_edge_coef=coef,
+            edge_courant_coef=ccoef,
+            bnd_len=lengths[Ei:],
+        ),
+        device, dtype,
+    )
+    return SWEOperator(
+        arrays=arrays,
+        segments=tuple(segments),
+        num_cells=C,
+        num_internal_edges=Ei,
+        num_boundary_edges=E - Ei,
+        tiny_h=tiny_h,
+        h_anuga=h_anuga,
+        source_method=source_method,
+        xq2018_threshold=xq2018_threshold,
+    )

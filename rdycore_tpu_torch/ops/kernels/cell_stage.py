@@ -1,0 +1,151 @@
+"""K1b `swe_cell_stage`: flux divergence, sources and RK stage per cell.
+
+`swe_cell_stage` launches csrc/swe_cell_stage.cu for CUDA tensors and
+takes the plain PyTorch version `swe_cell_stage_plain` for CPU tensors.
+The kernel replaces the cell phase of the TPU kernel `_fused_step_kernel`
+and the divergence of `_fused_kernel` and `_cell_kernel`
+(rdycore_tpu/ops/pallas/slotted.py); see the source's header for its
+bound and design.
+
+Two modes:
+- stage mode (`stage=(alpha, beta, gamma)`): q_out = alpha*qA +
+  beta*(q + dt*rhs), or q itself where dt <= 0. This is the fused-step
+  kernel's alpha*qA + beta*q + gamma*dt*(div + src) for gamma = beta, which
+  holds in every tableau of timestepping.py, grouped as the JAX package's
+  `_rk_step` groups it (so the CPU path agrees with it to rounding);
+- rhs mode (`stage=None`): flux_div and rhs = flux_div + sources.
+Either mode also returns the primitives (h, u, v) of q when `emit_prim`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from ..swe.sources import apply_source
+from . import build
+
+_P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+
+
+def _argtypes(real):
+    return [_P, _I64, _P, _P, _INT, _P, _P, _P, _P, _P, _P, _P, _I64,
+            real, real, real, _INT, real, real, _P, _P, _P, _P, _P]
+
+
+_FUNCTIONS = {
+    "rdy_swe_cell_stage_f32": _argtypes(ctypes.c_float),
+    "rdy_swe_cell_stage_f64": _argtypes(ctypes.c_double),
+}
+
+
+class CellStageOut(NamedTuple):
+    q_out: Optional[torch.Tensor]  # [3, C] stage mode
+    flux_div: Optional[torch.Tensor]  # [3, C] rhs mode
+    rhs: Optional[torch.Tensor]  # [3, C] rhs mode
+    prim: Optional[torch.Tensor]  # [3, C] when emit_prim
+
+
+def _alpha_beta(stage: Tuple[float, float, float]) -> Tuple[float, float]:
+    alpha, beta, gamma = stage
+    if gamma != beta:
+        raise ValueError(
+            f"swe_cell_stage: stage {stage} has gamma != beta, which the "
+            "grouping alpha*qA + beta*(q + dt*rhs) cannot express"
+        )
+    return alpha, beta
+
+
+def swe_cell_stage_plain(
+    a, flux, q, dt, ext_src, *, tiny_h, h_anuga, xq2018_threshold,
+    source_method, stage=None, qA=None, emit_prim=False,
+) -> CellStageOut:
+    """Plain version of the kernel (the JAX package's XLA cell gather and
+    sources, operator.py:552-557 and :613-633, and the `_rk_step` stage)."""
+    flux_div = (flux[:, a.cell_edges] * a.cell_edge_coef).sum(dim=-1)
+    ext = ext_src if ext_src is not None else torch.zeros_like(q)
+    src = apply_source(
+        source_method, q, flux_div, ext, a.mannings_n, a.dz_dx, a.dz_dy, dt,
+        tiny_h, h_anuga, xq2018_threshold,
+    )
+    rhs = flux_div + src.rhs
+    prim = src.prim if emit_prim else None
+    if stage is None:
+        return CellStageOut(None, flux_div, rhs, prim)
+    alpha, beta = _alpha_beta(stage)
+    q_new = beta * (q + dt * rhs)
+    if qA is not None:
+        q_new = alpha * qA + q_new
+    return CellStageOut(torch.where(dt > 0.0, q_new, q), None, None, prim)
+
+
+def swe_cell_stage(
+    a, flux: torch.Tensor, q: torch.Tensor, dt: torch.Tensor,
+    ext_src: Optional[torch.Tensor], *, tiny_h: float, h_anuga: float,
+    xq2018_threshold: float, source_method: int,
+    stage: Optional[Tuple[float, float, float]] = None,
+    qA: Optional[torch.Tensor] = None, emit_prim: bool = False,
+) -> CellStageOut:
+    """One launch over all cells. flux [3, E + 1] from `swe_edge_flux`, q
+    [3, C] the stage input, dt a 0-dim tensor (the step dt, read on the
+    device), ext_src [3, C] or None for no external sources."""
+    if q.device.type == "cpu":
+        return swe_cell_stage_plain(
+            a, flux, q, dt, ext_src, tiny_h=tiny_h, h_anuga=h_anuga,
+            xq2018_threshold=xq2018_threshold, source_method=source_method,
+            stage=stage, qA=qA, emit_prim=emit_prim,
+        )
+    dev, dtype = q.device, q.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"swe_cell_stage: unsupported dtype {dtype}")
+    C = q.shape[1]
+    K = a.cell_edges.shape[1]
+    ck = build.check
+    ck(q, "q", dtype, (3, C), dev)
+    E = a.int_left.shape[0] + a.bnd_left.shape[0]
+    ck(flux, "flux", dtype, (3, E + 1), dev)
+    ck(a.cell_edges, "cell_edges", torch.int32, (C, K), dev)
+    ck(a.cell_edge_coef, "cell_edge_coef", dtype, (C, K), dev)
+    ck(dt, "dt", dtype, (), dev)
+    for name in ("mannings_n", "dz_dx", "dz_dy"):
+        ck(getattr(a, name), name, dtype, (C,), dev)
+    if ext_src is not None:
+        ck(ext_src, "ext_src", dtype, (3, C), dev)
+    if qA is not None:
+        ck(qA, "qA", dtype, (3, C), dev)
+    if source_method not in (0, 1, 2):
+        raise ValueError(f"swe_cell_stage: source method {source_method}")
+
+    def new():
+        return torch.empty((3, C), dtype=dtype, device=dev)
+
+    q_out = new() if stage is not None else None
+    flux_div = new() if stage is None else None
+    rhs = new() if stage is None else None
+    prim = new() if emit_prim else None
+    alpha, beta = _alpha_beta(stage) if stage is not None else (0.0, 0.0)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lib = build.load("swe_cell_stage", _FUNCTIONS)
+    fn = (lib.rdy_swe_cell_stage_f32 if dtype == torch.float32
+          else lib.rdy_swe_cell_stage_f64)
+    with torch.cuda.device(dev):
+        status = fn(
+            flux.data_ptr(), flux.shape[1], a.cell_edges.data_ptr(),
+            a.cell_edge_coef.data_ptr(), K, q.data_ptr(), ptr(qA),
+            dt.data_ptr(), ptr(ext_src), a.mannings_n.data_ptr(),
+            a.dz_dx.data_ptr(), a.dz_dy.data_ptr(), C, tiny_h, h_anuga,
+            xq2018_threshold, source_method, alpha, beta, ptr(q_out),
+            ptr(flux_div), ptr(rhs), ptr(prim),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    build.check_status(status, "swe_cell_stage")
+    swe_cell_stage.launches += 1
+    return CellStageOut(q_out, flux_div, rhs, prim)
+
+
+swe_cell_stage.launches = 0

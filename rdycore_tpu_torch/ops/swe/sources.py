@@ -1,0 +1,142 @@
+"""SWE source terms: bed slope, Manning friction, external (rain) sources
+(plain PyTorch).
+
+The numerics of rdycore_tpu/ops/swe/sources.py, which mirror the
+reference source operators:
+- semi-implicit friction tb/(1 + dt*tb): swe_petsc.c:704-804 /
+  swe_sources_ceed.h:37-63
+- implicit XQ2018 closed form:           swe_petsc.c:816-932 /
+  swe_sources_ceed.h:69-105
+- none: bed slope + external sources only.
+Each returns the source part of the RHS and the primitive variables
+(h, u, v) for time-averaged output. The CUDA cell kernel
+(ops/kernels/csrc/swe_physics.cuh) repeats this arithmetic.
+
+dt is a tensor (0-dim, possibly on the device) or a Python float; tiny_h,
+h_anuga and the XQ2018 threshold are Python floats.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ...constants import GRAVITY
+
+SOURCE_SEMI_IMPLICIT = 0
+SOURCE_IMPLICIT_XQ2018 = 1
+SOURCE_NONE = 2
+
+
+class SourceResult(NamedTuple):
+    rhs: torch.Tensor  # [3, C] source contribution to add to the RHS
+    prim: torch.Tensor  # [3, C] primitive variables (h, u, v)
+
+
+def _primitives(h, hu, hv, tiny_h, h_anuga):
+    denom = h * h + h_anuga * h_anuga
+    denom_safe = torch.where(denom > 0.0, denom, 1.0)
+    wet = h >= tiny_h
+    u = torch.where(wet, hu * h / denom_safe, 0.0)
+    v = torch.where(wet, hv * h / denom_safe, 0.0)
+    return u, v
+
+
+def _bed(q, dz_dx, dz_dy):
+    g = torch.tensor(GRAVITY, dtype=q.dtype)
+    h = q[0]
+    return dz_dx * g * h, dz_dy * g * h
+
+
+def _result(q, bedx, bedy, tbx, tby, ext_src, tiny_h, h_anuga):
+    h, hu, hv = q[0], q[1], q[2]
+    rhs = torch.stack(
+        [ext_src[0], -bedx - tbx + ext_src[1], -bedy - tby + ext_src[2]]
+    )
+    pu, pv = _primitives(h, hu, hv, tiny_h, h_anuga)
+    return SourceResult(rhs=rhs, prim=torch.stack([h, pu, pv]))
+
+
+def apply_source_none(
+    q, flux_div, ext_src, mannings_n, dz_dx, dz_dy, dt, tiny_h, h_anuga
+) -> SourceResult:
+    """Bed slope + external sources, no friction."""
+    bedx, bedy = _bed(q, dz_dx, dz_dy)
+    return _result(q, bedx, bedy, 0.0, 0.0, ext_src, tiny_h, h_anuga)
+
+
+def apply_source_semi_implicit(
+    q, flux_div, ext_src, mannings_n, dz_dx, dz_dy, dt, tiny_h, h_anuga
+) -> SourceResult:
+    """Semi-implicit bed-slope + friction source."""
+    g = torch.tensor(GRAVITY, dtype=q.dtype)
+    h, hu, hv = q[0], q[1], q[2]
+    bedx, bedy = _bed(q, dz_dx, dz_dy)
+
+    wet = h >= tiny_h
+    h_safe = torch.where(wet, h, 1.0)
+    u = hu / h_safe
+    v = hv / h_safe
+    cd = g * mannings_n * mannings_n * torch.pow(h_safe, -1.0 / 3.0)
+    speed = torch.sqrt(u * u + v * v)
+    tb = cd * speed / h_safe
+    factor = tb / (1.0 + dt * tb)
+
+    tbx = torch.where(wet, (hu + dt * flux_div[1] - dt * bedx) * factor, 0.0)
+    tby = torch.where(wet, (hv + dt * flux_div[2] - dt * bedy) * factor, 0.0)
+    return _result(q, bedx, bedy, tbx, tby, ext_src, tiny_h, h_anuga)
+
+
+def apply_source_xq2018(
+    q, flux_div, ext_src, mannings_n, dz_dx, dz_dy, dt, tiny_h, h_anuga,
+    xq2018_threshold,
+) -> SourceResult:
+    """Implicit friction via the Xia & Liang (2018) closed form
+    (eqs 21-37)."""
+    g = torch.tensor(GRAVITY, dtype=q.dtype)
+    h, hu, hv = q[0], q[1], q[2]
+    bedx, bedy = _bed(q, dz_dx, dz_dy)
+
+    wet = h >= tiny_h
+    h_safe = torch.where(wet, h, 1.0)
+
+    ax = flux_div[1] - bedx
+    ay = flux_div[2] - bedy
+    mx = hu + ax * dt
+    my = hv + ay * dt
+
+    n2g = g * mannings_n * mannings_n
+    ux = mx / h_safe
+    uy = my / h_safe
+    lam = n2g * torch.pow(h_safe, -4.0 / 3.0) * torch.sqrt(ux * ux + uy * uy)
+
+    dtlam = dt * lam
+    dtlam_safe = torch.where(dtlam > 0.0, dtlam, 1.0)
+    root = torch.sqrt(1.0 + 4.0 * dtlam)
+    qx_impl = (mx - mx * root) / (-2.0 * dtlam_safe)
+    qy_impl = (my - my * root) / (-2.0 * dtlam_safe)
+    small = dtlam < xq2018_threshold
+    qx1 = torch.where(small, mx, qx_impl)
+    qy1 = torch.where(small, my, qy_impl)
+
+    qmag = torch.sqrt(qx1 * qx1 + qy1 * qy1)
+    h73 = n2g * torch.pow(h_safe, -7.0 / 3.0)
+    tbx = torch.where(wet, h73 * qx1 * qmag, 0.0)
+    tby = torch.where(wet, h73 * qy1 * qmag, 0.0)
+    return _result(q, bedx, bedy, tbx, tby, ext_src, tiny_h, h_anuga)
+
+
+def apply_source(method, q, flux_div, ext_src, mannings_n, dz_dx, dz_dy, dt,
+                 tiny_h, h_anuga, xq2018_threshold) -> SourceResult:
+    """Dispatch on the SOURCE_* code."""
+    if method == SOURCE_IMPLICIT_XQ2018:
+        return apply_source_xq2018(
+            q, flux_div, ext_src, mannings_n, dz_dx, dz_dy, dt, tiny_h,
+            h_anuga, xq2018_threshold,
+        )
+    fn = apply_source_none if method == SOURCE_NONE else (
+        apply_source_semi_implicit
+    )
+    return fn(q, flux_div, ext_src, mannings_n, dz_dx, dz_dy, dt, tiny_h,
+              h_anuga)
