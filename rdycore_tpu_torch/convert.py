@@ -1,10 +1,11 @@
 """Carry the JAX package's operator arrays across to this package.
 
 `operator_arrays_from_numpy` takes a JAX `OperatorArrays` given as numpy
-arrays (`{k: np.asarray(v)}`) and returns this package's `OperatorArrays`,
-so both packages can be fed identical geometry, Manning's n and state. It
-takes plain dicts of numpy arrays, never JAX objects, and so imports
-nothing of JAX.
+arrays (`{k: np.asarray(v)}`) and returns this package's `OperatorArrays`;
+`structured_arrays_from_numpy` does the same for the raster operator's
+`StructuredArrays` (dz_dx, dz_dy, mannings_n). Both packages can so be fed
+identical geometry, Manning's n and state. They take plain dicts of numpy
+arrays, never JAX objects, and so import nothing of JAX.
 
 The JAX arrays carry no per-edge BC code; give `bnd_code` in the dict
 (`operator.bnd_codes(segments)` builds it from the segments), or it is
@@ -20,6 +21,7 @@ import torch
 
 from .device import DeviceLike, resolve_device
 from .operator import ARRAY_FIELDS, OperatorArrays, arrays_from_numpy
+from .ops.structured import StructuredArrays
 
 
 def operator_arrays_from_numpy(
@@ -31,3 +33,15 @@ def operator_arrays_from_numpy(
     None values) are ignored."""
     flow = {k: v for k, v in d.items() if k in ARRAY_FIELDS}
     return arrays_from_numpy(flow, resolve_device(device), dtype)
+
+
+def structured_arrays_from_numpy(
+    d: Dict[str, np.ndarray], device: DeviceLike, dtype: torch.dtype
+) -> StructuredArrays:
+    """This package's StructuredArrays from the [ny, nx] planes dz_dx,
+    dz_dy and mannings_n of `d`, in `dtype` on `device`."""
+    device = resolve_device(device)
+    return StructuredArrays(**{
+        k: torch.as_tensor(np.array(d[k]), dtype=dtype, device=device)
+        for k in StructuredArrays._fields
+    })

@@ -25,7 +25,8 @@ _BUILD_DIR = os.path.join(
         os.path.abspath(__file__))))),
     "build", "rdycore_tpu_torch",
 )
-SOURCES = ("swe_edge_flux", "swe_cell_stage", "courant_argmax")
+SOURCES = ("swe_edge_flux", "swe_cell_stage", "courant_argmax",
+           "swe_raster_step")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -42,18 +42,22 @@ __device__ __forceinline__ void regularized_velocity(T h, T hu, T hv,
   v = hv * scale;
 }
 
-// Roe flux with the critical-flow (entropy) fix (riemann.py roe_flux)
-template <typename T>
-__device__ __forceinline__ void roe_flux(T hl, T ul, T vl, T hr, T ur, T vr,
-                                         T sn, T cn, T f[3], T& amax) {
+__device__ __forceinline__ float rsqrt_(float x) { return rsqrtf(x); }
+__device__ __forceinline__ double rsqrt_(double x) { return rsqrt(x); }
+
+// Roe flux with the critical-flow (entropy) fix (riemann.py roe_flux), given
+// duml = sqrt(max(hl, 0)) and dumr = sqrt(max(hr, 0)). kFast takes 1/chat
+// from rsqrt and chat = c2 * (1/chat), as roe_flux(fast=True) does.
+template <typename T, bool kFast>
+__device__ __forceinline__ void roe_flux_sqrt(T hl, T ul, T vl, T hr, T ur,
+                                              T vr, T duml, T dumr, T sn,
+                                              T cn, T f[3], T& amax) {
   const T g = T(kGravity);
   const T sqrt_g = sqrt(g);
   const T half = T(0.5);
 
   const T hl_s = clamp_min0(hl);
   const T hr_s = clamp_min0(hr);
-  const T duml = sqrt(hl_s);
-  const T dumr = sqrt(hr_s);
   const T cl = sqrt_g * duml;
   const T cr = sqrt_g * dumr;
   const T hhat = duml * dumr;
@@ -62,8 +66,14 @@ __device__ __forceinline__ void roe_flux(T hl, T ul, T vl, T hr, T ur, T vr,
   const T uhat = (duml * ul + dumr * ur) * inv_denom;
   const T vhat = (duml * vl + dumr * vr) * inv_denom;
   const T c2 = half * g * (hl_s + hr_s);
-  const T chat = sqrt(c2);
-  const T inv_chat = T(1) / (chat > T(0) ? chat : T(1));
+  T chat, inv_chat;
+  if constexpr (kFast) {
+    inv_chat = rsqrt_(c2 > T(0) ? c2 : T(1));
+    chat = c2 * inv_chat;
+  } else {
+    chat = sqrt(c2);
+    inv_chat = T(1) / (chat > T(0) ? chat : T(1));
+  }
   const T uperp = uhat * cn + vhat * sn;
 
   const T dh = hr - hl;
@@ -107,6 +117,14 @@ __device__ __forceinline__ void roe_flux(T hl, T ul, T vl, T hr, T ur, T vr,
   f[2] = half * (fl_hv + fr_hv - (vhat - chat * sn) * A0dW0 - cn * A1dW1 -
                  (vhat + chat * sn) * A2dW2);
   amax = chat + fabs(uperp);
+}
+
+// Roe flux with the critical-flow (entropy) fix (riemann.py roe_flux)
+template <typename T>
+__device__ __forceinline__ void roe_flux(T hl, T ul, T vl, T hr, T ur, T vr,
+                                         T sn, T cn, T f[3], T& amax) {
+  roe_flux_sqrt<T, false>(hl, ul, vl, hr, ur, vr, sqrt(clamp_min0(hl)),
+                          sqrt(clamp_min0(hr)), sn, cn, f, amax);
 }
 
 // Ghost right state of a boundary edge by BC code (boundary.py

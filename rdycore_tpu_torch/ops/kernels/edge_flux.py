@@ -74,7 +74,7 @@ def swe_edge_flux_plain(a, q, bvals, tiny_h: float, h_anuga: float):
         (hl < tiny_h) & (hr < tiny_h),
     )
     fb, amax_b = boundary_flux_plain(a, q, bvals, tiny_h, h_anuga)
-    flux = torch.cat([fi, fb, torch.zeros_like(fi[:, :1])], dim=1)
+    flux = torch.cat([fi, fb, fb.new_zeros((3, 1))], dim=1)
     courant = torch.cat([amax_i, amax_b]) * a.edge_courant_coef
     return flux, courant
 

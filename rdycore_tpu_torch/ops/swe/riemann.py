@@ -1,7 +1,7 @@
 """Vectorized SWE Roe Riemann solver (plain PyTorch).
 
-The numerics of rdycore_tpu/ops/swe/riemann.py (`roe_flux` with
-fast=False, `regularized_velocity`), which mirror the reference's Roe
+The numerics of rdycore_tpu/ops/swe/riemann.py (`roe_flux`,
+`regularized_velocity`), which mirror the reference's Roe
 eigenspectrum with critical-flow (entropy) fix and flux
 0.5*(FL + FR - R |Lambda| dW) (src/swe/swe_roe_flux_petsc.h:15-132).
 The CUDA edge kernel (ops/kernels/csrc/swe_physics.cuh) repeats this
@@ -19,12 +19,16 @@ import torch
 from ...constants import GRAVITY
 
 
-def roe_flux(hl, ul, vl, hr, ur, vr, sn, cn) -> Tuple[torch.Tensor, ...]:
+def roe_flux(
+    hl, ul, vl, hr, ur, vr, sn, cn, fast=False,
+) -> Tuple[torch.Tensor, ...]:
     """Roe flux through edges for the 2-D shallow water equations.
 
-    All inputs are tensors of one shape; velocities must already be
-    regularized (`regularized_velocity`). Returns (f_h, f_hu, f_hv, amax)
-    with amax = |u_perp| + c_hat, the largest wave speed.
+    All inputs are tensors of one shape (sn and cn may be floats);
+    velocities must already be regularized (`regularized_velocity`).
+    Returns (f_h, f_hu, f_hv, amax) with amax = |u_perp| + c_hat, the
+    largest wave speed. fast=True takes 1/c_hat from rsqrt, as the raster
+    kernel does.
     """
     g = torch.tensor(GRAVITY, dtype=hl.dtype)
     sqrt_g = torch.sqrt(g)
@@ -41,8 +45,12 @@ def roe_flux(hl, ul, vl, hr, ur, vr, sn, cn) -> Tuple[torch.Tensor, ...]:
     uhat = (duml * ul + dumr * ur) * inv_denom
     vhat = (duml * vl + dumr * vr) * inv_denom
     c2 = 0.5 * g * (hl_s + hr_s)
-    chat = torch.sqrt(c2)
-    inv_chat = 1.0 / torch.where(chat > 0.0, chat, 1.0)
+    if fast:
+        inv_chat = torch.rsqrt(torch.where(c2 > 0.0, c2, 1.0))
+        chat = c2 * inv_chat
+    else:
+        chat = torch.sqrt(c2)
+        inv_chat = 1.0 / torch.where(chat > 0.0, chat, 1.0)
     uperp = uhat * cn + vhat * sn
 
     dh = hr - hl

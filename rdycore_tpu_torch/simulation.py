@@ -1,8 +1,9 @@
 """The Simulation object: the RDy lifecycle on one device.
 
 The counterpart of rdycore_tpu/simulation.py for the first-order,
-flow-only, single-device unstructured path (the reference's RDy object,
-src/rdycore.c, src/rdysetup.c, src/rdyadvance.c):
+flow-only, single-device paths: unstructured, and the uniform raster
+(`edge_flux_backend: structured` or `fused_structured`) (the reference's
+RDy object, src/rdycore.c, src/rdysetup.c, src/rdyadvance.c):
 
     sim = Simulation(load_config("case.yaml"))  # RDyCreate + RDySetup
     while not sim.finished:                     # while (!RDyFinished(rdy))
@@ -12,8 +13,9 @@ plus the E3SM-style coupling surface (src/rdydata.c): get/set arrays in
 natural cell order between coupling intervals.
 
 It runs on the CUDA device unless built with device="cpu". Every feature
-outside this path raises NotImplementedError naming the ROADMAP item that
-will port it; nothing degrades silently.
+outside these paths raises NotImplementedError naming the ROADMAP item
+that will port it, or the JAX package's own ConfigError where that package
+refuses it too; nothing degrades silently.
 """
 
 from __future__ import annotations
@@ -34,9 +36,24 @@ from .io.petsc_binary import read_petsc_vec
 from .logging_ import Logger
 from .mesh.core import Mesh, load_mesh_npz
 from .operator import SWEOperator, build_operator
+from .ops.kernels.raster_step import StructuredPlan
+from .ops.structured import (
+    FUSED_SCHEMES,
+    STRUCTURED_SCHEMES,
+    FusedStructuredOperator,
+    boundary_edge_arrays,
+    build_structured_operator,
+    detect_uniform_raster,
+    make_fused_structured_stepper,
+    make_structured_stepper,
+)
 from .ops.swe import boundary as bc_mod
 from .ops.swe.sources import SOURCE_IMPLICIT_XQ2018, SOURCE_SEMI_IMPLICIT
 from .timestepping import adapt_timestep, make_interval_advancer
+
+# raster wall -> its outward normal (cn, sn)
+_WALL_NORMALS = {"left": (-1, 0), "right": (1, 0), "bottom": (0, -1),
+                 "top": (0, 1)}
 
 _BC_CODES = {
     "dirichlet": bc_mod.BC_DIRICHLET,
@@ -58,21 +75,25 @@ def _not_ported(feature: str, item: str):
 
 def check_slice(config: Config) -> None:
     """Raise NotImplementedError for any configured feature outside the
-    first-order, flow-only, single-device unstructured path."""
+    ported first-order, flow-only, single-device paths: unstructured, and
+    the uniform raster (edge_flux_backend structured or fused_structured).
+    The raster features are refused in `Simulation._init_structured_backend`:
+    what the JAX package's raster paths refuse as ConfigErrors, and what its
+    fused raster kernel runs and the port's does not yet."""
     p, n = config.physics, config.numerics
-    if n.edge_flux_backend in ("structured", "fused_structured"):
-        _not_ported(f"edge_flux_backend: {n.edge_flux_backend}",
-                    "queue 1 item 9 and queue 2 K2: the raster path")
-    if n.second_order:
+    raster = n.edge_flux_backend in ("structured", "fused_structured")
+    if n.second_order and not raster:
         _not_ported("numerics.second_order (MUSCL)",
                     "queue 1 item 10 and queue 2 K3")
-    if p.flow.well_balancing != "none":
+    if p.flow.well_balancing != "none" and not raster:
         _not_ported(f"well_balancing: {p.flow.well_balancing}",
                     "queue 1 item 11 and queue 2 K4/K5")
-    if p.sediment.num_classes or p.salinity or p.heat:
+    if (p.sediment.num_classes or p.salinity or p.heat) and not raster:
         _not_ported("tracers (sediment, salinity, heat)",
                     "queue 1 item 12 and queue 2 K4")
-    if n.temporal in ("ark_imex", "beuler") or p.flow.source.method == "ark_imex":
+    if (n.temporal in ("ark_imex", "beuler") and not raster) or (
+        p.flow.source.method == "ark_imex"
+    ):
         _not_ported(f"temporal: {n.temporal} / source.method: "
                     f"{p.flow.source.method}", "queue 1 item 13")
     if p.flow.mode != "swe":
@@ -86,7 +107,7 @@ def check_slice(config: Config) -> None:
                     "queue 1 item 5c (mesh readers and RCM ordering)")
     if config.ensemble.size:
         _not_ported("ensembles", "queue 1 item 14")
-    if config.parallel.n_devices > 1:
+    if config.parallel.n_devices > 1 and not raster:
         _not_ported("parallel.n_devices > 1", "queue 1 item 16")
     if config.restart.file or config.checkpoint.interval:
         _not_ported("checkpoints and restart",
@@ -223,6 +244,13 @@ class Simulation:
             device=self.device,
         )
 
+        # ---- uniform-raster paths ----
+        self._structured = None
+        if config.numerics.edge_flux_backend in (
+            "structured", "fused_structured"
+        ):
+            self._init_structured_backend()
+
         # ---- boundary geometry (edge centers, for BC expressions) ----
         self._bnd_centers = self._boundary_edge_centers()
 
@@ -238,6 +266,9 @@ class Simulation:
         # when no source is active, the step loop skips the source stream;
         # a setter that activates one rebuilds the advancer
         self._ext_active = bool(np.any(src0))
+        # which rows hold sources, known on the host (the raster path takes
+        # water sources only)
+        self._src_rows = np.any(src0, axis=1)
 
         # ---- time state ----
         tc = config.time
@@ -419,7 +450,7 @@ class Simulation:
             n_steps = min(n_steps, self.max_steps - self.step)
             t_end = min(t_end, self.t + n_steps * self.dt)
 
-        if self._advance_fn is None:
+        if self._advance_fn is None and self._structured is None:
             self._advance_fn = make_interval_advancer(
                 self.operator, self._advance_scheme,
                 accumulate=self._needs_accumulators(),
@@ -431,22 +462,14 @@ class Simulation:
         done = 0
         while done < n_steps:
             chunk = min(stride, n_steps - done)
-            res = self._advance_fn(
-                self.q, self.t, self.dt, chunk, t_end, self.boundary_values,
-                self.ext_src,
-            )
-            self.q = res.q
-            self.t = float(res.t)
-            self.step += int(chunk)
+            if self._structured is not None:
+                cmax = self._advance_structured(chunk, t_end)
+            else:
+                cmax, edge = self._advance_unstructured(chunk, t_end)
+                if cmax >= max_courant:
+                    self.prev_courant_edge = edge
             done += chunk
-            cmax = float(res.max_courant)
-            if cmax >= max_courant:
-                self.prev_courant_edge = int(res.courant_edge)
             max_courant = max(max_courant, cmax)
-            self.bflux_accum += res.bflux_accum.cpu().numpy()
-            self.accum_sol += res.accum_sol.cpu().numpy()
-            self.accum_prim += res.accum_prim.cpu().numpy()
-            self.accum_time += float(res.accum_time)
             if self._monitors and self.monitor_stride and done < n_steps:
                 for mon in self._monitors:
                     mon(self)
@@ -465,6 +488,264 @@ class Simulation:
         """create -> setup -> advance loop (the C driver main.c:34-88)."""
         while not self.finished:
             self.advance()
+
+    def _advance_unstructured(self, n_steps: int, t_end: float):
+        """n_steps steps of the unstructured path; returns the chunk's
+        (max Courant number, edge id attaining it)."""
+        res = self._advance_fn(
+            self.q, self.t, self.dt, n_steps, t_end, self.boundary_values,
+            self.ext_src,
+        )
+        self.q = res.q
+        self.t = float(res.t)
+        self.step += int(n_steps)
+        self.bflux_accum += res.bflux_accum.cpu().numpy()
+        self.accum_sol += res.accum_sol.cpu().numpy()
+        self.accum_prim += res.accum_prim.cpu().numpy()
+        self.accum_time += float(res.accum_time)
+        return float(res.max_courant), int(res.courant_edge)
+
+    # ------------------------------------------------------------- raster
+    def _init_structured_backend(self):
+        """Wire the uniform-raster paths into the config surface (the JAX
+        package's simulation.py:585-915, single device).
+
+        'structured' = the zero-gather operator in plain PyTorch
+        (ops/structured.py); 'fused_structured' = the raster step kernel K2
+        (ops/kernels/raster_step.py) through the fused stepper. Both require
+        a row-major uniform quad raster and flow-only first-order physics;
+        anything the JAX package's raster paths refuse is a ConfigError
+        here too, and a fused_structured deck whose raster is not 128-wide
+        aligned falls back to 'structured' as it does there.
+        """
+        cfg = self.config
+        p = cfg.physics
+        kind = cfg.numerics.edge_flux_backend
+        tracers = p.sediment.num_classes or p.salinity or p.heat
+        if kind == "fused_structured":
+            # the JAX package's fused raster kernel runs these; K2 not yet
+            if cfg.numerics.second_order:
+                _not_ported("numerics.second_order on the raster",
+                            "queue 2 K2 mode 4: MUSCL in the raster kernel")
+            if tracers:
+                _not_ported("tracers on the raster",
+                            "queue 2 K2 mode 3: tracers in the raster kernel")
+            if cfg.numerics.temporal == "beuler":
+                _not_ported("temporal: beuler on the raster",
+                            "queue 1 item 13")
+            if cfg.parallel.n_devices > 1:
+                _not_ported("parallel.n_devices > 1 on the raster",
+                            "queue 1 item 16 and queue 2 K2 row 13: the "
+                            "row-strip sharded raster kernel")
+        raster = detect_uniform_raster(self._mesh_for_op)
+        if raster is None:
+            raise ConfigError(
+                f"edge_flux_backend: {kind} requires a uniform row-major "
+                "quad raster mesh (and numerics.cell_ordering: natural)"
+            )
+        nx, ny, dx, dy = raster
+        # what the JAX package's raster paths refuse (the fused kind reaches
+        # only well_balancing here)
+        unsupported = []
+        if tracers:
+            unsupported.append("tracers/sediment")
+        if cfg.numerics.second_order:
+            unsupported.append("second_order")
+        if p.flow.well_balancing not in (None, "", "none"):
+            unsupported.append("well_balancing")
+        if cfg.parallel.n_devices > 1:
+            unsupported.append("parallel.n_devices > 1")
+        ts = cfg.output.time_series
+        wants_bflux = bool(ts.boundary_fluxes)
+        wants_means = any(
+            f.endswith("_Mean") for f in (cfg.output.fields or [])
+        ) or bool(
+            ts.observations.interval
+            and not ts.observations.time_sampling.instantaneous
+        )
+        if kind != "fused_structured":
+            if wants_bflux:
+                unsupported.append("time_series.boundary_fluxes")
+            if wants_means:
+                unsupported.append("time-averaged output fields")
+        if unsupported:
+            raise ConfigError(
+                f"edge_flux_backend: {kind} does not support: "
+                + ", ".join(unsupported)
+            )
+
+        # wall BCs from the operator's boundary segments via outward normals
+        a = self.operator.arrays
+        bnd_cn = a.bnd_cn.cpu().numpy().round().astype(int)
+        bnd_sn = a.bnd_sn.cpu().numpy().round().astype(int)
+        bnd_left = a.bnd_left.cpu().numpy()
+        walls = {}  # (cn, sn) -> bc code
+        for seg in self.operator.segments:
+            sl = slice(seg.start, seg.start + seg.count)
+            for w in set(zip(bnd_cn[sl].tolist(), bnd_sn[sl].tolist())):
+                if walls.setdefault(w, seg.bc_type) != seg.bc_type:
+                    raise ConfigError(
+                        f"edge_flux_backend: {kind}: wall with normal {w} "
+                        "has mixed boundary conditions"
+                    )
+        if kind != "fused_structured" and bc_mod.BC_DIRICHLET in walls.values():
+            raise ConfigError(
+                f"edge_flux_backend: {kind} does not support Dirichlet "
+                "walls (use the fused_structured/xla/pallas backends)"
+            )
+        bcs = {side: walls.get(w, bc_mod.BC_REFLECTING)
+               for side, w in _WALL_NORMALS.items()}
+        mesh = self._mesh_for_op
+        dzx = np.asarray(mesh.cell_dz_dx).reshape(ny, nx)
+        dzy = np.asarray(mesh.cell_dz_dy).reshape(ny, nx)
+        mann = np.asarray(self.mannings_n).reshape(ny, nx)
+        scheme = cfg.numerics.temporal
+
+        if kind == "fused_structured":
+            if scheme not in FUSED_SCHEMES:
+                raise ConfigError(
+                    "edge_flux_backend: fused_structured supports temporal: "
+                    "euler|ssprk2|ssprk3|rk4|beuler"
+                )
+            if self.operator.source_method != SOURCE_SEMI_IMPLICIT:
+                raise ConfigError(
+                    "edge_flux_backend: fused_structured supports the "
+                    "semi_implicit source method only"
+                )
+            # the TPU kernel's row tile; kept so that one deck takes the
+            # same path in both packages (K2 itself needs no alignment)
+            ty = 16 if ny % 16 == 0 else 8
+            if nx % 128 or ny % ty:
+                self.log.warning(
+                    f"fused_structured needs nx % 128 == 0 and ny % {ty} == "
+                    f"0 (got {nx}x{ny}); falling back to the structured "
+                    "path"
+                )
+                kind = "structured"
+        if kind == "fused_structured":
+            plan = StructuredPlan(
+                nx=nx, ny=ny, dx=dx, dy=dy,
+                tiny_h=cfg.physics.flow.tiny_h,
+                h_anuga=cfg.physics.flow.h_anuga_reg_parameter,
+                **{f"bc_{side}": bc for side, bc in bcs.items()},
+            )
+            # Dirichlet walls: position along the wall -> boundary_values
+            # column, so the ghosts take the live Dirichlet values
+            side_cols = {}
+            for side, w in _WALL_NORMALS.items():
+                if bcs[side] != bc_mod.BC_DIRICHLET:
+                    continue
+                n_side = ny if side in ("left", "right") else nx
+                cols = np.full(n_side, -1, np.int64)
+                for seg in self.operator.segments:
+                    sl = np.arange(seg.start, seg.start + seg.count)
+                    on = (bnd_cn[sl] == w[0]) & (bnd_sn[sl] == w[1])
+                    cells = bnd_left[sl][on]
+                    pos = cells // nx if side in ("left", "right") else cells % nx
+                    cols[pos] = sl[on]
+                if (cols < 0).any():
+                    raise ConfigError(
+                        f"edge_flux_backend: {kind}: Dirichlet wall "
+                        f"'{side}' is not fully covered by boundary edges"
+                    )
+                side_cols[side] = torch.as_tensor(cols, device=self.device)
+            accum = wants_bflux or wants_means
+            bnd = None
+            if wants_bflux and self.operator.num_boundary_edges:
+                bnd = boundary_edge_arrays(a)
+
+            def plane(x):
+                return torch.as_tensor(x, dtype=torch.float32,
+                                       device=self.device)
+
+            op = FusedStructuredOperator(plan, plane(dzx), plane(dzy),
+                                         plane(mann), bnd)
+            # the rain plane goes to the kernel when the config declares
+            # sources, or from the first interval a coupler sets one
+            self._structured = dict(
+                kind="fused", nx=nx, ny=ny, op=op, scheme=scheme,
+                with_src=bool(cfg.sources), side_cols=side_cols,
+                accumulate=accum,
+                adv=make_fused_structured_stepper(op, scheme,
+                                                  accumulate=accum),
+            )
+            self.log.info(
+                f"structured raster {nx}x{ny}: raster step kernel K2 "
+                f"({scheme}{', +src' if cfg.sources else ''}"
+                f"{'; its plain version on the CPU' if self.device.type == 'cpu' else ''})"
+            )
+        else:
+            if scheme not in STRUCTURED_SCHEMES:
+                raise ConfigError(
+                    "edge_flux_backend: structured supports temporal: "
+                    "euler|ssprk2|rk4"
+                )
+            op = build_structured_operator(
+                nx, ny, dx, dy, mannings_n=mann, dtype=self.dtype,
+                dz_dx=dzx, dz_dy=dzy, device=self.device,
+                **{f"bc_{side}": bc for side, bc in bcs.items()},
+                tiny_h=cfg.physics.flow.tiny_h,
+                h_anuga=cfg.physics.flow.h_anuga_reg_parameter,
+                source_method=self.operator.source_method,
+                xq2018_threshold=self.operator.xq2018_threshold,
+            )
+            self._structured = dict(
+                kind="xla", op=op, nx=nx, ny=ny,
+                adv=make_structured_stepper(op, scheme),
+            )
+            self.log.info(
+                f"structured raster {nx}x{ny}: zero-gather path ({scheme})"
+            )
+
+    def _advance_structured(self, n_steps: int, t_end: float) -> float:
+        """n_steps steps of the raster path; returns the chunk's max
+        Courant number (a raster has no Courant edge id)."""
+        st = self._structured
+        nx, ny = st["nx"], st["ny"]
+        if st["kind"] == "xla":
+            q_out, t_out, cmax = st["adv"](
+                st["op"].arrays, self.q.reshape(N_FLOW_DOF, ny, nx), self.t,
+                self.dt, int(n_steps), t_end,
+                self.ext_src.reshape(N_FLOW_DOF, ny, nx),
+            )
+            self.q = q_out.reshape(N_FLOW_DOF, ny * nx)
+        else:
+            if self._src_rows[1:].any():
+                raise ConfigError(
+                    "edge_flux_backend: fused_structured supports water "
+                    "(row 0) external sources only (use structured for "
+                    "momentum sources)"
+                )
+            if not st["with_src"] and self._src_rows[0]:
+                self.log.info(
+                    "fused_structured: external water source appeared; "
+                    "the raster step takes the source plane from now on"
+                )
+                st["with_src"] = True
+            f32 = torch.float32
+            src = (self.ext_src[0].reshape(ny, nx).to(f32)
+                   if st["with_src"] else None)
+            bv = self.boundary_values
+            bc_vals = {side: bv[:, cols].to(f32)
+                       for side, cols in st["side_cols"].items()}
+            accum = st["accumulate"]
+            res = st["adv"](
+                self.q.to(f32), np.float32(self.t), np.float32(self.dt),
+                int(n_steps), np.float32(t_end), src=src, bc_vals=bc_vals,
+                bv_edges=bv.to(f32) if accum else None,
+            )
+            if accum:
+                if res.bflux_accum is not None:
+                    self.bflux_accum += res.bflux_accum.cpu().numpy()
+                self.accum_sol += res.accum_sol.cpu().numpy()
+                self.accum_prim += res.accum_prim.cpu().numpy()
+                self.accum_time += float(res.accum_time)
+            self.q = res.q.to(self.dtype)
+            t_out, cmax = res.t, res.max_courant
+        self.t = float(t_out)
+        self.step += int(n_steps)
+        self.prev_courant_edge = None
+        return float(cmax)
 
     def mark_cells_for_amr(self, refine_cell: np.ndarray) -> None:
         """RDyMarkOwnedCellsForAMR: adaptive mesh refinement is not ported."""
@@ -536,12 +817,16 @@ class Simulation:
         n = np.broadcast_to(np.asarray(n, dtype=np.float64), (self.mesh.num_cells,))
         self.mannings_n = n.copy()
         self.operator.arrays.mannings_n = self._tensor(self.mannings_n)
+        # the raster paths hold their own Manning plane: rebuild them
+        if self._structured is not None:
+            self._init_structured_backend()
 
     def _update_ext_src(self, src: np.ndarray):
         """Install new external sources; if sources just became active on
         an advancer built without them, drop it so the next interval
         rebuilds it with the source stream."""
         self.ext_src = self._tensor(src)
+        self._src_rows = np.any(src, axis=1)
         if not self._ext_active and np.any(src):
             self._ext_active = True
             self._advance_fn = None

@@ -5,7 +5,7 @@
   RuntimeError instead of running on the CPU.
 - The kernel wrappers take their plain PyTorch versions for CPU tensors
   (and count no launch).
-- Each feature outside the first port slice raises NotImplementedError.
+- Each feature outside the ported slices raises NotImplementedError.
 - `operator_arrays_from_numpy` carries a JAX OperatorArrays across exactly.
 """
 
@@ -40,7 +40,8 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys, rdycore_tpu_torch, rdycore_tpu_torch.__main__\n"
         "import rdycore_tpu_torch.convert, rdycore_tpu_torch.io.writers\n"
-        "import rdycore_tpu_torch.io.time_series\n"
+        "import rdycore_tpu_torch.io.time_series, rdycore_tpu_torch.ops.structured\n"
+        "import rdycore_tpu_torch.ops.kernels.raster_step\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'rdycore_tpu' or "
         "m.startswith('rdycore_tpu.'))\n"
@@ -106,7 +107,7 @@ def test_wrappers_take_plain_versions_on_cpu():
     m, i = kernels.courant_argmax(courant, dt, run_max, run_idx)
     assert (m, i) == courant_argmax_plain(courant)
     assert float(run_max) == float(m * dt) and int(run_idx) == int(i)
-    assert [k.launches for k in kernels.KERNELS] == [0, 0, 0]
+    assert [k.launches for k in kernels.KERNELS] == [0, 0, 0, 0]
 
 
 def test_courant_argmax_ties_go_to_lowest_index():
@@ -124,8 +125,9 @@ def test_stage_with_gamma_other_than_beta_is_refused():
 
 
 @pytest.mark.parametrize("numerics, physics", [
-    ({"edge_flux_backend": "structured"}, {}),
-    ({"edge_flux_backend": "fused_structured"}, {}),
+    ({"edge_flux_backend": "fused_structured", "second_order": True}, {}),
+    ({"edge_flux_backend": "fused_structured"}, {"sediment": {"num_classes": 1}}),
+    ({"edge_flux_backend": "fused_structured", "temporal": "beuler"}, {}),
     ({"second_order": True}, {}),
     ({"temporal": "ark_imex"}, {}),
     ({"temporal": "beuler"}, {}),

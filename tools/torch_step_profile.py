@@ -2,11 +2,13 @@
 """Where a step of rdycore_tpu_torch's main path spends its time on the GPU.
 
     python3 tools/torch_step_profile.py [--nx 2048] [--ny 1408] [--steps 200]
-                                        [--scheme euler] [--f64]
+                                        [--scheme euler] [--f64] [--raster]
 
 Runs the dam break of chip_smoke.py (f32, or f64 with --f64; boundary-flux
-accumulators on) through `Simulation` on the CUDA device: one warm-up
-interval, then
+accumulators on) through `Simulation` on the CUDA device, on its
+unstructured path or, with --raster, on the raster path
+(`edge_flux_backend: fused_structured`, float32 whatever --f64 says): one
+warm-up interval, then
 --steps steps under torch.profiler (CPU and CUDA activities). Prints the
 card's name and power limit, the wall time per step, the device time per
 step of every kernel (the package's CUDA kernels and PyTorch's own
@@ -26,7 +28,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import (  # noqa: E402
-    DT, dam_break_config, device_events, nvidia_smi_line,
+    DT, DX, dam_break_config, device_events, nvidia_smi_line,
 )
 
 
@@ -37,6 +39,8 @@ def main():
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--scheme", default="euler")
     ap.add_argument("--f64", action="store_true", help="double precision")
+    ap.add_argument("--raster", action="store_true",
+                    help="edge_flux_backend: fused_structured")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_step_profile: no CUDA device", file=sys.stderr)
@@ -47,13 +51,14 @@ def main():
     from rdycore_tpu_torch import Simulation
     from rdycore_tpu_torch.mesh import structured_quad
 
-    lx, ly = args.nx * 0.002, args.ny * 0.002
+    lx, ly = args.nx * DX, args.ny * DX
     mesh = structured_quad(
         args.nx, args.ny, 0.0, lx, 0.0, ly,
         region_fn=lambda cx, cy: np.where(cx < lx / 2, 1, 2),
     )
-    cfg = dam_break_config(10 * args.steps)
-    cfg.numerics.temporal = args.scheme
+    cfg = dam_break_config(
+        10 * args.steps, "fused_structured" if args.raster else "xla",
+        args.scheme)
     if args.f64:
         cfg.numerics.precision = "double"
     cfg.time.coupling_interval = args.steps * DT
@@ -77,7 +82,8 @@ def main():
         return 2
     busy_us = sum(r[0] for r in rows)
     print(f"[{card}] {args.nx}x{args.ny} ({mesh.num_cells} cells) "
-          f"{args.scheme} {'f64' if args.f64 else 'f32'}: {steps} steps in {wall:.4f} s wall = "
+          f"{'raster ' if args.raster else ''}{args.scheme} "
+          f"{'f64' if args.f64 else 'f32'}: {steps} steps in {wall:.4f} s wall = "
           f"{1e3 * wall / steps:.4f} ms/step, "
           f"{steps * mesh.num_cells / wall:.4e} cell-updates/s")
     print(f"device busy {busy_us / 1e3 / steps:.4f} ms/step; idle share "
