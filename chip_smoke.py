@@ -51,9 +51,28 @@ Phases, each printing as it goes; any failure exits non-zero:
    edges alone are held against their plain versions (2e-5; the Courant
    fold exact) and timed like the others.
 
+5. Tracers (two sediment classes with Hairsine-Rose sources and salinity,
+   NT = 3 tracer rows, ndof = 6). At 256x176 (quad and triangle meshes,
+   f32 and f64, Roe and upwind-Roe, all three BC codes with non-zero
+   Dirichlet tracer masses): K1a and K1b (each ssprk3 stage and rhs mode,
+   source methods semi-implicit and none) at NT = 3, and K2 at NT = 3 on
+   the raster (rain on, each stage and rhs mode), against their plain
+   versions, tolerances as in phase 2. Then, on each main path at full
+   size, the dam break with sediment in the reservoir and one salt
+   concentration everywhere: 10 steps on the kernels against 10 on the
+   plain versions (every row of q and of the accumulators, and the Courant
+   number, to relative 1e-4); --steps euler steps with the launch counts
+   set to 0 just before (K1a, K1b and K1c once per unstructured step; K2,
+   K1c and boundary-only K1a once per raster step); h finite and >= 0,
+   every row finite, the volume budget, and on the unstructured path the
+   salinity mass budget (mass lost = accumulated outflow of its row, to
+   1e-4 of the initial mass); the NT = 3 kernels held against their plain
+   versions at the path's shapes and timed like the others.
+
 Before the last line it prints the card's name and power limit and a JSON
 line {"kernels": [...]} with one row per kernel and path ("path":
-"unstructured" or "raster"), each with that path's own launches, times and
+"unstructured", "raster", "unstructured+tracers" or "raster+tracers", the
+last two with "nt": 3), each with that path's own launches, times and
 bound; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -63,6 +82,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -83,6 +103,18 @@ OPS_PER_VALUE = 1  # K1c: one comparison per Courant value
 # the divergence, sources, stage update and Courant maxima
 OPS_PER_RASTER_CELL = 700
 DX = 1.0 / 512.0  # cell size of the full-size raster [m]
+H_RESERVOIR, H_FLOODPLAIN = 0.25, 0.05  # initial depths [m]
+# phase 5: two sediment classes (their concentrations in the reservoir)
+# and salinity (one concentration everywhere)
+NT, NUM_SEDIMENT = 3, 2
+SEDIMENT_C = (2e-3, 1e-3)
+SALINITY_C = 1e-3
+# operations per item that the tracers add, counted from the CUDA sources:
+# K1a two concentrations and the advected wave per tracer; K1b its gather,
+# Hairsine-Rose, stage and primitive; K2 five concentrations, four faces'
+# waves, the divergence, sources and stage
+OPS_PER_TRACER = {"swe_edge_flux": 25, "swe_cell_stage": 20,
+                  "swe_raster_step": 75}
 _CSRC = "rdycore_tpu_torch/ops/kernels/csrc/"
 SOURCES = {"swe_edge_flux": _CSRC + "swe_edge_flux.cu",
            "swe_cell_stage": _CSRC + "swe_cell_stage.cu",
@@ -191,8 +223,36 @@ def phase_build():
         f"(per source: "
         f"{', '.join(f'{k} {v[0]:.2f} s' for k, v in built.items())})")
     for name, (_, report) in built.items():
-        regs = [ln.strip() for ln in report.splitlines() if "registers" in ln]
-        log(f"  ptxas {name}: {' | '.join(regs)}")
+        log(f"  ptxas {name}: {' | '.join(ptxas_summary(report))}")
+
+
+def ptxas_summary(report):
+    """'kernel<args>: R registers, S spill bytes' of each entry function in
+    nvcc's -Xptxas -v report whose tracer count is 0 or NT (the others are
+    the same source at other counts)."""
+    out, entry, spill = [], None, ""
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        if entry and "spill stores" in line:
+            spill = line.strip()
+        m = re.search(r"Used (\d+) registers", line)
+        if entry and m:
+            k = re.search(r"\d+([a-z_]+_kernel|argmax_partial|argmax_final)"
+                          r"I(\w+?)EE", entry)
+            counts = re.findall(r"Li(\d+)E", entry)
+            if k and (not counts or int(counts[0]) in (0, NT)):
+                args = k.group(2)
+                what = ["f64" if args.startswith("d") else "f32"]
+                what += [f"nt {c}" for c in counts]
+                what += ["upwind"] if "Lb1" in args else []
+                spills = re.findall(r"(\d+) bytes spill", spill)
+                out.append(f"{k.group(1)}<{', '.join(what)}>: {m.group(1)} "
+                           f"regs, {sum(map(int, spills))} B spilled")
+            entry = None
+    return out
 
 
 # ------------------------------------------------------------------ phase 2
@@ -347,10 +407,9 @@ def phase_kernels(seed, errs, dev):
 
 
 # ------------------------------------------------------------------ phase 3
-def dam_break_config(steps, backend="xla", scheme="euler"):
-    from rdycore_tpu_torch.config.yaml_input import config_from_dict
-
-    return config_from_dict({
+def dam_break_dict(steps, backend="xla", scheme="euler"):
+    """The dam-break deck of both main paths as a config dictionary."""
+    return {
         "physics": {"flow": {"mode": "swe"}},
         "numerics": {"spatial": "fv", "temporal": scheme, "riemann": "roe",
                      "precision": "single", "edge_flux_backend": backend},
@@ -371,12 +430,39 @@ def dam_break_config(steps, backend="xla", scheme="euler"):
                        {"name": "right", "grid_boundary_id": 2}],
         "boundary_conditions": [{"boundaries": ["right"], "flow": "outflow"}],
         "flow_conditions": [
-            {"name": "column", "type": "dirichlet", "height": 0.25,
+            {"name": "column", "type": "dirichlet", "height": H_RESERVOIR,
              "x_momentum": 0, "y_momentum": 0},
-            {"name": "wet_bed", "type": "dirichlet", "height": 0.05,
+            {"name": "wet_bed", "type": "dirichlet", "height": H_FLOODPLAIN,
              "x_momentum": 0, "y_momentum": 0},
             {"name": "outflow", "type": "critical-outflow"}],
-    }).validate()
+    }
+
+
+def dam_break_config(steps, backend="xla", scheme="euler"):
+    from rdycore_tpu_torch.config.yaml_input import config_from_dict
+
+    return config_from_dict(dam_break_dict(steps, backend, scheme)).validate()
+
+
+def tracer_dam_break_config(steps, backend="xla", scheme="euler"):
+    """The dam break with two sediment classes and salinity (ndof = 6): the
+    reservoir holds sediment, and salt has one concentration everywhere
+    (the initial conditions give tracer masses h*c)."""
+    from rdycore_tpu_torch.config.yaml_input import config_from_dict
+
+    d = dam_break_dict(steps, backend, scheme)
+    d["physics"].update({"sediment": {"num_classes": 2}, "salinity": True})
+    d["initial_conditions"] = [
+        {"region": "reservoir", "flow": "column", "sediment": "mud",
+         "salinity": "salt_deep"},
+        {"region": "floodplain", "flow": "wet_bed", "salinity": "salt_shallow"}]
+    d["sediment_conditions"] = [{
+        "name": "mud", "c0": {"value": H_RESERVOIR * SEDIMENT_C[0]},
+        "c1": {"value": H_RESERVOIR * SEDIMENT_C[1]}}]
+    d["salinity_conditions"] = [
+        {"name": "salt_deep", "concentration": H_RESERVOIR * SALINITY_C},
+        {"name": "salt_shallow", "concentration": H_FLOODPLAIN * SALINITY_C}]
+    return config_from_dict(d).validate()
 
 
 def plain_operator(op):
@@ -390,7 +476,8 @@ def plain_operator(op):
     class PlainSWEOperator(SWEOperator):
         def edge_flux(self, q, bv):
             return swe_edge_flux_plain(self.arrays, q, bv, self.tiny_h,
-                                       self.h_anuga)
+                                       self.h_anuga,
+                                       self.riemann == "upwind_roe")
 
         def courant_max(self, courant, dt=None, run_max=None, run_idx=None):
             return courant_argmax_plain(courant, dt, run_max, run_idx)
@@ -399,18 +486,20 @@ def plain_operator(op):
             return swe_cell_stage_plain(
                 self.arrays, flux, q, dt, ext_src, tiny_h=self.tiny_h,
                 h_anuga=self.h_anuga, xq2018_threshold=self.xq2018_threshold,
-                source_method=self.source_method, **mode)
+                source_method=self.source_method,
+                num_sediment=self.num_sediment, **mode)
 
     return PlainSWEOperator(**{f.name: getattr(op, f.name)
                                for f in dataclasses.fields(op)})
 
 
-def edge_flux_bytes(Ei, Eb, q_bytes, s):
+def edge_flux_bytes(Ei, Eb, q_bytes, s, ndof=3):
     """Bytes K1a must move over Ei interior and Eb boundary edges, reading
-    q_bytes of the state: each input read once, each output written once."""
+    q_bytes of the state (ndof rows): each input read once, each output
+    written once."""
     E = Ei + Eb
-    return (q_bytes + Ei * (4 + 4 + s + s) + Eb * (4 + s + s + 1 + 3 * s)
-            + E * s + 3 * (E + 1) * s + E * s)
+    return (q_bytes + Ei * (4 + 4 + s + s) + Eb * (4 + s + s + 1 + ndof * s)
+            + E * s + ndof * (E + 1) * s + E * s)
 
 
 def courant_bytes(n, s):
@@ -422,14 +511,20 @@ def courant_bytes(n, s):
 def kernel_bytes(op, q_bytes, s, rhs=False):
     """Bytes each kernel must move at the main path's configuration (euler
     stage with primitives, no external source; with `rhs`, K1b in rhs mode
-    writing flux_div, rhs and primitives): each input read once, each
-    output written once."""
+    writing flux_div, rhs and primitives), over the operator's ndof rows:
+    each input read once, each output written once."""
     C, Ei, Eb = op.num_cells, op.num_internal_edges, op.num_boundary_edges
-    E, K = Ei + Eb, op.arrays.cell_edges.shape[1]
-    k1b = (3 * (E + 1) * s + C * K * (4 + s) + q_bytes + s + 3 * C * s
+    E, K, nd = Ei + Eb, op.arrays.cell_edges.shape[1], op.ndof
+    k1b = (nd * (E + 1) * s + C * K * (4 + s) + q_bytes + s + 3 * C * s
            + q_bytes * (3 if rhs else 2))
-    return {"swe_edge_flux": edge_flux_bytes(Ei, Eb, q_bytes, s),
+    return {"swe_edge_flux": edge_flux_bytes(Ei, Eb, q_bytes, s, nd),
             "swe_cell_stage": k1b, "courant_argmax": courant_bytes(E, s)}
+
+
+def raster_step_bytes(C, ndof, blocks, s):
+    """Bytes K2 must move in an euler stage with the primitives: q and the
+    three geometry planes read, out and prim written, the block maxima."""
+    return s * ((3 * ndof + 3) * C + blocks + 1)
 
 
 def kernel_row(name, path, source, replaces, launches, err, timing, nbytes,
@@ -656,7 +751,8 @@ def plain_raster_operator(op):
         def step(self, q, dt, src=None, bc_vals=None, **mode):
             return swe_raster_step_plain(
                 self.plan, q, self.dz_dx, self.dz_dy, self.mannings_n, dt,
-                src=src, bc_vals=bc_vals, **mode)
+                src=src, bc_vals=bc_vals, num_sediment=self.num_sediment,
+                upwind=self.riemann == "upwind_roe", **mode)
 
         def courant_max(self, cmax_blocks, dt, run_max, run_idx):
             return courant_argmax_plain(cmax_blocks, dt, run_max, run_idx)
@@ -670,12 +766,13 @@ def plain_raster_operator(op):
                                            for f in dataclasses.fields(op)})
 
 
-def raster_simulation(steps, dev, mesh, scheme="euler", plain=False):
-    """The dam break with edge_flux_backend: fused_structured."""
+def raster_simulation(steps, dev, mesh, scheme="euler", plain=False,
+                      config=dam_break_config):
+    """The dam break (`config`) with edge_flux_backend: fused_structured."""
     from rdycore_tpu_torch import Simulation
     from rdycore_tpu_torch.ops.structured import make_fused_structured_stepper
 
-    sim = Simulation(dam_break_config(steps, "fused_structured", scheme),
+    sim = Simulation(config(steps, "fused_structured", scheme),
                      mesh=mesh, device=dev)
     st = sim._structured
     if st["kind"] != "fused":
@@ -836,7 +933,7 @@ def phase_raster(steps, errs, dev, mesh):
     # K2: q, the three geometry planes, out and prim, the block maxima;
     # K1a: the boundary cells' state and the boundary edges' arrays
     nbytes = {
-        "swe_raster_step": s * (12 * C + blocks.numel() + 1),
+        "swe_raster_step": raster_step_bytes(C, 3, blocks.numel(), s),
         "swe_edge_flux": edge_flux_bytes(
             0, Eb, 3 * s * int(torch.unique(op.bnd.bnd_left).numel()), s),
         "courant_argmax": courant_bytes(blocks.numel(), s),
@@ -865,6 +962,363 @@ def phase_raster(steps, errs, dev, mesh):
     return rows
 
 
+# ------------------------------------------------------------------ phase 5
+def tracer_rows(q, bv, ext, rng):
+    """q, bv and ext of random_state with NT tracer rows: masses h*c in q,
+    Dirichlet masses in bv, small external sources in ext."""
+    def add(x, rows):
+        return torch.cat([x, torch.as_tensor(rows, dtype=x.dtype,
+                                             device=x.device)])
+
+    C, Eb = q.shape[1], bv.shape[1]
+    h, hb = q[0].cpu().numpy(), bv[0].cpu().numpy()
+    return (add(q, h * rng.uniform(0.0, 0.5, (NT, C))),
+            add(bv, hb * rng.uniform(0.0, 0.2, (NT, Eb))),
+            add(ext, rng.normal(0.0, 1e-4, (NT, C))))
+
+
+def phase_tracer_kernels(seed, errs, dev):
+    """K1a, K1b and K2 at NT = 3 against their plain versions at 256x176,
+    Roe and upwind-Roe, every BC code."""
+    from rdycore_tpu_torch.mesh import structured_quad, structured_tri
+    from rdycore_tpu_torch.operator import build_operator
+    from rdycore_tpu_torch.ops.kernels.cell_stage import (
+        swe_cell_stage, swe_cell_stage_plain)
+    from rdycore_tpu_torch.ops.kernels.edge_flux import (
+        swe_edge_flux, swe_edge_flux_plain)
+    from rdycore_tpu_torch.ops.kernels.raster_step import (
+        StructuredPlan, swe_raster_step, swe_raster_step_plain)
+    from rdycore_tpu_torch.ops.structured import FUSED_STAGES
+    from rdycore_tpu_torch.timestepping import _FUSED_STEP_STAGES
+
+    log(f"== phase 5a: the NT = {NT} kernels ({NUM_SEDIMENT} sediment "
+        "classes and salinity) against their plain versions")
+    rng = np.random.default_rng(seed + 5)
+    meshes = {
+        "quad 256x176": structured_quad(256, 176, 0.0, 0.512, 0.0, 0.352),
+        "tri 128x88": structured_tri(128, 88, 0.0, 0.512, 0.0, 0.352),
+    }
+    bc = {"left": 0, "right": 2, "top": 1, "bottom": 0}  # all three codes
+    failures = []
+
+    def check(kernel, what, got, want, dtype):
+        r, a = rel_err(got, want), abs_err(got, want)
+        key = f"{kernel} nt{NT}"
+        errs[key] = max(errs.get(key, 0.0), a)
+        ok = r <= TOL[dtype] and got.shape == want.shape
+        log(f"  {kernel:15s} {what:56s} rel {r:.3e} abs {a:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{kernel} {what}")
+
+    for mname, mesh in meshes.items():
+        for dtype in (torch.float32, torch.float64):
+            for riemann in ("roe", "upwind_roe"):
+                tag = f"{mname} {str(dtype)[6:]} {riemann}"
+                upwind = riemann == "upwind_roe"
+                op = build_operator(
+                    mesh, bc_types=bc,
+                    mannings_n=rng.uniform(0.01, 0.05, mesh.num_cells),
+                    num_tracers=NT, num_sediment=NUM_SEDIMENT,
+                    riemann=riemann, dtype=dtype, device=dev)
+                a = op.arrays
+                q, bv, ext = tracer_rows(*random_state(op, rng, dtype, dev),
+                                         rng)
+                qA, _, _ = tracer_rows(*random_state(op, rng, dtype, dev),
+                                       rng)
+                fk, ck = swe_edge_flux(a, q, bv, op.tiny_h, op.h_anuga,
+                                       upwind)
+                fp, cp = swe_edge_flux_plain(a, q, bv, op.tiny_h,
+                                             op.h_anuga, upwind)
+                check("swe_edge_flux", f"{tag} flux", fk, fp, dtype)
+                check("swe_edge_flux", f"{tag} courant", ck, cp, dtype)
+                dt = torch.tensor(0.002, dtype=dtype, device=dev)
+                for method in (0, 2):
+                    kw = dict(tiny_h=op.tiny_h, h_anuga=op.h_anuga,
+                              xq2018_threshold=op.xq2018_threshold,
+                              source_method=method,
+                              num_sediment=NUM_SEDIMENT)
+                    modes = [("rhs", dict(emit_prim=True))] + [
+                        (f"stage {i + 1}",
+                         dict(stage=st, qA=qA if i else None, emit_prim=True))
+                        for i, st in enumerate(_FUSED_STEP_STAGES["ssprk3"])]
+                    for mode, extra in modes:
+                        got = swe_cell_stage(a, fp, q, dt, ext, **kw, **extra)
+                        want = swe_cell_stage_plain(a, fp, q, dt, ext, **kw,
+                                                    **extra)
+                        for field in ("q_out", "flux_div", "rhs", "prim"):
+                            if getattr(want, field) is not None:
+                                check("swe_cell_stage",
+                                      f"{tag} src{method} {mode} {field}",
+                                      getattr(got, field),
+                                      getattr(want, field), dtype)
+    # K2 at NT = 3 on a 256x176 raster, f32, the rain plane on
+    nx, ny = 256, 176
+    f32 = torch.float32
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), dtype=f32, device=dev)
+
+    h = rng.uniform(0.05, 1.0, nx * ny)
+    h = np.where(rng.uniform(size=h.size) < 0.25, rng.uniform(0, 5e-8, h.size),
+                 h)
+    h = np.where(rng.uniform(size=h.size) < 0.1, 0.0, h)
+    q = t(np.concatenate([[h, h * rng.normal(0, 0.4, h.size),
+                           h * rng.normal(0, 0.4, h.size)],
+                          h * rng.uniform(0.0, 0.5, (NT, h.size))]))
+    qA = q.flip(1).contiguous()
+    geo = [t(rng.normal(0, 0.01, (ny, nx))), t(rng.normal(0, 0.01, (ny, nx))),
+           t(rng.uniform(0.01, 0.05, (ny, nx)))]
+    plan = StructuredPlan(nx, ny, 0.002, 0.002, 1e-7, 0.0, bc_left=0,
+                          bc_right=2, bc_bottom=2, bc_top=1)
+    hl = rng.uniform(0.1, 0.6, ny)
+    bc_vals = {"left": t(np.concatenate([
+        [hl, rng.normal(0, 0.1, ny), rng.normal(0, 0.1, ny)],
+        hl * rng.uniform(0.0, 0.2, (NT, ny))]))}
+    src = t(rng.uniform(0.0, 1e-2, (ny, nx)))
+    dt = torch.tensor(0.002, dtype=f32, device=dev)
+    modes = [("rhs", dict(emit_prim=True))] + [
+        (f"stage {i + 1}", dict(stage=st, qA=qA if i else None,
+                                emit_prim=True))
+        for i, st in enumerate(FUSED_STAGES["ssprk3"])]
+    for upwind in (False, True):
+        for mode, extra in modes:
+            tag = (f"raster 256x176 f32 {'upwind_roe' if upwind else 'roe'} "
+                   f"{mode}")
+            kw = dict(src=src, bc_vals=bc_vals, num_sediment=NUM_SEDIMENT,
+                      upwind=upwind, **extra)
+            got = swe_raster_step(plan, q, *geo, dt, **kw)
+            want = swe_raster_step_plain(plan, q, *geo, dt, **kw)
+            for field in ("out", "prim", "cmax"):
+                check("swe_raster_step", f"{tag} {field}",
+                      getattr(got, field), getattr(want, field), f32)
+    torch.cuda.synchronize()
+    if failures:
+        raise SystemExit(f"tracer kernel checks failed: {failures}")
+
+
+def tracer_simulation(steps, backend, dev, mesh, plain=False):
+    """The sediment and salinity dam break on `backend`, its kernels
+    replaced by their plain versions when `plain`."""
+    from rdycore_tpu_torch import Simulation
+
+    if backend == "fused_structured":
+        return raster_simulation(steps, dev, mesh, plain=plain,
+                                 config=tracer_dam_break_config)
+    sim = Simulation(tracer_dam_break_config(steps, backend), mesh=mesh,
+                     device=dev)
+    if plain:
+        sim.operator = plain_operator(sim.operator)
+    return sim
+
+
+def rows_rel_err(a, b):
+    """The worst over rows of each row's error relative to its largest
+    magnitude (a row of zeros in both counts 0)."""
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    return max(rel_err(a[k], b[k]) for k in range(a.shape[0]))
+
+
+def phase_tracers(steps, errs, dev, mesh):
+    """Both main paths with NT = 3 at full size: 10 steps on the kernels
+    against 10 on the plain versions, then `steps` euler steps with the
+    launch counts, the state, the volume and (unstructured) the salinity
+    budget checked, and each NT = 3 kernel timed at the path's shapes."""
+    from rdycore_tpu_torch.ops import kernels
+    from rdycore_tpu_torch.ops.kernels.cell_stage import swe_cell_stage_plain
+    from rdycore_tpu_torch.ops.kernels.edge_flux import swe_edge_flux_plain
+    from rdycore_tpu_torch.ops.kernels.raster_step import swe_raster_step_plain
+
+    card = nvidia_smi_line()
+    area = mesh.cell_area
+    rows = []
+    for path, backend in (("unstructured", "xla"),
+                          ("raster", "fused_structured")):
+        log(f"== phase 5: {path} main path with {NUM_SEDIMENT} sediment "
+            f"classes and salinity (ndof {3 + NT}), {mesh.num_cells:,} "
+            "cells, f32")
+        sim_k = tracer_simulation(10, backend, dev, mesh)
+        sim_p = tracer_simulation(10, backend, dev, mesh, plain=True)
+        sim_k.run()
+        sim_p.run()
+        torch.cuda.synchronize()
+        if sim_k.step != 10 or sim_p.step != 10 or sim_k.ndof != 3 + NT:
+            raise SystemExit(f"10-step runs took {sim_k.step}/{sim_p.step} "
+                             f"steps, ndof {sim_k.ndof}")
+        r10 = {"q": rows_rel_err(sim_k.q, sim_p.q)}
+        for name in ("bflux_accum", "accum_sol", "accum_prim"):
+            r10[name] = rows_rel_err(getattr(sim_k, name),
+                                     getattr(sim_p, name))
+        ck, cp = sim_k.prev_max_courant, sim_p.prev_max_courant
+        r10["courant"] = abs(ck - cp) / max(abs(cp), 1e-30)
+        log(f"  10 steps, kernels vs plain versions (worst row): "
+            + ", ".join(f"{k} {v:.3e}" for k, v in r10.items())
+            + f"; courant {ck:.9f} vs {cp:.9f}")
+        if not all(v <= 1e-4 for v in r10.values()):
+            raise SystemExit(f"10-step {path} tracer run differs from "
+                             f"plain: {r10}")
+        del sim_k, sim_p
+
+        t0 = time.perf_counter()
+        sim = tracer_simulation(steps, backend, dev, mesh)
+        torch.cuda.synchronize()
+        t_setup = time.perf_counter() - t0
+        q0 = sim.get_solution().astype(np.float64)
+        v0 = float(np.sum(q0[0] * area))
+        m0 = float(np.sum(q0[3 + NUM_SEDIMENT] * area))
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        sim.advance()
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        s_first = sim.step
+        t0 = time.perf_counter()
+        sim.run()
+        torch.cuda.synchronize()
+        t_steady = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in kernels.KERNELS}
+        n_steady = sim.step - s_first
+        if sim.step != steps:
+            raise SystemExit(f"{path} tracer run took {sim.step} steps")
+        raster = backend == "fused_structured"
+        check_launches(f"{path} main path with tracers", launches, {
+            "swe_edge_flux": steps, "swe_cell_stage": 0 if raster else steps,
+            "courant_argmax": steps, "swe_raster_step": steps if raster
+            else 0})
+        check_state_and_budget(sim, v0, area)
+        q1 = sim.get_solution().astype(np.float64)
+        moved = np.abs(q1[3:3 + NUM_SEDIMENT] - q0[3:3 + NUM_SEDIMENT]).max()
+        log(f"  sediment moved by up to {moved:.3e} (mass h*c)")
+        if not moved > 0.0:
+            raise SystemExit("the sediment rows did not move")
+        if not raster:
+            # salinity is passive: mass lost = accumulated outflow
+            m1 = float(np.sum(q1[3 + NUM_SEDIMENT] * area))
+            lens = sim.operator.arrays.bnd_len.cpu().numpy().astype(
+                np.float64)
+            out = float(np.sum(sim.bflux_accum[3 + NUM_SEDIMENT] * lens))
+            budget = abs((m0 - m1) - out) / m0
+            log(f"  salinity mass: initial {m0:.9e}, final {m1:.9e}, lost "
+                f"{m0 - m1:.6e}, outflow {out:.6e}, budget error "
+                f"{budget:.3e} of the initial mass")
+            if not (budget <= 1e-4 and out > 0.0):
+                raise SystemExit(f"salinity budget error {budget}, "
+                                 f"outflow {out}")
+        log(f"  [{card}] setup {t_setup:.2f} s; first interval {t_first:.3f}"
+            f" s ({s_first} steps); steady state {t_steady:.3f} s for "
+            f"{n_steady} steps = {1e3 * t_steady / n_steady:.4f} ms/step, "
+            f"{n_steady * mesh.num_cells / t_steady:.4e} cell-updates/s; "
+            f"max Courant {sim.prev_max_courant:.4f}")
+
+        # the NT = 3 kernels at the path's shapes: held against their plain
+        # versions, then timed beside them and their bounds
+        q, bv = sim.q, sim.boundary_values
+        s = q.element_size()
+        dt = torch.tensor(DT, dtype=q.dtype, device=dev)
+        stage = dict(stage=(0.0, 1.0, 1.0), emit_prim=True)
+        if raster:
+            op = sim._structured["op"]
+            C = q.shape[1]
+            got = op.step(q, dt, **stage)
+            want = swe_raster_step_plain(
+                op.plan, q, op.dz_dx, op.dz_dy, op.mannings_n, dt,
+                num_sediment=op.num_sediment, **stage)
+            r = max(rel_err(g, w) for g, w in zip(got, want))
+            err = {"swe_raster_step": max(abs_err(g, w)
+                                          for g, w in zip(got, want))}
+            calls = {"swe_raster_step": (
+                lambda: op.step(q, dt, **stage),
+                lambda: swe_raster_step_plain(
+                    op.plan, q, op.dz_dx, op.dz_dy, op.mannings_n, dt,
+                    num_sediment=op.num_sediment, **stage))}
+            nbytes = {"swe_raster_step": raster_step_bytes(
+                C, 3 + NT, got.cmax.numel(), s)}
+            nops = {"swe_raster_step": (OPS_PER_RASTER_CELL + NT *
+                                        OPS_PER_TRACER["swe_raster_step"]) * C}
+        else:
+            op = sim.operator
+            a = op.arrays
+            kw = dict(tiny_h=op.tiny_h, h_anuga=op.h_anuga,
+                      xq2018_threshold=op.xq2018_threshold,
+                      source_method=op.source_method,
+                      num_sediment=op.num_sediment)
+            flux, courant = op.edge_flux(q, bv)
+            fp, cp = swe_edge_flux_plain(a, q, bv, op.tiny_h, op.h_anuga)
+            ok_ = op.cell_stage(flux, q, dt, None, **stage)
+            op_ = swe_cell_stage_plain(a, flux, q, dt, None, **kw, **stage)
+            r = max(rel_err(flux, fp), rel_err(courant, cp),
+                    rel_err(ok_.q_out, op_.q_out), rel_err(ok_.prim, op_.prim))
+            err = {"swe_edge_flux": max(abs_err(flux, fp),
+                                        abs_err(courant, cp)),
+                   "swe_cell_stage": max(abs_err(ok_.q_out, op_.q_out),
+                                         abs_err(ok_.prim, op_.prim))}
+            calls = {
+                "swe_edge_flux": (
+                    lambda: op.edge_flux(q, bv),
+                    lambda: swe_edge_flux_plain(a, q, bv, op.tiny_h,
+                                                op.h_anuga)),
+                "swe_cell_stage": (
+                    lambda: op.cell_stage(flux, q, dt, None, **stage),
+                    lambda: swe_cell_stage_plain(a, flux, q, dt, None, **kw,
+                                                 **stage))}
+            nbytes = kernel_bytes(op, q.numel() * s, s)
+            nops = {name: (base + NT * OPS_PER_TRACER[name]) * n
+                    for name, base, n in (
+                        ("swe_edge_flux", OPS_PER_EDGE, op.num_edges),
+                        ("swe_cell_stage", OPS_PER_CELL, op.num_cells))}
+        log(f"  full-size NT = {NT} kernels vs plain on the {path} path: "
+            f"rel {r:.3e}")
+        if not r <= TOL[q.dtype]:
+            raise SystemExit(f"full-size {path} tracer kernel check failed")
+        for name, (fk, fpl) in calls.items():
+            timing = (device_ms(fk), device_ms(fpl, reps=5), None)
+            key = f"{name} nt{NT}"
+            row = kernel_row(
+                name, f"{path}+tracers", SOURCES[name], REPLACES[name],
+                launches[name], max(errs.get(key, 0.0), err[name]), timing,
+                nbytes[name], nops[name], q.dtype)
+            row["nt"] = NT
+            rows.append(row)
+            log_row(card, row, nbytes[name], nops[name],
+                    f" (between CUDA events {cuda_ms(fk):.4f} ms); no single "
+                    "PyTorch call computes it")
+        # rhs mode (rk4): K2, or K1b and SWEOperator.apply (K1a + K1c +
+        # K1b rhs), at NT = 3
+        if raster:
+            def rhs_plain():
+                return swe_raster_step_plain(
+                    op.plan, q, op.dz_dx, op.dz_dy, op.mannings_n, dt,
+                    num_sediment=op.num_sediment, emit_prim=True)
+
+            log(f"  [{card}] swe_raster_step at NT = {NT} in rhs mode: device "
+                f"{device_ms(lambda: op.step(q, dt, emit_prim=True)):.4f} "
+                f"ms/call, plain {device_ms(rhs_plain, reps=5):.4f} ms, bound "
+                f"{rows[-1]['bound_ms']:.4f} ms")
+        else:
+            pop = plain_operator(op)
+            rhs_ms = device_ms(lambda: op.cell_stage(flux, q, dt, None,
+                                                     emit_prim=True))
+            rhs_plain = device_ms(lambda: pop.cell_stage(
+                flux, q, dt, None, emit_prim=True), reps=5)
+            rhs_bound = 1e3 * kernel_bytes(op, q.numel() * s, s, rhs=True)[
+                "swe_cell_stage"] / HBM_BYTES_PER_S
+            apply_ms = device_ms(lambda: op.apply(q, dt, bv, None))
+            apply_plain = device_ms(lambda: pop.apply(q, dt, bv, None),
+                                    reps=5)
+            apply_bound = (rows[-2]["bound_ms"] + rhs_bound + 1e3 *
+                           courant_bytes(op.num_edges, s) / HBM_BYTES_PER_S)
+            log(f"  [{card}] swe_cell_stage at NT = {NT} in rhs mode: device "
+                f"{rhs_ms:.4f} ms/call, plain {rhs_plain:.4f} ms, bound "
+                f"{rhs_bound:.4f} ms; SWEOperator.apply at NT = {NT} (K1a + "
+                f"K1c + K1b rhs): device {apply_ms:.4f} ms, plain "
+                f"{apply_plain:.4f} ms, sum of its kernels' bounds "
+                f"{apply_bound:.4f} ms")
+        del sim
+    return rows
+
+
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -884,6 +1338,8 @@ def main():
     # one row per kernel and path, each with that path's own launches
     rows = phase_main(args.steps, errs, dev, mesh, t_mesh)
     rows += phase_raster(args.steps, errs, dev, mesh)
+    phase_tracer_kernels(args.seed, errs, dev)
+    rows += phase_tracers(args.steps, errs, dev, mesh)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi_line())
     print(json.dumps({"kernels": rows}))

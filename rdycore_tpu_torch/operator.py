@@ -1,8 +1,11 @@
-"""The SWE spatial operator F(q, t) -> dq/dt, first-order flow path.
+"""The SWE spatial operator F(q, t) -> dq/dt, first order.
 
-The counterpart of rdycore_tpu/operator.py restricted to the flow
-equations (3 unknowns) at first order, without well-balancing. The JAX
-package's XLA gather form carries over:
+The counterpart of rdycore_tpu/operator.py at first order without
+well-balancing, for the flow equations (3 unknowns) and for the coupled
+flow + tracer system (3 + num_tracers unknowns: sediment classes with
+Hairsine-Rose sources, then salinity and heat; the JAX package's
+`_apply_tracer`/`_finish_tracer`). The JAX package's XLA gather form
+carries over:
 
 1. gather left/right cell states onto edges
 2. ghost states for boundary edges from their BC
@@ -35,7 +38,7 @@ from .ops.kernels.cell_stage import CellStageOut, swe_cell_stage
 from .ops.kernels.courant import courant_argmax
 from .ops.kernels.edge_flux import boundary_flux_plain, swe_edge_flux
 from .ops.swe import boundary as bc_mod
-from .ops.swe.sources import SOURCE_SEMI_IMPLICIT
+from .ops.swe.sources import SOURCE_IMPLICIT_XQ2018, SOURCE_SEMI_IMPLICIT
 
 
 class BoundarySegment(NamedTuple):
@@ -106,10 +109,10 @@ def arrays_from_numpy(
 
 
 class RHSResult(NamedTuple):
-    rhs: torch.Tensor  # [3, C] dq/dt
-    flux_div: torch.Tensor  # [3, C] flux-divergence part ("riemannf")
-    prim: torch.Tensor  # [3, C] primitive variables (h, u, v)
-    boundary_fluxes: torch.Tensor  # [3, Eb] raw Roe fluxes on boundary edges
+    rhs: torch.Tensor  # [ndof, C] dq/dt
+    flux_div: torch.Tensor  # [ndof, C] flux-divergence part ("riemannf")
+    prim: torch.Tensor  # [ndof, C] (h, u, v[, concentrations])
+    boundary_fluxes: torch.Tensor  # [ndof, Eb] raw fluxes on boundary edges
     max_courant_per_dt: torch.Tensor  # 0-dim: max over edges of amax*len/area
     courant_edge: torch.Tensor  # 0-dim int32: index of that edge
 
@@ -128,18 +131,47 @@ class SWEOperator:
     h_anuga: float = DEFAULT_H_ANUGA
     source_method: int = SOURCE_SEMI_IMPLICIT
     xq2018_threshold: float = DEFAULT_XQ2018_THRESHOLD
+    # tracer rows beyond (h, hu, hv); the first num_sediment are sediment
+    # classes. riemann: "roe" or "upwind_roe" (the tracer flux)
+    num_tracers: int = 0
+    num_sediment: int = 0
+    riemann: str = "roe"
+
+    def __post_init__(self):
+        if self.riemann not in ("roe", "upwind_roe"):
+            raise ValueError(f"riemann: {self.riemann!r}")
+        if not 0 <= self.num_sediment <= self.num_tracers:
+            raise ValueError(f"{self.num_sediment} sediment classes of "
+                             f"{self.num_tracers} tracers")
+        if self.num_tracers and self.source_method == SOURCE_IMPLICIT_XQ2018:
+            # the JAX package runs semi-implicit friction in its place
+            raise ValueError(
+                "the implicit_xq2018 source method has no tracer form"
+            )
 
     @property
     def num_edges(self) -> int:
         return self.num_internal_edges + self.num_boundary_edges
 
+    @property
+    def ndof(self) -> int:
+        return 3 + self.num_tracers
+
+    def zero_boundary_values(self) -> torch.Tensor:
+        """Zero Dirichlet values [ndof, max(Eb, 1)] on the operator's
+        device."""
+        a = self.arrays
+        return torch.zeros((self.ndof, max(self.num_boundary_edges, 1)),
+                           dtype=a.area.dtype, device=a.area.device)
+
     # ------------------------------------------------------------ kernels
     def edge_flux(
         self, q: torch.Tensor, boundary_values: torch.Tensor
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """K1a: (flux [3, E + 1] with column E zero, courant [E])."""
+        """K1a: (flux [ndof, E + 1] with column E zero, courant [E])."""
         return swe_edge_flux(
-            self.arrays, q, boundary_values, self.tiny_h, self.h_anuga
+            self.arrays, q, boundary_values, self.tiny_h, self.h_anuga,
+            upwind=self.riemann == "upwind_roe",
         )
 
     def courant_max(
@@ -160,16 +192,17 @@ class SWEOperator:
         return swe_cell_stage(
             self.arrays, flux, q, dt, ext_src, tiny_h=self.tiny_h,
             h_anuga=self.h_anuga, xq2018_threshold=self.xq2018_threshold,
-            source_method=self.source_method, **mode,
+            source_method=self.source_method,
+            num_sediment=self.num_sediment, **mode,
         )
 
     # ------------------------------------------------------------ apply
     def apply(
         self,
-        q: torch.Tensor,  # [3, C]
+        q: torch.Tensor,  # [ndof, C]
         dt,  # 0-dim tensor or float
-        boundary_values: torch.Tensor,  # [3, >= Eb] Dirichlet values
-        ext_src: Optional[torch.Tensor],  # [3, C] external sources or None
+        boundary_values: torch.Tensor,  # [ndof, >= Eb] Dirichlet values
+        ext_src: Optional[torch.Tensor],  # [ndof, C] external sources or None
     ) -> RHSResult:
         """Evaluate dq/dt: one edge launch, one Courant reduction and one
         cell launch in rhs mode."""
@@ -191,10 +224,12 @@ class SWEOperator:
         self, q: torch.Tensor, boundary_values: torch.Tensor
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Roe fluxes + masked max wave speeds on the boundary edges
-        (fb [3, Eb], amax_b [Eb]) in plain PyTorch. The step loop takes fb
-        from the edge kernel's output instead."""
+        (fb [ndof, Eb], amax_b [Eb]) in plain PyTorch (the JAX package's
+        `boundary_fluxes`, and `boundary_fluxes_nd` with tracers). The step
+        loop takes fb from the edge kernel's output instead."""
         return boundary_flux_plain(
-            self.arrays, q, boundary_values, self.tiny_h, self.h_anuga
+            self.arrays, q, boundary_values, self.tiny_h, self.h_anuga,
+            upwind=self.riemann == "upwind_roe",
         )
 
 
@@ -216,6 +251,9 @@ def build_operator(
     h_anuga: float = DEFAULT_H_ANUGA,
     source_method: int = SOURCE_SEMI_IMPLICIT,
     xq2018_threshold: float = DEFAULT_XQ2018_THRESHOLD,
+    num_tracers: int = 0,
+    num_sediment: int = 0,
+    riemann: str = "roe",
     dtype: torch.dtype = torch.float64,
     device: DeviceLike = None,
 ) -> SWEOperator:
@@ -315,4 +353,7 @@ def build_operator(
         h_anuga=h_anuga,
         source_method=source_method,
         xq2018_threshold=xq2018_threshold,
+        num_tracers=num_tracers,
+        num_sediment=num_sediment,
+        riemann=riemann,
     )

@@ -27,6 +27,9 @@ _BUILD_DIR = os.path.join(
 )
 SOURCES = ("swe_edge_flux", "swe_cell_stage", "courant_argmax",
            "swe_raster_step")
+# the tracer rows a kernel takes beyond (h, hu, hv): kMaxTracers of
+# csrc/swe_physics.cuh, MAX_NUM_SEDIMENT_CLASSES plus salinity and heat
+MAX_TRACERS = 7
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

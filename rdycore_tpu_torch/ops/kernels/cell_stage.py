@@ -14,7 +14,9 @@ Two modes:
   holds in every tableau of timestepping.py, grouped as the JAX package's
   `_rk_step` groups it (so the CPU path agrees with it to rounding);
 - rhs mode (`stage=None`): flux_div and rhs = flux_div + sources.
-Either mode also returns the primitives (h, u, v) of q when `emit_prim`.
+Either mode also returns the primitives of q when `emit_prim`: (h, u, v),
+and the concentrations when q carries tracer rows, whose sources are
+those of ops/tracer/sources.py (Hairsine-Rose on the sediment classes).
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..swe.sources import apply_source
+from ..swe.sources import SOURCE_NONE, apply_source
+from ..tracer.sources import SedimentParams, tracer_source_terms
 from . import build
 
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
@@ -32,7 +35,8 @@ _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 
 def _argtypes(real):
     return [_P, _I64, _P, _P, _INT, _P, _P, _P, _P, _P, _P, _P, _I64,
-            real, real, real, _INT, real, real, _P, _P, _P, _P, _P]
+            real, real, real, _INT, _INT, _INT, real, real, real, real, real,
+            real, real, _P, _P, _P, _P, _P]
 
 
 _FUNCTIONS = {
@@ -42,10 +46,10 @@ _FUNCTIONS = {
 
 
 class CellStageOut(NamedTuple):
-    q_out: Optional[torch.Tensor]  # [3, C] stage mode
-    flux_div: Optional[torch.Tensor]  # [3, C] rhs mode
-    rhs: Optional[torch.Tensor]  # [3, C] rhs mode
-    prim: Optional[torch.Tensor]  # [3, C] when emit_prim
+    q_out: Optional[torch.Tensor]  # [ndof, C] stage mode
+    flux_div: Optional[torch.Tensor]  # [ndof, C] rhs mode
+    rhs: Optional[torch.Tensor]  # [ndof, C] rhs mode
+    prim: Optional[torch.Tensor]  # [ndof, C] when emit_prim
 
 
 def _alpha_beta(stage: Tuple[float, float, float]) -> Tuple[float, float]:
@@ -60,18 +64,27 @@ def _alpha_beta(stage: Tuple[float, float, float]) -> Tuple[float, float]:
 
 def swe_cell_stage_plain(
     a, flux, q, dt, ext_src, *, tiny_h, h_anuga, xq2018_threshold,
-    source_method, stage=None, qA=None, emit_prim=False,
+    source_method, num_sediment=0, stage=None, qA=None, emit_prim=False,
 ) -> CellStageOut:
     """Plain version of the kernel (the JAX package's XLA cell gather and
-    sources, operator.py:552-557 and :613-633, and the `_rk_step` stage)."""
+    sources, operator.py:552-557 and :613-633 (flow) or :879-883 and
+    :940-947 (tracers, q with more than 3 rows), and the `_rk_step`
+    stage)."""
     flux_div = (flux[:, a.cell_edges] * a.cell_edge_coef).sum(dim=-1)
     ext = ext_src if ext_src is not None else torch.zeros_like(q)
-    src = apply_source(
-        source_method, q, flux_div, ext, a.mannings_n, a.dz_dx, a.dz_dy, dt,
-        tiny_h, h_anuga, xq2018_threshold,
-    )
-    rhs = flux_div + src.rhs
-    prim = src.prim if emit_prim else None
+    if q.shape[0] > 3:
+        src_rhs, src_prim = tracer_source_terms(
+            q, flux_div, ext, a.mannings_n, a.dz_dx, a.dz_dy, dt, tiny_h,
+            h_anuga, num_sediment,
+            include_friction=source_method != SOURCE_NONE,
+        )
+    else:
+        src_rhs, src_prim = apply_source(
+            source_method, q, flux_div, ext, a.mannings_n, a.dz_dx, a.dz_dy,
+            dt, tiny_h, h_anuga, xq2018_threshold,
+        )
+    rhs = flux_div + src_rhs
+    prim = src_prim if emit_prim else None
     if stage is None:
         return CellStageOut(None, flux_div, rhs, prim)
     alpha, beta = _alpha_beta(stage)
@@ -84,42 +97,52 @@ def swe_cell_stage_plain(
 def swe_cell_stage(
     a, flux: torch.Tensor, q: torch.Tensor, dt: torch.Tensor,
     ext_src: Optional[torch.Tensor], *, tiny_h: float, h_anuga: float,
-    xq2018_threshold: float, source_method: int,
+    xq2018_threshold: float, source_method: int, num_sediment: int = 0,
     stage: Optional[Tuple[float, float, float]] = None,
     qA: Optional[torch.Tensor] = None, emit_prim: bool = False,
 ) -> CellStageOut:
-    """One launch over all cells. flux [3, E + 1] from `swe_edge_flux`, q
-    [3, C] the stage input, dt a 0-dim tensor (the step dt, read on the
-    device), ext_src [3, C] or None for no external sources."""
+    """One launch over all cells. flux [ndof, E + 1] from `swe_edge_flux`,
+    q [ndof, C] the stage input (ndof = 3, or 3 + the tracers, of which the
+    first num_sediment are sediment classes), dt a 0-dim tensor (the step
+    dt, read on the device), ext_src [ndof, C] or None for no external
+    sources."""
     if q.device.type == "cpu":
         return swe_cell_stage_plain(
             a, flux, q, dt, ext_src, tiny_h=tiny_h, h_anuga=h_anuga,
             xq2018_threshold=xq2018_threshold, source_method=source_method,
-            stage=stage, qA=qA, emit_prim=emit_prim,
+            num_sediment=num_sediment, stage=stage, qA=qA,
+            emit_prim=emit_prim,
         )
     dev, dtype = q.device, q.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"swe_cell_stage: unsupported dtype {dtype}")
-    C = q.shape[1]
+    ndof, C = q.shape
+    nt = ndof - 3
+    if not 0 <= nt <= build.MAX_TRACERS:
+        raise ValueError(f"swe_cell_stage: {ndof} state rows")
+    if not 0 <= num_sediment <= nt:
+        raise ValueError(f"swe_cell_stage: {num_sediment} sediment classes "
+                         f"of {nt} tracers")
     K = a.cell_edges.shape[1]
     ck = build.check
-    ck(q, "q", dtype, (3, C), dev)
+    ck(q, "q", dtype, (ndof, C), dev)
     E = a.int_left.shape[0] + a.bnd_left.shape[0]
-    ck(flux, "flux", dtype, (3, E + 1), dev)
+    ck(flux, "flux", dtype, (ndof, E + 1), dev)
     ck(a.cell_edges, "cell_edges", torch.int32, (C, K), dev)
     ck(a.cell_edge_coef, "cell_edge_coef", dtype, (C, K), dev)
     ck(dt, "dt", dtype, (), dev)
     for name in ("mannings_n", "dz_dx", "dz_dy"):
         ck(getattr(a, name), name, dtype, (C,), dev)
     if ext_src is not None:
-        ck(ext_src, "ext_src", dtype, (3, C), dev)
+        ck(ext_src, "ext_src", dtype, (ndof, C), dev)
     if qA is not None:
-        ck(qA, "qA", dtype, (3, C), dev)
+        ck(qA, "qA", dtype, (ndof, C), dev)
     if source_method not in (0, 1, 2):
         raise ValueError(f"swe_cell_stage: source method {source_method}")
+    sp = SedimentParams()
 
     def new():
-        return torch.empty((3, C), dtype=dtype, device=dev)
+        return torch.empty((ndof, C), dtype=dtype, device=dev)
 
     q_out = new() if stage is not None else None
     flux_div = new() if stage is None else None
@@ -139,7 +162,8 @@ def swe_cell_stage(
             a.cell_edge_coef.data_ptr(), K, q.data_ptr(), ptr(qA),
             dt.data_ptr(), ptr(ext_src), a.mannings_n.data_ptr(),
             a.dz_dx.data_ptr(), a.dz_dy.data_ptr(), C, tiny_h, h_anuga,
-            xq2018_threshold, source_method, alpha, beta, ptr(q_out),
+            xq2018_threshold, source_method, nt, num_sediment, *sp,
+            alpha, beta, ptr(q_out),
             ptr(flux_div), ptr(rhs), ptr(prim),
             torch.cuda.current_stream(dev).cuda_stream,
         )

@@ -1,36 +1,49 @@
 // K1b swe_cell_stage: per-cell flux divergence, sources and RK stage.
 //
 // Replaces the cell phase of the TPU kernel _fused_step_kernel
-// (rdycore_tpu/ops/pallas/slotted.py :2551-2743), the divergence of
+// (rdycore_tpu/ops/pallas/slotted.py :2551-2743, the tracer cell phase with
+// Hairsine-Rose at :2611-2639 and :2700-2731), the divergence of
 // _fused_kernel (:2125) and _cell_kernel (:1441, non-drain), for the flow
-// equations (3 unknowns).
+// equations and for the coupled flow + tracer system (ndof = 3 + NT).
 //
 // One thread per cell. It pulls its edge fluxes over cell_edges in slot
 // order, div = sum_k coef[c,k] * flux[:, cell_edges[c,k]] (no atomics, so
 // the result does not depend on the launch configuration), adds the
-// sources of the chosen method (semi-implicit, XQ2018 or none), and then
+// sources, and then
 //   stage mode: q_out = alpha*qA + beta*(qB + dt*(div + src)), or qB when
 //               dt <= 0 (a step past the interval end leaves the state),
-//               plus the primitives (h, u, v) of qB when prim != NULL;
+//               plus the primitives of qB when prim != NULL;
 //   rhs mode:   flux_div = div and rhs = div + src (and prim when asked).
 // dt is read from device memory, so the step loop needs no host sync.
 //
-// Bound: device memory. Per cell in stage mode (f32, 4 edge slots) it
-// reads 4 int32 edge ids, 4 coefficients, 3 state values (6 with qA),
-// Manning's n, two bed slopes (and 3 external sources when given) and
-// writes 3 values (6 with prim), plus the gathered fluxes, each edge's 12
-// bytes counted once: about 104 bytes per cell with prim and no sources,
-// 300 MB on the 2.88M-cell dam break, at least 0.090 ms at the H100's
-// 3.35 TB/s. Design: consecutive
-// threads take consecutive cells, so the per-cell streams are coalesced;
-// the [C, 4] index and coefficient rows are read as one 16-byte (f32) or
-// 32-byte (f64) row per thread, and the flux gathers hit neighbouring
-// columns for neighbouring cells on a row-major raster.
+// The tracer count NT is a template parameter (0..kMaxTracers, dispatched
+// at launch). NT = 0 is the flow-only kernel: the sources of the chosen
+// method (semi-implicit, XQ2018 or none, ops/swe/sources.py) and the
+// primitives (h, u, v) with the wet test h >= tiny_h. NT > 0 takes the
+// coupled system's sources (ops/tracer/sources.py tracer_source_terms):
+// wet is h > tiny_h, u and v are zero where dry, friction (dropped by the
+// method none) groups dt*(div - bed), Hairsine-Rose erosion and deposition
+// act on the first num_sediment tracers, and every tracer takes its
+// external source; the primitives are (h, u, v, concentrations). XQ2018
+// with tracers is refused by SWEOperator, so the kernel never sees it.
+//
+// Bound: device memory. Per cell in stage mode (4 edge slots) it reads 4
+// int32 edge ids, 4 coefficients, ndof state values (2*ndof with qA),
+// Manning's n, two bed slopes (and ndof external sources when given) and
+// writes ndof values (2*ndof with prim), plus the gathered fluxes, each
+// edge's 4*ndof bytes counted once. In f32 on the 2.88M-cell dam break
+// with prim and no sources: about 104 bytes per cell flow-only, 300 MB, at
+// least 0.090 ms at the H100's 3.35 TB/s; about 164 bytes per cell with
+// NT = 3, 471 MB, 0.141 ms. Design: consecutive threads take consecutive
+// cells, so the per-cell streams are coalesced; the [C, 4] index and
+// coefficient rows are read as one 16-byte (f32) or 32-byte (f64) row per
+// thread, and the flux gathers hit neighbouring columns for neighbouring
+// cells on a row-major raster.
 #include "swe_physics.cuh"
 
 namespace {
 
-template <typename T>
+template <typename T, int NT>
 __global__ void __launch_bounds__(256) swe_cell_stage_kernel(
     const T* __restrict__ flux, int64_t flux_ld,
     const int32_t* __restrict__ cell_edges, const T* __restrict__ coef,
@@ -38,62 +51,77 @@ __global__ void __launch_bounds__(256) swe_cell_stage_kernel(
     const T* __restrict__ dt_ptr, const T* __restrict__ ext,
     const T* __restrict__ mann, const T* __restrict__ dzdx,
     const T* __restrict__ dzdy, int64_t C, T tiny_h, T h_anuga,
-    T xq_threshold, int method, T alpha, T beta, T* __restrict__ q_out,
-    T* __restrict__ flux_div, T* __restrict__ rhs, T* __restrict__ prim) {
+    T xq_threshold, int method, int num_sediment, rdy::SedimentParams<T> sp,
+    T alpha, T beta, T* __restrict__ q_out, T* __restrict__ flux_div,
+    T* __restrict__ rhs, T* __restrict__ prim) {
+  constexpr int ND = 3 + NT;
   const int64_t c = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   if (c >= C) return;
-  T d0 = T(0), d1 = T(0), d2 = T(0);
+  T d[ND];
+#pragma unroll
+  for (int k = 0; k < ND; ++k) d[k] = T(0);
   for (int k = 0; k < K; ++k) {
     const int64_t e = cell_edges[c * K + k];
     const T w = coef[c * K + k];
-    d0 += flux[e] * w;
-    d1 += flux[flux_ld + e] * w;
-    d2 += flux[2 * flux_ld + e] * w;
+#pragma unroll
+    for (int r = 0; r < ND; ++r) d[r] += flux[r * flux_ld + e] * w;
   }
   const T dt = *dt_ptr;
-  const T h = q[c], hu = q[C + c], hv = q[2 * C + c];
-  const T e0 = ext ? ext[c] : T(0);
-  const T e1 = ext ? ext[C + c] : T(0);
-  const T e2 = ext ? ext[2 * C + c] : T(0);
+  T s[ND];  // the state of the cell
+#pragma unroll
+  for (int r = 0; r < ND; ++r) s[r] = q[r * C + c];
+  const T h = s[0], hu = s[1], hv = s[2];
+  T e[ND];  // its external sources
+#pragma unroll
+  for (int r = 0; r < ND; ++r) e[r] = ext ? ext[r * C + c] : T(0);
+  T r_[ND];  // rhs = div + sources
+  T ci[NT > 0 ? NT : 1];
   T s1, s2;
-  rdy::momentum_sources(method, h, hu, hv, d1, d2, e1, e2, mann[c], dzdx[c],
-                        dzdy[c], dt, tiny_h, xq_threshold, s1, s2);
-  const T r0 = d0 + e0;
-  const T r1 = d1 + s1;
-  const T r2 = d2 + s2;
+  if constexpr (NT == 0) {
+    rdy::momentum_sources(method, h, hu, hv, d[1], d[2], e[1], e[2], mann[c],
+                          dzdx[c], dzdy[c], dt, tiny_h, xq_threshold, s1, s2);
+  } else {
+    T st[NT];
+    rdy::tracer_sources<T, NT>(method != rdy::kSourceNone, h, hu, hv, s + 3,
+                               d[1], d[2], e[1], e[2], e + 3, mann[c],
+                               dzdx[c], dzdy[c], dt, tiny_h, num_sediment, sp,
+                               s1, s2, st, ci);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) r_[3 + j] = d[3 + j] + st[j];
+  }
+  r_[0] = d[0] + e[0];
+  r_[1] = d[1] + s1;
+  r_[2] = d[2] + s2;
   if (q_out) {
-    T o0 = h, o1 = hu, o2 = hv;
-    if (dt > T(0)) {
-      o0 = beta * (h + dt * r0);
-      o1 = beta * (hu + dt * r1);
-      o2 = beta * (hv + dt * r2);
-      if (qA) {
-        o0 = alpha * qA[c] + o0;
-        o1 = alpha * qA[C + c] + o1;
-        o2 = alpha * qA[2 * C + c] + o2;
+#pragma unroll
+    for (int r = 0; r < ND; ++r) {
+      T o = s[r];
+      if (dt > T(0)) {
+        o = beta * (s[r] + dt * r_[r]);
+        if (qA) o = alpha * qA[r * C + c] + o;
       }
+      q_out[r * C + c] = o;
     }
-    q_out[c] = o0;
-    q_out[C + c] = o1;
-    q_out[2 * C + c] = o2;
   }
   if (flux_div) {
-    flux_div[c] = d0;
-    flux_div[C + c] = d1;
-    flux_div[2 * C + c] = d2;
+#pragma unroll
+    for (int r = 0; r < ND; ++r) flux_div[r * C + c] = d[r];
   }
   if (rhs) {
-    rhs[c] = r0;
-    rhs[C + c] = r1;
-    rhs[2 * C + c] = r2;
+#pragma unroll
+    for (int r = 0; r < ND; ++r) rhs[r * C + c] = r_[r];
   }
   if (prim) {
     const T denom = h * h + h_anuga * h_anuga;
     const T denom_safe = denom > T(0) ? denom : T(1);
-    const bool wet = h >= tiny_h;
+    // the flow-only primitives are wet at h >= tiny_h, the coupled
+    // system's at h > tiny_h
+    const bool wet = NT == 0 ? h >= tiny_h : h > tiny_h;
     prim[c] = h;
     prim[C + c] = wet ? hu * h / denom_safe : T(0);
     prim[2 * C + c] = wet ? hv * h / denom_safe : T(0);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) prim[(3 + j) * C + c] = ci[j];
   }
 }
 
@@ -102,36 +130,45 @@ int launch(const void* flux, int64_t flux_ld, const void* cell_edges,
            const void* coef, int K, const void* q, const void* qA,
            const void* dt, const void* ext, const void* mann,
            const void* dzdx, const void* dzdy, int64_t C, T tiny_h,
-           T h_anuga, T xq_threshold, int method, T alpha, T beta,
+           T h_anuga, T xq_threshold, int method, int nt, int num_sediment,
+           T kp, T ws, T tau_ce, T tau_cd, T rhow, T alpha, T beta,
            void* q_out, void* flux_div, void* rhs, void* prim,
            void* stream) {
   if (C == 0) return (int)cudaGetLastError();
   const int threads = 256;
   const int64_t blocks = (C + threads - 1) / threads;
-  swe_cell_stage_kernel<T><<<(unsigned)blocks, threads, 0,
-                             (cudaStream_t)stream>>>(
-      (const T*)flux, flux_ld, (const int32_t*)cell_edges, (const T*)coef, K,
-      (const T*)q, (const T*)qA, (const T*)dt, (const T*)ext,
-      (const T*)mann, (const T*)dzdx, (const T*)dzdy, C, tiny_h, h_anuga,
-      xq_threshold, method, alpha, beta, (T*)q_out, (T*)flux_div, (T*)rhs,
-      (T*)prim);
-  return (int)cudaGetLastError();
+  const rdy::SedimentParams<T> sp{kp, ws, tau_ce, tau_cd, rhow};
+  return rdy::dispatch_nt(nt, false, [&](auto tag) {
+    using Tag = decltype(tag);
+    swe_cell_stage_kernel<T, Tag::nt>
+        <<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+            (const T*)flux, flux_ld, (const int32_t*)cell_edges,
+            (const T*)coef, K, (const T*)q, (const T*)qA, (const T*)dt,
+            (const T*)ext, (const T*)mann, (const T*)dzdx, (const T*)dzdy, C,
+            tiny_h, h_anuga, xq_threshold, method, num_sediment, sp, alpha,
+            beta, (T*)q_out, (T*)flux_div, (T*)rhs, (T*)prim);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace
 
+// nt: tracer rows of flux, q, qA, ext and the outputs beyond (h, hu, hv);
+// num_sediment of them are sediment classes with the Hairsine-Rose
+// parameters kp, ws, tau_ce, tau_cd, rhow. Returns cudaGetLastError().
 #define RDY_CELL_STAGE_API(SUFFIX, T)                                        \
   extern "C" int rdy_swe_cell_stage_##SUFFIX(                                \
       const void* flux, int64_t flux_ld, const void* cell_edges,             \
       const void* coef, int K, const void* q, const void* qA,                \
       const void* dt, const void* ext, const void* mann, const void* dzdx,   \
       const void* dzdy, int64_t C, T tiny_h, T h_anuga, T xq_threshold,      \
-      int method, T alpha, T beta, void* q_out, void* flux_div, void* rhs,   \
+      int method, int nt, int num_sediment, T kp, T ws, T tau_ce, T tau_cd,  \
+      T rhow, T alpha, T beta, void* q_out, void* flux_div, void* rhs,       \
       void* prim, void* stream) {                                            \
     return launch<T>(flux, flux_ld, cell_edges, coef, K, q, qA, dt, ext,     \
                      mann, dzdx, dzdy, C, tiny_h, h_anuga, xq_threshold,     \
-                     method, alpha, beta, q_out, flux_div, rhs, prim,        \
-                     stream);                                                \
+                     method, nt, num_sediment, kp, ws, tau_ce, tau_cd, rhow, \
+                     alpha, beta, q_out, flux_div, rhs, prim, stream);       \
   }
 
 RDY_CELL_STAGE_API(f32, float)

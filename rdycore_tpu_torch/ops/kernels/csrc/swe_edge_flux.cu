@@ -3,33 +3,47 @@
 // Replaces the edge phase of the TPU kernels _fused_step_kernel and
 // _fused_kernel (rdycore_tpu/ops/pallas/slotted.py _edge_phase_tiles :1909,
 // _tile_edge_fluxes :1106) and _edge_kernel (:1254), for the flow
-// equations (3 unknowns) without hydrostatic reconstruction or BS2002.
+// equations and for the coupled flow + tracer system (ndof = 3 + NT, the
+// tracer ghosts of :1196-1245), without hydrostatic reconstruction or
+// BS2002.
 //
 // One thread per edge over all E = Ei + Eb edges (interior first, then
 // boundary edges in segment order). A thread gathers its left/right cell
 // states, regularizes the velocities, forms the ghost state of a boundary
 // edge from its BC code, solves Roe, applies the dry mask and writes
-//   flux[3, E + 1]  (column E = 0, the dummy slot of cell_edges)
-//   courant[E]      amax * edge_courant_coef
+//   flux[ndof, E + 1]  (column E = 0, the dummy slot of cell_edges)
+//   courant[E]         amax * edge_courant_coef
 // flux[:, Ei:E] is the raw boundary flux the time-series accumulators use.
 //
+// The tracer count NT is a template parameter (0..kMaxTracers, dispatched
+// at launch), so each thread's concentrations and fluxes stay in registers;
+// NT = 0 is the flow-only kernel: roe_flux and the both-dry mask (hl <
+// tiny_h and hr < tiny_h). With NT > 0 the thread follows the coupled
+// system of operator.py (the JAX package's _apply_tracer/_finish_tracer):
+// concentrations safe_div(hc, h, h, tiny_h); a Dirichlet ghost takes the
+// prescribed tracer masses, reflecting and critical-outflow ghosts keep the
+// interior concentration (critical outflow into the domain dries both
+// sides, as in the flow case); roe_flux_sqrt with the NT tracer waves
+// (Roe, or upwind-Roe with kUpwind); and the either-wet mask (hl > tiny_h or hr > tiny_h) on every
+// row and on amax.
+//
 // Bound: device memory. Per interior edge it streams two int32 indices, two
-// normals and one Courant coefficient in, and 3 fluxes + 1 Courant value
-// out (36 bytes in f32), plus the gathered states, each cell's 12 bytes
-// counted once: about 42 bytes per edge, 242 MB for the 5.77M edges of the
-// 2048x1408 dam break, at least 0.072 ms at the H100's 3.35 TB/s. The
-// arithmetic (~165 operations, 3 sqrt, a few divides) is far below the
-// card's rate at that intensity. Design: consecutive threads take
-// consecutive edges, so
-// every per-edge stream is read and written coalesced; the cell-state
-// gathers are coalesced as far as the mesh numbering keeps neighbouring
-// edges on neighbouring cells (row-major rasters do). No shared memory,
-// no atomics.
+// normals and one Courant coefficient in, and ndof fluxes + 1 Courant value
+// out (36 bytes in f32 flow-only, 48 with NT = 3), plus the gathered
+// states, each cell's 4*ndof bytes counted once: for the 5.77M edges of the
+// 2048x1408 dam break about 242 MB (flow only, at least 0.072 ms at the
+// H100's 3.35 TB/s) or 346 MB (NT = 3, 0.103 ms). The arithmetic (~165
+// operations, 3 sqrt and a few divides, plus ~20 per tracer) is far below
+// the card's rate at that intensity. Design: consecutive threads take
+// consecutive edges, so every per-edge stream is read and written
+// coalesced; the cell-state gathers are coalesced as far as the mesh
+// numbering keeps neighbouring edges on neighbouring cells (row-major
+// rasters do). No shared memory, no atomics.
 #include "swe_physics.cuh"
 
 namespace {
 
-template <typename T>
+template <typename T, int NT, bool kUpwind>
 __global__ void __launch_bounds__(256) swe_edge_flux_kernel(
     const T* __restrict__ q, int64_t C, const int32_t* __restrict__ int_left,
     const int32_t* __restrict__ int_right, const T* __restrict__ int_cn,
@@ -39,17 +53,19 @@ __global__ void __launch_bounds__(256) swe_edge_flux_kernel(
     const T* __restrict__ bvals, int64_t bvals_ld, int64_t Eb,
     const T* __restrict__ ccoef, T tiny_h, T h_anuga, T* __restrict__ flux,
     T* __restrict__ courant) {
+  constexpr int ND = 3 + NT;
   const int64_t E = Ei + Eb;
   const int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   if (e > E) return;
   const int64_t ld = E + 1;
   if (e == E) {
-    flux[e] = T(0);
-    flux[ld + e] = T(0);
-    flux[2 * ld + e] = T(0);
+#pragma unroll
+    for (int k = 0; k < ND; ++k) flux[k * ld + e] = T(0);
     return;
   }
   T hl, ul, vl, hr, ur, vr, sn, cn;
+  // tracer concentrations of the left and right states
+  T cil[NT > 0 ? NT : 1], cir[NT > 0 ? NT : 1];
   if (e < Ei) {
     const int64_t l = int_left[e];
     const int64_t r = int_right[e];
@@ -59,6 +75,11 @@ __global__ void __launch_bounds__(256) swe_edge_flux_kernel(
                               ul, vl);
     rdy::regularized_velocity(hr, q[C + r], q[2 * C + r], tiny_h, h_anuga,
                               ur, vr);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      cil[j] = rdy::safe_div(q[(3 + j) * C + l], hl, hl, tiny_h);
+      cir[j] = rdy::safe_div(q[(3 + j) * C + r], hr, hr, tiny_h);
+    }
     sn = int_sn[e];
     cn = int_cn[e];
   } else {
@@ -67,19 +88,42 @@ __global__ void __launch_bounds__(256) swe_edge_flux_kernel(
     hl = q[l];
     rdy::regularized_velocity(hl, q[C + l], q[2 * C + l], tiny_h, h_anuga,
                               ul, vl);
+    // the interior concentration, before a critical-outflow ghost may dry
+    // the left state
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      cil[j] = rdy::safe_div(q[(3 + j) * C + l], hl, hl, tiny_h);
     sn = bnd_sn[b];
     cn = bnd_cn[b];
-    rdy::ghost_state<T>(bnd_code[b], hl, ul, vl, sn, cn, bvals[b],
+    const int code = bnd_code[b];
+    rdy::ghost_state<T>(code, hl, ul, vl, sn, cn, bvals[b],
                         bvals[bvals_ld + b], bvals[2 * bvals_ld + b], tiny_h,
                         h_anuga, hr, ur, vr);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      cir[j] = code == rdy::kDirichlet
+                   ? rdy::safe_div(bvals[(3 + j) * bvals_ld + b], hr, hr,
+                                   tiny_h)
+                   : cil[j];
   }
-  T f[3], amax;
-  rdy::roe_flux(hl, ul, vl, hr, ur, vr, sn, cn, f, amax);
-  const T mask = (hl < tiny_h && hr < tiny_h) ? T(0) : T(1);
-  flux[e] = f[0] * mask;
-  flux[ld + e] = f[1] * mask;
-  flux[2 * ld + e] = f[2] * mask;
-  courant[e] = amax * mask * ccoef[e];
+  if constexpr (NT == 0) {
+    T f[3], amax;
+    rdy::roe_flux(hl, ul, vl, hr, ur, vr, sn, cn, f, amax);
+    const T mask = (hl < tiny_h && hr < tiny_h) ? T(0) : T(1);
+    flux[e] = f[0] * mask;
+    flux[ld + e] = f[1] * mask;
+    flux[2 * ld + e] = f[2] * mask;
+    courant[e] = amax * mask * ccoef[e];
+  } else {
+    T f[ND], amax;
+    rdy::roe_flux_sqrt<T, false, NT, kUpwind>(
+        hl, ul, vl, hr, ur, vr, sqrt(rdy::clamp_min0(hl)),
+        sqrt(rdy::clamp_min0(hr)), sn, cn, f, amax, cil, cir, f + 3);
+    const T mask = (hl > tiny_h || hr > tiny_h) ? T(1) : T(0);
+#pragma unroll
+    for (int k = 0; k < ND; ++k) flux[k * ld + e] = f[k] * mask;
+    courant[e] = amax * mask * ccoef[e];
+  }
 }
 
 template <typename T>
@@ -88,22 +132,28 @@ int launch(const void* q, int64_t C, const void* int_left,
            int64_t Ei, const void* bnd_left, const void* bnd_cn,
            const void* bnd_sn, const void* bnd_code, const void* bvals,
            int64_t bvals_ld, int64_t Eb, const void* ccoef, T tiny_h,
-           T h_anuga, void* flux, void* courant, void* stream) {
+           T h_anuga, void* flux, void* courant, int nt, int upwind,
+           void* stream) {
   const int64_t n = Ei + Eb + 1;
   const int threads = 256;
   const int64_t blocks = (n + threads - 1) / threads;
-  swe_edge_flux_kernel<T><<<(unsigned)blocks, threads, 0,
-                            (cudaStream_t)stream>>>(
-      (const T*)q, C, (const int32_t*)int_left, (const int32_t*)int_right,
-      (const T*)int_cn, (const T*)int_sn, Ei, (const int32_t*)bnd_left,
-      (const T*)bnd_cn, (const T*)bnd_sn, (const int8_t*)bnd_code,
-      (const T*)bvals, bvals_ld, Eb, (const T*)ccoef, tiny_h, h_anuga,
-      (T*)flux, (T*)courant);
-  return (int)cudaGetLastError();
+  return rdy::dispatch_nt(nt, upwind != 0, [&](auto tag) {
+    using Tag = decltype(tag);
+    swe_edge_flux_kernel<T, Tag::nt, Tag::upwind>
+        <<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+            (const T*)q, C, (const int32_t*)int_left,
+            (const int32_t*)int_right, (const T*)int_cn, (const T*)int_sn,
+            Ei, (const int32_t*)bnd_left, (const T*)bnd_cn, (const T*)bnd_sn,
+            (const int8_t*)bnd_code, (const T*)bvals, bvals_ld, Eb,
+            (const T*)ccoef, tiny_h, h_anuga, (T*)flux, (T*)courant);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace
 
+// nt: tracer rows of q, bvals and flux beyond (h, hu, hv); upwind != 0
+// takes upwind-Roe tracer fluxes. Returns cudaGetLastError().
 #define RDY_EDGE_FLUX_API(SUFFIX, T)                                         \
   extern "C" int rdy_swe_edge_flux_##SUFFIX(                                 \
       const void* q, int64_t C, const void* int_left, const void* int_right, \
@@ -111,10 +161,11 @@ int launch(const void* q, int64_t C, const void* int_left,
       const void* bnd_left, const void* bnd_cn, const void* bnd_sn,          \
       const void* bnd_code, const void* bvals, int64_t bvals_ld, int64_t Eb, \
       const void* ccoef, T tiny_h, T h_anuga, void* flux, void* courant,     \
-      void* stream) {                                                        \
+      int nt, int upwind, void* stream) {                                    \
     return launch<T>(q, C, int_left, int_right, int_cn, int_sn, Ei,          \
                      bnd_left, bnd_cn, bnd_sn, bnd_code, bvals, bvals_ld, Eb, \
-                     ccoef, tiny_h, h_anuga, flux, courant, stream);         \
+                     ccoef, tiny_h, h_anuga, flux, courant, nt, upwind,      \
+                     stream);                                                \
   }
 
 RDY_EDGE_FLUX_API(f32, float)

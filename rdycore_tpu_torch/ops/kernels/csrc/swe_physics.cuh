@@ -2,7 +2,8 @@
 //
 // Each function repeats, operation for operation, the plain PyTorch
 // version in rdycore_tpu_torch/ops/swe/ (riemann.py, boundary.py,
-// sources.py), which in turn repeats rdycore_tpu/ops/swe/. nvcc contracts
+// sources.py) or ops/tracer/ (flux.py, sources.py), which in turn repeats
+// rdycore_tpu/ops/swe/ or rdycore_tpu/ops/tracer/. nvcc contracts
 // multiply-adds into FMAs and its pow/cbrt are not those of the host
 // libraries, so results agree with the plain versions to rounding, not
 // bitwise.
@@ -25,9 +26,46 @@ constexpr int kSemiImplicit = 0;
 constexpr int kXQ2018 = 1;
 constexpr int kSourceNone = 2;
 
+// most tracers a state carries: MAX_NUM_SEDIMENT_CLASSES (5), salinity and
+// heat. Each kernel is instantiated for every count 0..kMaxTracers, so the
+// tracer arrays of a thread live in registers; count 0 is the flow-only
+// kernel.
+constexpr int kMaxTracers = 7;
+
+template <int N, bool U>
+struct NtTag {
+  static constexpr int nt = N;
+  static constexpr bool upwind = U;
+};
+
+// Calls f(NtTag<nt, upwind>{}) for a runtime tracer count and Riemann
+// option (the upwind option only where nt > 0); cudaErrorInvalidValue for
+// a count above kMaxTracers.
+template <int N = 0, typename F>
+int dispatch_nt(int nt, bool upwind, F&& f) {
+  if constexpr (N > kMaxTracers) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if (nt != N) return dispatch_nt<N + 1>(nt, upwind, f);
+    if constexpr (N == 0) {
+      return f(NtTag<0, false>{});
+    } else {
+      return upwind ? f(NtTag<N, true>{}) : f(NtTag<N, false>{});
+    }
+  }
+}
+
 template <typename T>
 __device__ __forceinline__ T clamp_min0(T x) {
   return x > T(0) ? x : T(0);
+}
+
+// a / b where cond > tiny, else 0; b == 0 divides by 1 (tracer/flux.py
+// safe_div)
+template <typename T>
+__device__ __forceinline__ T safe_div(T a, T b, T cond, T tiny) {
+  const T b_safe = fabs(b) > T(0) ? b : T(1);
+  return cond > tiny ? a / b_safe : T(0);
 }
 
 // ANUGA velocity regularization u = hu*h/(h^2 + h_anuga^2), zero when dry
@@ -47,11 +85,17 @@ __device__ __forceinline__ double rsqrt_(double x) { return rsqrt(x); }
 
 // Roe flux with the critical-flow (entropy) fix (riemann.py roe_flux), given
 // duml = sqrt(max(hl, 0)) and dumr = sqrt(max(hr, 0)). kFast takes 1/chat
-// from rsqrt and chat = c2 * (1/chat), as roe_flux(fast=True) does.
-template <typename T, bool kFast>
+// from rsqrt and chat = c2 * (1/chat), as roe_flux(fast=True) does. With
+// NT > 0 it also writes the NT tracer fluxes ftr of the concentrations
+// cil/cir on this eigensystem (roe_flux(cil=, cir=, upwind=)); nothing is
+// masked here.
+template <typename T, bool kFast, int NT = 0, bool kUpwind = false>
 __device__ __forceinline__ void roe_flux_sqrt(T hl, T ul, T vl, T hr, T ur,
                                               T vr, T duml, T dumr, T sn,
-                                              T cn, T f[3], T& amax) {
+                                              T cn, T f[3], T& amax,
+                                              const T* cil = nullptr,
+                                              const T* cir = nullptr,
+                                              T* ftr = nullptr) {
   const T g = T(kGravity);
   const T sqrt_g = sqrt(g);
   const T half = T(0.5);
@@ -117,6 +161,21 @@ __device__ __forceinline__ void roe_flux_sqrt(T hl, T ul, T vl, T hr, T ur,
   f[2] = half * (fl_hv + fr_hv - (vhat - chat * sn) * A0dW0 - cn * A1dW1 -
                  (vhat + chat * sn) * A2dW2);
   amax = chat + fabs(uperp);
+  if constexpr (NT > 0) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if constexpr (kUpwind) {
+        ftr[j] = f[0] * (f[0] >= T(0) ? cil[j] : cir[j]);
+      } else {
+        const T fl_c = hl_s * uperpl * cil[j];
+        const T fr_c = hr_s * uperpr * cir[j];
+        const T cihat = (duml * cil[j] + dumr * cir[j]) * inv_denom;
+        const T dch = cir[j] * hr_s - cil[j] * hl_s;
+        const T dW_c = dch - cihat * dh;
+        ftr[j] = half * (fl_c + fr_c - cihat * (A0dW0 + A2dW2) - a2 * dW_c);
+      }
+    }
+  }
 }
 
 // Roe flux with the critical-flow (entropy) fix (riemann.py roe_flux)
@@ -209,6 +268,54 @@ __device__ __forceinline__ void momentum_sources(
   }
   s1 = -bedx - tbx + e1;
   s2 = -bedy - tby + e2;
+}
+
+// Hairsine-Rose parameters (tracer/sources.py SedimentParams)
+template <typename T>
+struct SedimentParams {
+  T kp, ws, tau_ce, tau_cd, rhow;
+};
+
+// Sources of the coupled flow + tracer system (tracer/sources.py
+// tracer_source_terms): strict wet test h > tiny_h, u and v zero where dry,
+// semi-implicit friction on (hu + dt*(div - bed)) unless !friction (source
+// method none), and Hairsine-Rose erosion minus deposition on the first
+// num_sediment tracers. hc: the NT tracer masses; e: the NT external
+// tracer sources. Returns the momentum sources s1, s2 (as momentum_sources)
+// and, per tracer, st[j] = ed_j + e[j] and its concentration ci[j].
+template <typename T, int NT>
+__device__ __forceinline__ void tracer_sources(
+    bool friction, T h, T hu, T hv, const T* hc, T div1, T div2, T e1, T e2,
+    const T* e, T mann, T dzdx, T dzdy, T dt, T tiny_h, int num_sediment,
+    const SedimentParams<T>& sp, T& s1, T& s2, T* st, T* ci) {
+  const T g = T(kGravity);
+  const T bedx = dzdx * g * h;
+  const T bedy = dzdy * g * h;
+  const bool wet = h > tiny_h;
+  const T h_safe = wet ? h : T(1);
+  const T u = wet ? hu / h_safe : T(0);
+  const T v = wet ? hv / h_safe : T(0);
+  const T cd = g * mann * mann * pow(h_safe, T(-1.0 / 3.0));
+  const T speed = sqrt(u * u + v * v);
+  const T tb = cd * speed / h_safe;
+  const T factor = tb / (T(1) + dt * tb);
+  T tbx = T(0), tby = T(0);
+  if (friction && wet) {
+    tbx = (hu + dt * (div1 - bedx)) * factor;
+    tby = (hv + dt * (div2 - bedy)) * factor;
+  }
+  s1 = -bedx - tbx + e1;
+  s2 = -bedy - tby + e2;
+  const T tau_b = T(0.5) * sp.rhow * cd * (u * u + v * v);
+  const T ero = sp.kp * (tau_b - sp.tau_ce) / sp.tau_ce;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    ci[j] = wet ? hc[j] / h_safe : T(0);
+    const T dep = sp.ws * ci[j] * (T(1) - tau_b / sp.tau_cd);
+    T ed = wet ? ero - dep : T(0);
+    if (num_sediment < NT) ed = ed * (j < num_sediment ? T(1) : T(0));
+    st[j] = ed + e[j];
+  }
 }
 
 }  // namespace rdy

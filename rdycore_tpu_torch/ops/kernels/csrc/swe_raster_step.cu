@@ -1,11 +1,13 @@
 // K2 swe_raster_step: one whole step (or RK stage, or RHS) of the shallow
-// water equations on a uniform [ny, nx] raster, flow only, first order.
+// water equations on a uniform [ny, nx] raster, first order, flow only or
+// with NT tracers.
 //
 // Replaces the TPU kernel _kernel of rdycore_tpu/ops/pallas/structured_step.py
-// (:172) in its modes base, emit_rhs and with_src, as called by
+// (:172) in its modes base, emit_rhs, with_src and nt, as called by
 // make_fused_structured_stepper (:659): x/y Roe faces with wall ghosts, flux
 // divergence, bed slope, semi-implicit Manning friction, an external water
-// source, and the stage update, plus the Courant maximum per block.
+// source, Hairsine-Rose sediment sources, and the stage update, plus the
+// Courant maximum per block.
 //
 // One thread per cell (i = column, j = row); threads along x take
 // neighbouring addresses, so every plane is read and written coalesced. A
@@ -14,9 +16,8 @@
 // mirror; the critical-outflow ghost ONLY, the interior state left as it is),
 // regularizes every velocity and takes sqrt(max(h, 0)) once per cell, and
 // solves its four faces: west roe(W, c) and east roe(c, E) with normal +x,
-// south roe(S, c) and north roe(c, N) with normal +y, each with the
-// both-dry mask of the pure-flow kernel (hL < tiny_h and hR < tiny_h) and
-// 1/chat from rsqrt (roe_flux(fast=True)). Then
+// south roe(S, c) and north roe(c, N) with normal +y, each with 1/chat from
+// rsqrt (roe_flux(fast=True)). Then
 //   div    = -((fE - fW) / dx + (fN - fS) / dy)
 //   rhs    = div + sources (rain on the h row only)
 //   stage: out = alpha*qA + beta*(q + dt*rhs)  (qA may be NULL)
@@ -28,16 +29,31 @@
 // and order-free, and no sum uses atomics, so the result does not depend on
 // the launch configuration.
 //
-// Bound: device memory. Per cell it reads q (3 planes), dz/dx, dz/dy and
-// Manning's n, writes 3 planes, and reads the rain plane, qA (3 planes) and
-// writes prim (3 planes) when asked: 9 to 16 f32 planes, 36 to 64 bytes per
-// cell, 104 MB (euler) to 138 MB (with prim) on the 2,883,584-cell raster,
-// at least 0.031 / 0.041 ms at the H100's 3.35 TB/s. The arithmetic is
-// about 700 operations per cell (each interior face is solved twice, once
+// The tracer count NT is a template parameter (0..kMaxTracers, dispatched
+// at launch), so the five cells' concentrations and the four faces' tracer
+// fluxes of a thread stay in registers. NT = 0 is the flow-only kernel with
+// the pure-flow face mask (both sides below tiny_h: zero). The nt mode
+// (structured_step.py :277-339, :601-641) reads the tracer masses, rows
+// 3.. of q, beside the flow; a wall ghost's tracer mass is the prescribed
+// row of a Dirichlet wall, else h_ghost * c_interior (fill_ghost_frame
+// _ghost_hc :104-113); each face's tracer flux comes from the same fast
+// Roe eigensystem (Roe advected waves, or upwind-Roe), and every row of a
+// face is kept where either side is wet (h > tiny_h, strict). The flow
+// sources keep their semantics (wet at h >= tiny_h); the sediment classes
+// get erosion minus deposition where h > tiny_h; the primitive rows of the
+// tracers are their concentrations.
+//
+// Bound: device memory. Per cell it reads q (3 + NT planes), dz/dx, dz/dy
+// and Manning's n, writes 3 + NT planes, and reads the rain plane, qA
+// (3 + NT planes) and writes prim (3 + NT planes) when asked: flow only 9 to
+// 16 f32 planes, 104 MB (euler) to 138 MB (with prim) on the 2,883,584-cell
+// raster, at least 0.031 / 0.041 ms at the H100's 3.35 TB/s; with NT = 3
+// and prim, 21 planes, 242 MB, 0.072 ms. The arithmetic is about 700
+// operations per cell flow-only (each interior face is solved twice, once
 // by each of its cells; a divide, square root or pow counted as one), 2.0
 // Gop per launch there, 0.030 ms at 67 TFLOP/s f32, just below the bytes
-// bound; each divide, square root and pow takes several instructions, so
-// the instruction rate may bind first.
+// bound, plus about 75 per tracer; each divide, square root and pow takes
+// several instructions, so the instruction rate may bind first.
 // What this simple design leaves on the table: the neighbour loads go
 // through L1/L2 rather than a shared-memory tile with a halo, the four Roe
 // solves per cell double the face work, and no cp.async/TMA overlaps loads
@@ -104,17 +120,75 @@ __device__ __forceinline__ Prep prep(Cell s, float tiny_h, float h_anuga) {
   return p;
 }
 
-// masked Roe flux of one face with normal (sn, cn) = (0, 1) or (1, 0)
-__device__ __forceinline__ void face(const Prep& l, const Prep& r, float sn,
+// the NT tracer masses of a cell, and of a wall ghost (_ghost_hc): the
+// prescribed rows 3.. of a Dirichlet wall, else the ghost depth hg times
+// the interior cell s's concentration
+template <int NT>
+struct Tracers {
+  float m[NT > 0 ? NT : 1];
+};
+
+template <int NT>
+__device__ __forceinline__ Tracers<NT> load_hc(const float* __restrict__ q,
+                                               int64_t C, int64_t c) {
+  Tracers<NT> t;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) t.m[j] = q[(3 + j) * C + c];
+  return t;
+}
+
+template <int NT>
+__device__ __forceinline__ Tracers<NT> ghost_hc(
+    int bc, float h_int, const Tracers<NT>& hc_int, float hg,
+    const float* __restrict__ bv, int64_t pos, int64_t n, float tiny_h) {
+  Tracers<NT> t;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (bc == kDirichlet) {
+      t.m[j] = bv[(3 + j) * n + pos];
+    } else {
+      const float hden = fabsf(h_int) > 0.0f ? h_int : 1.0f;
+      t.m[j] = hg * (h_int > tiny_h ? hc_int.m[j] / hden : 0.0f);
+    }
+  }
+  return t;
+}
+
+// concentrations of the tracer masses m of a cell of depth h (safe_div)
+template <int NT>
+__device__ __forceinline__ Tracers<NT> conc(float h, const Tracers<NT>& m,
+                                            float tiny_h) {
+  Tracers<NT> c;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) c.m[j] = rdy::safe_div(m.m[j], h, h, tiny_h);
+  return c;
+}
+
+// masked Roe flux of one face with normal (sn, cn) = (0, 1) or (1, 0):
+// flow only (NT = 0), the both-dry mask of the pure-flow kernel; with
+// tracers also their fluxes ft, and every row and a under the strict
+// either-wet mask of the coupled system
+template <int NT, bool kUpwind>
+__device__ __forceinline__ void face(const Prep& l, const Prep& r,
+                                     const Tracers<NT>& cl,
+                                     const Tracers<NT>& cr, float sn,
                                      float cn, float tiny_h, float f[3],
-                                     float& a) {
-  rdy::roe_flux_sqrt<float, true>(l.h, l.u, l.v, r.h, r.u, r.v, l.sq, r.sq,
-                                  sn, cn, f, a);
-  const float m = (l.h < tiny_h && r.h < tiny_h) ? 0.0f : 1.0f;
+                                     float& a, Tracers<NT>& ft) {
+  rdy::roe_flux_sqrt<float, true, NT, kUpwind>(l.h, l.u, l.v, r.h, r.u, r.v,
+                                               l.sq, r.sq, sn, cn, f, a,
+                                               cl.m, cr.m, ft.m);
+  float m;
+  if constexpr (NT == 0) {
+    m = (l.h < tiny_h && r.h < tiny_h) ? 0.0f : 1.0f;
+  } else {
+    m = (l.h > tiny_h || r.h > tiny_h) ? 1.0f : 0.0f;
+  }
   f[0] *= m;
   f[1] *= m;
   f[2] *= m;
   a *= m;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) ft.m[j] *= m;
 }
 
 // max that keeps a NaN from either side, as jnp.max does
@@ -122,6 +196,7 @@ __device__ __forceinline__ float nanmax(float a, float b) {
   return (a > b || a != a) ? a : b;
 }
 
+template <int NT, bool kUpwind>
 __global__ void __launch_bounds__(kThreads) swe_raster_step_kernel(
     const float* __restrict__ q, const float* __restrict__ qA,
     const float* __restrict__ dzx, const float* __restrict__ dzy,
@@ -130,9 +205,9 @@ __global__ void __launch_bounds__(kThreads) swe_raster_step_kernel(
     const float* __restrict__ bv_l, const float* __restrict__ bv_r,
     const float* __restrict__ bv_b, const float* __restrict__ bv_t,
     int64_t nx, int64_t ny, float tiny_h, float h_anuga, float inv_dx,
-    float inv_dy, int rhs_mode, float alpha, float beta,
-    float* __restrict__ out, float* __restrict__ prim,
-    float* __restrict__ cmax) {
+    float inv_dy, int rhs_mode, float alpha, float beta, int num_sediment,
+    rdy::SedimentParams<float> sp, float* __restrict__ out,
+    float* __restrict__ prim, float* __restrict__ cmax) {
   const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   const int64_t j = blockIdx.y * (int64_t)blockDim.y + threadIdx.y;
   float cm = 0.0f;
@@ -152,12 +227,43 @@ __global__ void __launch_bounds__(kThreads) swe_raster_step_kernel(
     const Cell no = j < ny - 1 ? load(q, C, c + nx)
                                : wall_ghost(bc_t, s, 1.0f, 0.0f, bv_t, i, nx,
                                             tiny_h, h_anuga);
+    // tracer masses of the cell and its neighbours, then concentrations
+    Tracers<NT> mc, cc, cw, ce, cs, cnn;
+    if constexpr (NT > 0) {
+      mc = load_hc<NT>(q, C, c);
+      cc = conc<NT>(s.h, mc, tiny_h);
+      cw = conc<NT>(w.h,
+                    i > 0 ? load_hc<NT>(q, C, c - 1)
+                          : ghost_hc<NT>(bc_l, s.h, mc, w.h, bv_l, j, ny,
+                                         tiny_h),
+                    tiny_h);
+      ce = conc<NT>(e.h,
+                    i < nx - 1 ? load_hc<NT>(q, C, c + 1)
+                               : ghost_hc<NT>(bc_r, s.h, mc, e.h, bv_r, j,
+                                              ny, tiny_h),
+                    tiny_h);
+      cs = conc<NT>(so.h,
+                    j > 0 ? load_hc<NT>(q, C, c - nx)
+                          : ghost_hc<NT>(bc_b, s.h, mc, so.h, bv_b, i, nx,
+                                         tiny_h),
+                    tiny_h);
+      cnn = conc<NT>(no.h,
+                     j < ny - 1 ? load_hc<NT>(q, C, c + nx)
+                                : ghost_hc<NT>(bc_t, s.h, mc, no.h, bv_t, i,
+                                               nx, tiny_h),
+                     tiny_h);
+    }
     const Prep pc = prep(s, tiny_h, h_anuga);
     float fw[3], fe[3], fs[3], fn[3], aw, ae, as, an;
-    face(prep(w, tiny_h, h_anuga), pc, 0.0f, 1.0f, tiny_h, fw, aw);
-    face(pc, prep(e, tiny_h, h_anuga), 0.0f, 1.0f, tiny_h, fe, ae);
-    face(prep(so, tiny_h, h_anuga), pc, 1.0f, 0.0f, tiny_h, fs, as);
-    face(pc, prep(no, tiny_h, h_anuga), 1.0f, 0.0f, tiny_h, fn, an);
+    Tracers<NT> tw, te, ts, tn;
+    face<NT, kUpwind>(prep(w, tiny_h, h_anuga), pc, cw, cc, 0.0f, 1.0f,
+                      tiny_h, fw, aw, tw);
+    face<NT, kUpwind>(pc, prep(e, tiny_h, h_anuga), cc, ce, 0.0f, 1.0f,
+                      tiny_h, fe, ae, te);
+    face<NT, kUpwind>(prep(so, tiny_h, h_anuga), pc, cs, cc, 1.0f, 0.0f,
+                      tiny_h, fs, as, ts);
+    face<NT, kUpwind>(pc, prep(no, tiny_h, h_anuga), cc, cnn, 1.0f, 0.0f,
+                      tiny_h, fn, an, tn);
     cm = nanmax(nanmax(aw * inv_dx, ae * inv_dx),
                 nanmax(as * inv_dy, an * inv_dy));
 
@@ -208,6 +314,35 @@ __global__ void __launch_bounds__(kThreads) swe_raster_step_kernel(
       prim[C + c] = pc.u;
       prim[2 * C + c] = pc.v;
     }
+    if constexpr (NT > 0) {
+      // tracer rows (_kernel :601-641): the divergence, Hairsine-Rose
+      // erosion minus deposition on the sediment classes under the strict
+      // wet test, and the primitive row, the concentration under it
+      const bool wet_t = s.h > tiny_h;
+      const float tau_b = 0.5f * sp.rhow * cd * (uu * uu + vv * vv);
+      const float ero = sp.kp * (tau_b - sp.tau_ce) / sp.tau_ce;
+#pragma unroll
+      for (int k = 0; k < NT; ++k) {
+        const float ck = wet_t ? mc.m[k] / (wet_t ? s.h : 1.0f) : 0.0f;
+        float rhc = -((te.m[k] - tw.m[k]) * inv_dx +
+                      (tn.m[k] - ts.m[k]) * inv_dy);
+        if (num_sediment) {
+          const float dep = sp.ws * ck * (1.0f - tau_b / sp.tau_cd);
+          float ed = wet_t ? ero - dep : 0.0f;
+          if (num_sediment < NT) ed = ed * (k < num_sediment ? 1.0f : 0.0f);
+          rhc = rhc + ed;
+        }
+        const int64_t r = (3 + k) * C + c;
+        if (rhs_mode) {
+          out[r] = rhc;
+        } else {
+          float o = beta * (mc.m[k] + dt * rhc);
+          if (qA) o = alpha * qA[r] + o;
+          out[r] = o;
+        }
+        if (prim) prim[r] = ck;
+      }
+    }
   }
 
   // block maximum of cm: warp shuffles, then one warp over the warp maxima
@@ -232,26 +367,37 @@ __global__ void __launch_bounds__(kThreads) swe_raster_step_kernel(
 // One launch over the [ny, nx] raster with blocks of bx x by threads
 // (bx * by a multiple of 32, at most 256); cmax holds ceil(nx/bx) *
 // ceil(ny/by) floats, row-major by block. rhs_mode != 0 writes the RHS to
-// out, else the stage alpha*qA + beta*(q + dt*rhs). Returns
-// cudaGetLastError().
+// out, else the stage alpha*qA + beta*(q + dt*rhs). nt: tracer rows of q,
+// qA, the Dirichlet walls' values, out and prim beyond (h, hu, hv), the
+// first num_sediment of them sediment classes with the Hairsine-Rose
+// parameters kp, ws, tau_ce, tau_cd, rhow; upwind != 0 takes upwind-Roe
+// tracer fluxes. Returns cudaGetLastError().
 extern "C" int rdy_swe_raster_step_f32(
     const void* q, const void* qA, const void* dzx, const void* dzy,
     const void* mann, const void* src, const void* dt, int bc_l, int bc_r,
     int bc_b, int bc_t, const void* bv_l, const void* bv_r, const void* bv_b,
     const void* bv_t, int64_t nx, int64_t ny, float tiny_h, float h_anuga,
     float inv_dx, float inv_dy, int rhs_mode, float alpha, float beta,
-    void* out, void* prim, void* cmax, int bx, int by, void* stream) {
+    int nt, int upwind, int num_sediment, float kp, float ws, float tau_ce,
+    float tau_cd, float rhow, void* out, void* prim, void* cmax, int bx,
+    int by, void* stream) {
   const int64_t gx = (nx + bx - 1) / bx, gy = (ny + by - 1) / by;
   if (bx * by > kThreads || (bx * by) % 32 != 0 || nx < 1 || ny < 1 ||
       gy > 65535 || gx > 2147483647)
     return (int)cudaErrorInvalidValue;
   const dim3 block(bx, by);
   const dim3 grid((unsigned)gx, (unsigned)gy);
-  swe_raster_step_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)qA, (const float*)dzx, (const float*)dzy,
-      (const float*)mann, (const float*)src, (const float*)dt, bc_l, bc_r,
-      bc_b, bc_t, (const float*)bv_l, (const float*)bv_r, (const float*)bv_b,
-      (const float*)bv_t, nx, ny, tiny_h, h_anuga, inv_dx, inv_dy, rhs_mode,
-      alpha, beta, (float*)out, (float*)prim, (float*)cmax);
-  return (int)cudaGetLastError();
+  const rdy::SedimentParams<float> sp{kp, ws, tau_ce, tau_cd, rhow};
+  return rdy::dispatch_nt(nt, upwind != 0, [&](auto tag) {
+    using Tag = decltype(tag);
+    swe_raster_step_kernel<Tag::nt, Tag::upwind>
+        <<<grid, block, 0, (cudaStream_t)stream>>>(
+            (const float*)q, (const float*)qA, (const float*)dzx,
+            (const float*)dzy, (const float*)mann, (const float*)src,
+            (const float*)dt, bc_l, bc_r, bc_b, bc_t, (const float*)bv_l,
+            (const float*)bv_r, (const float*)bv_b, (const float*)bv_t, nx,
+            ny, tiny_h, h_anuga, inv_dx, inv_dy, rhs_mode, alpha, beta,
+            num_sediment, sp, (float*)out, (float*)prim, (float*)cmax);
+    return (int)cudaGetLastError();
+  });
 }

@@ -4,11 +4,11 @@
 takes the plain PyTorch version `swe_raster_step_plain` for CPU tensors.
 The kernel replaces the TPU kernel `_kernel` of
 rdycore_tpu/ops/pallas/structured_step.py (:172) in its modes base,
-`emit_rhs` and `with_src`; see the source's header for its bound and
+`emit_rhs`, `with_src` and `nt`; see the source's header for its bound and
 design.
 
-The state stays the package's [3, ny*nx] (row-major cells, viewed
-[3, ny, nx]). The TPU kernel's padded planes, its 128-lane ghost columns and
+The state stays the package's [ndof, ny*nx] (row-major cells, viewed
+[ndof, ny, nx]; rows 3.. hold the tracer masses of the nt mode). The TPU kernel's padded planes, its 128-lane ghost columns and
 8-row tiles exist for the TPU's (8, 128) tiling and are not ported; the
 wall ghost states that `fill_ghost_frame` writes into the padding
 (structured_step.py:60-169, flow rows) are formed at the wall faces:
@@ -19,17 +19,20 @@ wall ghost states that `fill_ghost_frame` writes into the padding
   left as it is on inflow, unlike the unstructured operator's boundary
   edges (the TPU kernel's approximation, structured_step.py:76-79).
 
-The ghost cell's velocity is then regularized like any cell's. Faces follow
-the TPU kernel: x faces roe(west, east) with normal +x and y faces
-roe(south, north) with normal +y, walls included, the pure-flow dry mask
-(both sides below tiny_h) and 1/c_hat by rsqrt.
+A ghost's tracer masses are the prescribed rows of a Dirichlet wall, else
+the ghost depth times the wall cell's concentration. The ghost cell's
+velocity is then regularized like any cell's. Faces follow the TPU kernel:
+x faces roe(west, east) with normal +x and y faces roe(south, north) with
+normal +y, walls included, 1/c_hat by rsqrt, and the pure-flow dry mask
+(both sides below tiny_h) or, with tracers, the coupled system's (either
+side above tiny_h). The sediment classes get Hairsine-Rose sources.
 
 Modes, as K1b's:
 - stage (`stage=(alpha, beta, gamma)`, gamma = beta, optional `qA`):
   out = alpha*qA + beta*(q + dt*rhs); (0, 1, 1) without qA is the euler
   step q + dt*rhs;
 - rhs (`stage=None`): out = rhs.
-`emit_prim` adds the primitives (h, u, v) of q. `cmax` holds the largest
+`emit_prim` adds the primitives (h, u, v and the concentrations) of q. `cmax` holds the largest
 Courant coefficient amax/dx, amax/dy of each block of BLOCK cells' faces.
 """
 
@@ -44,6 +47,7 @@ import torch
 from ...constants import GRAVITY
 from ..swe import boundary as bc_mod
 from ..swe.riemann import regularized_velocity, roe_flux
+from ..tracer.sources import SedimentParams
 from . import build
 from .cell_stage import _alpha_beta
 
@@ -54,7 +58,8 @@ _P, _I64, _INT, _F = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                       ctypes.c_float)
 _FUNCTIONS = {
     "rdy_swe_raster_step_f32": [_P] * 7 + [_INT] * 4 + [_P] * 4
-    + [_I64, _I64, _F, _F, _F, _F, _INT, _F, _F, _P, _P, _P, _INT, _INT, _P],
+    + [_I64, _I64, _F, _F, _F, _F, _INT, _F, _F, _INT, _INT, _INT]
+    + [_F] * 5 + [_P, _P, _P, _INT, _INT, _P],
 }
 
 
@@ -86,8 +91,8 @@ _SIDES = {
 
 
 class RasterStepOut(NamedTuple):
-    out: torch.Tensor  # [3, ny*nx] the stage's state (stage mode) or rhs
-    prim: Optional[torch.Tensor]  # [3, ny*nx] (h, u, v) of q, emit_prim
+    out: torch.Tensor  # [ndof, ny*nx] the stage's state (stage mode) or rhs
+    prim: Optional[torch.Tensor]  # [ndof, ny*nx] primitives of q, emit_prim
     cmax: torch.Tensor  # [blocks] largest amax/dx, amax/dy per block
 
 
@@ -120,36 +125,63 @@ def wall_ghost(bc: int, h, hu, hv, sn: float, cn: float, tiny_h: float,
     return hg, hg * ug, hg * vg
 
 
+def wall_ghost_hc(bc: int, h, hc, hg, tiny_h: float, dirichlet=None):
+    """Ghost tracer masses beyond the wall cells (h, hc [nt, n]) whose
+    ghost depth is hg (structured_step.py `_ghost_hc`): the prescribed rows
+    3.. of a Dirichlet wall, else hg times the interior concentration."""
+    if bc == bc_mod.BC_DIRICHLET:
+        return dirichlet[3:]
+    hden = torch.where(torch.abs(h) > 0.0, h, 1.0)
+    return hg * torch.where(h > tiny_h, hc / hden, 0.0)
+
+
 def swe_raster_step_plain(
     plan: StructuredPlan, q, dz_dx, dz_dy, mannings_n, dt, *, src=None,
     bc_vals: Optional[Dict[str, torch.Tensor]] = None,
     stage: Optional[Tuple[float, float, float]] = None, qA=None,
-    emit_prim: bool = False,
+    emit_prim: bool = False, num_sediment: int = 0, upwind: bool = False,
 ) -> RasterStepOut:
     """Plain version of the kernel: the ghost frame of `fill_ghost_frame`
     around the raster, then the TPU kernel's faces, divergence, sources and
-    update (structured_step.py:269-656) on whole planes."""
+    update (structured_step.py:269-656) on whole planes. q with more than 3
+    rows carries tracers (the kernel's nt mode)."""
     nx, ny, th, ta = plan.nx, plan.ny, plan.tiny_h, plan.h_anuga
+    ndof = q.shape[0]
+    nt = ndof - 3
     inv_dx, inv_dy = f32(1.0 / plan.dx), f32(1.0 / plan.dy)
-    q3 = q.reshape(3, ny, nx)
-    h, hu, hv = q3
+    qn = q.reshape(ndof, ny, nx)
+    h, hu, hv = qn[:3]
     bc_vals = bc_vals or {}
-    frame = q3.new_zeros((3, ny + 2, nx + 2))
-    frame[:, 1:-1, 1:-1] = q3
+    frame = q.new_zeros((ndof, ny + 2, nx + 2))
+    frame[:, 1:-1, 1:-1] = qn
     for side, (sn, cn, cells, ghosts) in _SIDES.items():
-        g = wall_ghost(getattr(plan, f"bc_{side}"), h[cells], hu[cells],
-                       hv[cells], sn, cn, th, ta, bc_vals.get(side))
+        bc = getattr(plan, f"bc_{side}")
+        g = wall_ghost(bc, h[cells], hu[cells], hv[cells], sn, cn, th, ta,
+                       bc_vals.get(side))
         for k in range(3):
             frame[k][ghosts] = g[k]
-    H, HU, HV = frame
+        if nt:
+            frame[3:][(slice(None),) + ghosts] = wall_ghost_hc(
+                bc, h[cells], qn[3:][(slice(None),) + cells], g[0], th,
+                bc_vals.get(side))
+    H, HU, HV = frame[:3]
     U, V = regularized_velocity(H, HU, HV, th, ta)
+    if nt:
+        hden = torch.where(torch.abs(H) > 0.0, H, 1.0)
+        CT = torch.where(H > th, frame[3:] / hden, 0.0)
 
     def faces(lo, hi, sn, cn):
-        f_h, f_hu, f_hv, a = roe_flux(
-            H[lo], U[lo], V[lo], H[hi], U[hi], V[hi], sn, cn, fast=True,
-        )
-        m = (~((H[lo] < th) & (H[hi] < th))).to(H.dtype)
-        return torch.stack([f_h, f_hu, f_hv]) * m, a * m
+        tr = dict(cil=CT[(slice(None),) + lo], cir=CT[(slice(None),) + hi],
+                  upwind=upwind) if nt else {}
+        fl = roe_flux(H[lo], U[lo], V[lo], H[hi], U[hi], V[hi], sn, cn,
+                      fast=True, **tr)
+        if nt:
+            m = ((H[lo] > th) | (H[hi] > th)).to(H.dtype)
+            rows = torch.cat([torch.stack(fl[:3]), fl[4]])
+        else:
+            m = (~((H[lo] < th) & (H[hi] < th))).to(H.dtype)
+            rows = torch.stack(fl[:3])
+        return rows * m, fl[3] * m
 
     inner = slice(1, -1)
     fx, ax = faces((inner, slice(0, -1)), (inner, slice(1, None)), 0.0, 1.0)
@@ -181,19 +213,40 @@ def swe_raster_step_plain(
     tbx = torch.where(wet, (hu + dt * div[1] - dt * bedx) * factor, 0.0)
     tby = torch.where(wet, (hv + dt * div[2] - dt * bedy) * factor, 0.0)
     rh = div[0] if src is None else div[0] + src
-    rhs = torch.stack([rh, div[1] - bedx - tbx, div[2] - bedy - tby])
+    rows = [rh, div[1] - bedx - tbx, div[2] - bedy - tby]
+    if nt:
+        # Hairsine-Rose on the sediment classes, strict wet test
+        # (_kernel :601-626)
+        wet_t = h > th
+        cc = torch.where(wet_t, qn[3:] / torch.where(wet_t, h, 1.0), 0.0)
+        rhc = div[3:]
+        if num_sediment:
+            kp, ws, tau_ce, tau_cd, rhow = (f32(x) for x in SedimentParams())
+            tau_b = 0.5 * rhow * cd * (uu * uu + vv * vv)
+            e = kp * (tau_b - tau_ce) / tau_ce
+            d = ws * cc * (1.0 - tau_b / tau_cd)
+            ed = torch.where(wet_t, e[None] - d, 0.0)
+            if num_sediment < nt:
+                ed = ed * (torch.arange(nt) < num_sediment).to(
+                    q.dtype).to(q.device)[:, None, None]
+            rhc = rhc + ed
+        rows += list(rhc)
+    rhs = torch.stack(rows)
 
     if stage is None:
         out = rhs
     else:
         alpha, beta = _alpha_beta(stage)
-        out = beta * (q3 + dt * rhs)
+        out = beta * (qn + dt * rhs)
         if qA is not None:
-            out = alpha * qA.reshape(3, ny, nx) + out
+            out = alpha * qA.reshape(ndof, ny, nx) + out
     prim = None
     if emit_prim:
-        prim = torch.stack([h, U[inner, inner], V[inner, inner]]).reshape(3, -1)
-    return RasterStepOut(out.reshape(3, -1), prim, cmax)
+        prim_rows = [h, U[inner, inner], V[inner, inner]]
+        if nt:
+            prim_rows += list(cc)
+        prim = torch.stack(prim_rows).reshape(ndof, -1)
+    return RasterStepOut(out.reshape(ndof, -1), prim, cmax)
 
 
 def swe_raster_step(
@@ -203,22 +256,33 @@ def swe_raster_step(
     bc_vals: Optional[Dict[str, torch.Tensor]] = None,
     stage: Optional[Tuple[float, float, float]] = None,
     qA: Optional[torch.Tensor] = None, emit_prim: bool = False,
+    num_sediment: int = 0, upwind: bool = False,
 ) -> RasterStepOut:
-    """One launch over the raster of `plan`. q [3, ny*nx] float32 (qA the
-    same), dz_dx, dz_dy, mannings_n and the rain plane src [ny, nx], dt a
-    0-dim tensor read on the device, bc_vals {side: [3, n]} the prescribed
-    (h, hu, hv) along each Dirichlet wall (n = ny for left/right, nx for
-    bottom/top)."""
+    """One launch over the raster of `plan`. q [ndof, ny*nx] float32 (qA
+    the same; ndof = 3, or 3 + the tracers of which the first num_sediment
+    are sediment classes), dz_dx, dz_dy, mannings_n and the rain plane src
+    [ny, nx], dt a 0-dim tensor read on the device, bc_vals {side: [ndof,
+    n]} the prescribed (h, hu, hv and tracer masses) along each Dirichlet
+    wall (n = ny for left/right, nx for bottom/top). upwind: upwind-Roe
+    tracer fluxes."""
     if q.device.type == "cpu":
         return swe_raster_step_plain(
             plan, q, dz_dx, dz_dy, mannings_n, dt, src=src, bc_vals=bc_vals,
             stage=stage, qA=qA, emit_prim=emit_prim,
+            num_sediment=num_sediment, upwind=upwind,
         )
     dev, f = q.device, torch.float32
     nx, ny = plan.nx, plan.ny
     C = nx * ny
+    ndof = q.shape[0]
+    nt = ndof - 3
+    if not 0 <= nt <= build.MAX_TRACERS:
+        raise ValueError(f"swe_raster_step: {ndof} state rows")
+    if not 0 <= num_sediment <= nt:
+        raise ValueError(f"swe_raster_step: {num_sediment} sediment classes "
+                         f"of {nt} tracers")
     ck = build.check
-    ck(q, "q", f, (3, C), dev)
+    ck(q, "q", f, (ndof, C), dev)
     for name, t in (("dz_dx", dz_dx), ("dz_dy", dz_dy),
                     ("mannings_n", mannings_n)):
         ck(t, name, f, (ny, nx), dev)
@@ -226,7 +290,7 @@ def swe_raster_step(
     if src is not None:
         ck(src, "src", f, (ny, nx), dev)
     if qA is not None:
-        ck(qA, "qA", f, (3, C), dev)
+        ck(qA, "qA", f, (ndof, C), dev)
     bc_vals = bc_vals or {}
     codes, walls = [], []
     for side in _SIDES:
@@ -241,13 +305,13 @@ def swe_raster_step(
                 raise ValueError(f"swe_raster_step: Dirichlet {side} wall "
                                  "without bc_vals")
             ck(wall, f"bc_vals[{side!r}]", f,
-               (3, ny if side in ("left", "right") else nx), dev)
+               (ndof, ny if side in ("left", "right") else nx), dev)
         codes.append(bc)
         walls.append(wall)
     alpha, beta = _alpha_beta(stage) if stage is not None else (0.0, 0.0)
 
-    out = torch.empty((3, C), dtype=f, device=dev)
-    prim = torch.empty((3, C), dtype=f, device=dev) if emit_prim else None
+    out = torch.empty((ndof, C), dtype=f, device=dev)
+    prim = torch.empty((ndof, C), dtype=f, device=dev) if emit_prim else None
     cmax = torch.empty((num_blocks(nx, ny),), dtype=f, device=dev)
 
     def ptr(t):
@@ -260,7 +324,8 @@ def swe_raster_step(
             mannings_n.data_ptr(), ptr(src), dt.data_ptr(), *codes,
             *(ptr(w) for w in walls), nx, ny, plan.tiny_h, plan.h_anuga,
             f32(1.0 / plan.dx), f32(1.0 / plan.dy), int(stage is None),
-            alpha, beta, out.data_ptr(), ptr(prim), cmax.data_ptr(),
+            alpha, beta, nt, int(upwind), num_sediment, *SedimentParams(),
+            out.data_ptr(), ptr(prim), cmax.data_ptr(),
             BLOCK[0], BLOCK[1], torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check_status(status, "swe_raster_step")

@@ -11,15 +11,15 @@ at first order.
   uses the unstructured operator's wall ghosts (critical outflow also dries
   the interior on inflow) and source functions, and is the f64 reference of
   the tests.
-- `make_fused_structured_stepper` runs the kernel K2 `swe_raster_step` once
-  per stage (euler, ssprk2 and ssprk3 in stage mode, rk4 from rhs-mode
+- `make_fused_structured_stepper` runs the kernel K2 `swe_raster_step`
+  (with tracer rows in its nt mode) once per stage (euler, ssprk2 and ssprk3 in stage mode, rk4 from rhs-mode
   calls), folds the Courant maxima with K1c, and takes the boundary-flux
   accumulator from K1a on the operator's boundary edges alone. Like the TPU
   stepper it runs in float32 with the time kept in float32, and nothing is
   read back to the host until the interval ends.
 
-State layout: q[3, ny, nx] for the operator, the package's [3, ny*nx] for
-the fused stepper; cell c sits at row c // nx, column c % nx.
+State layout: q[3, ny, nx] for the operator, the package's [ndof, ny*nx]
+for the fused stepper; cell c sits at row c // nx, column c % nx.
 """
 
 from __future__ import annotations
@@ -274,26 +274,37 @@ def boundary_edge_arrays(a: OperatorArrays) -> OperatorArrays:
 class FusedStructuredOperator:
     """The kernels of the fused raster path on one raster: K2 for each step
     or stage, K1c for the Courant fold and, given `bnd` (the boundary edges
-    from `boundary_edge_arrays`), K1a for the boundary fluxes."""
+    from `boundary_edge_arrays`), K1a for the boundary fluxes. num_tracers
+    rows follow (h, hu, hv) in the state, the first num_sediment of them
+    sediment classes; riemann "upwind_roe" upwinds their fluxes."""
 
     plan: StructuredPlan
     dz_dx: torch.Tensor  # [ny, nx] float32
     dz_dy: torch.Tensor
     mannings_n: torch.Tensor
     bnd: Optional[OperatorArrays] = None
+    num_tracers: int = 0
+    num_sediment: int = 0
+    riemann: str = "roe"
+
+    @property
+    def ndof(self) -> int:
+        return 3 + self.num_tracers
 
     def step(self, q, dt, src=None, bc_vals=None, **mode):
-        """K2 on q [3, ny*nx] (mode: stage=, qA=, emit_prim=)."""
+        """K2 on q [ndof, ny*nx] (mode: stage=, qA=, emit_prim=)."""
         return swe_raster_step(self.plan, q, self.dz_dx, self.dz_dy,
                                self.mannings_n, dt, src=src, bc_vals=bc_vals,
-                               **mode)
+                               num_sediment=self.num_sediment,
+                               upwind=self.riemann == "upwind_roe", **mode)
 
     def courant_max(self, cmax_blocks, dt, run_max, run_idx):
         """K1c: fold max(cmax_blocks) * dt into run_max in place."""
         return courant_argmax(cmax_blocks, dt, run_max, run_idx)
 
     def boundary_fluxes(self, q, bv_edges):
-        """K1a on the boundary edges: Roe fluxes [3, Eb] of state q."""
+        """K1a on the boundary edges: the flow-only Roe fluxes [3, Eb] of
+        the flow rows q [3, ny*nx] (bv_edges [3, >= Eb])."""
         flux, _ = swe_edge_flux(self.bnd, q, bv_edges, self.plan.tiny_h,
                                 self.plan.h_anuga)
         return flux[:, :-1]
@@ -316,18 +327,21 @@ def make_fused_structured_stepper(
     op: FusedStructuredOperator, scheme: str = "euler",
     accumulate: bool = False,
 ) -> Callable[..., IntervalResult]:
-    """advance(q [3, ny*nx] float32, t0, dt, n_steps, t_end, src=None,
+    """advance(q [ndof, ny*nx] float32, t0, dt, n_steps, t_end, src=None,
     bc_vals=None, bv_edges=None) -> IntervalResult, all of it float32 on
     q's device. src: the rain plane [ny, nx] or None; bc_vals: {side:
-    [3, n]} Dirichlet wall values; bv_edges: [3, >= Eb] boundary values for
-    the boundary-flux accumulator.
+    [ndof, n]} Dirichlet wall values; bv_edges: [ndof, >= Eb] boundary
+    values for the boundary-flux accumulator.
 
     dt_i = max(min(dt, t_end - t), 0) and t advance in float32; the Courant
     number max(cmax, cm*dt_i) takes cm from the first stage (from k1 for
     rk4). accumulate=True adds the dt-weighted accounting of each pre-step
     state (asol, aprim, atime, and bflux_accum when `op.bnd` is given);
     otherwise those fields are None, as is courant_edge (a raster Courant
-    maximum has no edge id)."""
+    maximum has no edge id). The accumulator's tracer rows stay zero: the
+    JAX package's raster stepper takes its boundary fluxes from the
+    flow-only `boundary_fluxes` (structured_step.py:899-906), and so does
+    this one."""
     if scheme == "beuler":
         raise NotImplementedError(
             "temporal: beuler on the raster is not ported to "
@@ -350,7 +364,8 @@ def make_fused_structured_stepper(
         bfa = asol = aprim = atime = None
         if accumulate:
             if op.bnd is not None:
-                bfa = torch.zeros((3, bv_edges.shape[1]), dtype=f, device=dev)
+                bfa = torch.zeros((op.ndof, bv_edges.shape[1]), dtype=f,
+                                  device=dev)
             asol, aprim, atime = torch.zeros_like(q), torch.zeros_like(q), \
                 scalar(0.0)
 
@@ -375,7 +390,8 @@ def make_fused_structured_stepper(
             op.courant_max(first.cmax, dt_i, cmax, cidx)
             if accumulate:
                 if bfa is not None:
-                    bfa += dt_i * op.boundary_fluxes(qq, bv_edges)
+                    bfa[:3] += dt_i * op.boundary_fluxes(qq[:3],
+                                                         bv_edges[:3])
                 asol += dt_i * qq
                 aprim += dt_i * first.prim
                 atime += dt_i

@@ -19,8 +19,71 @@ import torch
 from ...constants import GRAVITY
 
 
+def roe_eigenspectrum(hl, ul, vl, hr, ur, vr, sn, cn):
+    """Roe-average eigenspectrum with the critical-flow fix, as a dict of
+    the pieces the flow and tracer flux assemblies share (the JAX package's
+    `roe_eigenspectrum`, which divides by the Roe denominator and by c_hat
+    where `roe_flux` multiplies by their inverses)."""
+    g = torch.tensor(GRAVITY, dtype=hl.dtype)
+    sqrt_g = torch.sqrt(g)
+
+    hl_s = torch.clamp_min(hl, 0.0)
+    hr_s = torch.clamp_min(hr, 0.0)
+    duml = torch.sqrt(hl_s)
+    dumr = torch.sqrt(hr_s)
+    cl = sqrt_g * duml
+    cr = sqrt_g * dumr
+    hhat = duml * dumr
+    denom = duml + dumr
+    denom_safe = torch.where(denom > 0.0, denom, 1.0)
+    uhat = (duml * ul + dumr * ur) / denom_safe
+    vhat = (duml * vl + dumr * vr) / denom_safe
+    chat = torch.sqrt(0.5 * g * (hl_s + hr_s))
+    chat_safe = torch.where(chat > 0.0, chat, 1.0)
+    uperp = uhat * cn + vhat * sn
+
+    dh = hr - hl
+    du = ur - ul
+    dv = vr - vl
+    dupar = -du * sn + dv * cn
+    duperp = du * cn + dv * sn
+
+    uperpl = ul * cn + vl * sn
+    uperpr = ur * cn + vr * sn
+    a1 = torch.abs(uperp - chat)
+    a2 = torch.abs(uperp)
+    a3 = torch.abs(uperp + chat)
+
+    al1 = uperpl - cl
+    ar1 = uperpr - cr
+    da1 = torch.clamp_min(2.0 * (ar1 - al1), 0.0)
+    da1_safe = torch.where(da1 > 0.0, da1, 1.0)
+    a1 = torch.where(a1 < da1, 0.5 * (a1 * a1 / da1_safe + da1), a1)
+
+    al3 = uperpl + cl
+    ar3 = uperpr + cr
+    da3 = torch.clamp_min(2.0 * (ar3 - al3), 0.0)
+    da3_safe = torch.where(da3 > 0.0, da3, 1.0)
+    a3 = torch.where(a3 < da3, 0.5 * (a3 * a3 / da3_safe + da3), a3)
+
+    dW0 = 0.5 * (dh - hhat * duperp / chat_safe)
+    dW1 = hhat * dupar
+    dW2 = 0.5 * (dh + hhat * duperp / chat_safe)
+
+    return {
+        "a1": a1, "a2": a2, "a3": a3,
+        "dW0": dW0, "dW1": dW1, "dW2": dW2,
+        "uhat": uhat, "vhat": vhat, "chat": chat,
+        "duml": duml, "dumr": dumr, "denom_safe": denom_safe,
+        "dh": dh, "uperp": uperp, "uperpl": uperpl, "uperpr": uperpr,
+        "hl_s": hl_s, "hr_s": hr_s, "g": g,
+        "amax": chat + torch.abs(uperp),
+    }
+
+
 def roe_flux(
-    hl, ul, vl, hr, ur, vr, sn, cn, fast=False,
+    hl, ul, vl, hr, ur, vr, sn, cn, fast=False, cil=None, cir=None,
+    upwind=False,
 ) -> Tuple[torch.Tensor, ...]:
     """Roe flux through edges for the 2-D shallow water equations.
 
@@ -29,6 +92,12 @@ def roe_flux(
     Returns (f_h, f_hu, f_hv, amax) with amax = |u_perp| + c_hat, the
     largest wave speed. fast=True takes 1/c_hat from rsqrt, as the raster
     kernel does.
+
+    cil/cir ([nt, ...] tracer concentrations): also return the tracer flux
+    [nt, ...] as a 5th element, on this eigensystem: Roe advected waves,
+    or with upwind=True the h-flux times the upwind concentration (the
+    same as `ops.tracer.flux.tracer_roe_flux`, with the inverses of this
+    function).
     """
     g = torch.tensor(GRAVITY, dtype=hl.dtype)
     sqrt_g = torch.sqrt(g)
@@ -113,7 +182,19 @@ def roe_flux(
         - (vhat + chat * sn) * A2dW2
     )
     amax = chat + torch.abs(uperp)
-    return f_h, f_hu, f_hv, amax
+    if cil is None:
+        return f_h, f_hu, f_hv, amax
+
+    if upwind:
+        f_tracer = f_h * torch.where(f_h >= 0.0, cil, cir)
+    else:
+        fl_c = hl_s * uperpl * cil
+        fr_c = hr_s * uperpr * cir
+        cihat = (duml * cil + dumr * cir) * inv_denom
+        dch = cir * hr_s - cil * hl_s
+        dW_c = dch - cihat * dh
+        f_tracer = 0.5 * (fl_c + fr_c - cihat * (A0dW0 + A2dW2) - a2 * dW_c)
+    return f_h, f_hu, f_hv, amax, f_tracer
 
 
 def regularized_velocity(h, hu, hv, tiny_h, h_anuga):

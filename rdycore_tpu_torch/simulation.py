@@ -1,9 +1,11 @@
 """The Simulation object: the RDy lifecycle on one device.
 
 The counterpart of rdycore_tpu/simulation.py for the first-order,
-flow-only, single-device paths: unstructured, and the uniform raster
-(`edge_flux_backend: structured` or `fused_structured`) (the reference's
-RDy object, src/rdycore.c, src/rdysetup.c, src/rdyadvance.c):
+single-device paths, flow only or with tracers (sediment with
+Hairsine-Rose sources, salinity, heat): unstructured, and the uniform
+raster (`edge_flux_backend: structured`, flow only, or `fused_structured`)
+(the reference's RDy object, src/rdycore.c, src/rdysetup.c,
+src/rdyadvance.c):
 
     sim = Simulation(load_config("case.yaml"))  # RDyCreate + RDySetup
     while not sim.finished:                     # while (!RDyFinished(rdy))
@@ -73,45 +75,118 @@ def _not_ported(feature: str, item: str):
     )
 
 
+def num_tracers(config: Config) -> int:
+    """Tracer rows of the state: the sediment classes, then salinity and
+    heat."""
+    p = config.physics
+    return p.sediment.num_classes + int(bool(p.salinity)) + int(bool(p.heat))
+
+
+def path_of(config: Config) -> str:
+    """The path a deck asks for: "unstructured" (edge_flux_backend xla,
+    auto or pallas), "fused_structured" or "structured"."""
+    kind = config.numerics.edge_flux_backend
+    return kind if kind in ("structured", "fused_structured") else "unstructured"
+
+
 def check_slice(config: Config) -> None:
-    """Raise NotImplementedError for any configured feature outside the
-    ported first-order, flow-only, single-device paths: unstructured, and
-    the uniform raster (edge_flux_backend structured or fused_structured).
-    The raster features are refused in `Simulation._init_structured_backend`:
-    what the JAX package's raster paths refuse as ConfigErrors, and what its
-    fused raster kernel runs and the port's does not yet."""
+    """Raise for any configured feature outside the ported paths: first
+    order, single device, unstructured or on the uniform raster
+    (edge_flux_backend structured or fused_structured). What depends on the
+    path is refused by `refuse_on_path`."""
     p, n = config.physics, config.numerics
-    raster = n.edge_flux_backend in ("structured", "fused_structured")
-    if n.second_order and not raster:
-        _not_ported("numerics.second_order (MUSCL)",
-                    "queue 1 item 10 and queue 2 K3")
-    if p.flow.well_balancing != "none" and not raster:
-        _not_ported(f"well_balancing: {p.flow.well_balancing}",
-                    "queue 1 item 11 and queue 2 K4/K5")
-    if (p.sediment.num_classes or p.salinity or p.heat) and not raster:
-        _not_ported("tracers (sediment, salinity, heat)",
-                    "queue 1 item 12 and queue 2 K4")
-    if (n.temporal in ("ark_imex", "beuler") and not raster) or (
-        p.flow.source.method == "ark_imex"
-    ):
-        _not_ported(f"temporal: {n.temporal} / source.method: "
-                    f"{p.flow.source.method}", "queue 1 item 13")
+    if p.flow.source.method == "ark_imex":
+        _not_ported(f"source.method: {p.flow.source.method}",
+                    "queue 1 item 13")
     if p.flow.mode != "swe":
         # the JAX package accepts the diffusion mode but runs the SWE for it
         raise NotImplementedError(
             f"physics.flow.mode: {p.flow.mode} is implemented in neither "
             "package; use swe"
         )
+    if num_tracers(config) and p.flow.source.method == "implicit_xq2018":
+        # the JAX package runs semi-implicit friction in its place
+        # (ROADMAP fault 2)
+        raise ConfigError(
+            "source.method: implicit_xq2018 has no form for the coupled "
+            "flow + tracer system (sediment, salinity, heat); use "
+            "semi_implicit"
+        )
     if n.cell_ordering != "file":
         _not_ported(f"cell_ordering: {n.cell_ordering}",
                     "queue 1 item 5c (mesh readers and RCM ordering)")
     if config.ensemble.size:
         _not_ported("ensembles", "queue 1 item 14")
-    if config.parallel.n_devices > 1 and not raster:
-        _not_ported("parallel.n_devices > 1", "queue 1 item 16")
     if config.restart.file or config.checkpoint.interval:
         _not_ported("checkpoints and restart",
                     "queue 1 item 5b (checkpoints, restart, HDF5 output)")
+    refuse_on_path(config, path_of(config))
+
+
+# The features that depend on the path, and how each path refuses them:
+# (feature, ROADMAP item) = not ported yet, NotImplementedError;
+# _CONFIG_ERROR = refused by the JAX package too, one ConfigError listing
+# them all, as it lists them. A path that runs a feature has no entry.
+_CONFIG_ERROR = None
+_PATH_REFUSALS = (
+    ("tracers/sediment", lambda c: num_tracers(c) > 0,
+     {"structured": _CONFIG_ERROR}),
+    ("second_order", lambda c: c.numerics.second_order, {
+        "unstructured": ("numerics.second_order (MUSCL)",
+                         "queue 1 item 10 and queue 2 K3"),
+        "fused_structured": ("numerics.second_order on the raster",
+                             "queue 2 K2 mode 4: MUSCL in the raster kernel"),
+        "structured": _CONFIG_ERROR}),
+    ("well_balancing",
+     lambda c: c.physics.flow.well_balancing not in (None, "", "none"), {
+         "unstructured": ("well_balancing", "queue 1 item 11 and queue 2 "
+                          "K4/K5"),
+         "fused_structured": _CONFIG_ERROR, "structured": _CONFIG_ERROR}),
+    ("parallel.n_devices > 1", lambda c: c.parallel.n_devices > 1, {
+        "unstructured": ("parallel.n_devices > 1", "queue 1 item 16"),
+        "fused_structured": ("parallel.n_devices > 1 on the raster",
+                             "queue 1 item 16 and queue 2 K2 row 13: the "
+                             "row-strip sharded raster kernel"),
+        "structured": _CONFIG_ERROR}),
+    ("temporal: beuler", lambda c: c.numerics.temporal == "beuler", {
+        "unstructured": ("temporal: beuler", "queue 1 item 13"),
+        "fused_structured": ("temporal: beuler on the raster",
+                             "queue 1 item 13")}),
+    ("temporal: ark_imex", lambda c: c.numerics.temporal == "ark_imex", {
+        "unstructured": ("temporal: ark_imex", "queue 1 item 13")}),
+    ("time_series.boundary_fluxes",
+     lambda c: bool(c.output.time_series.boundary_fluxes),
+     {"structured": _CONFIG_ERROR}),
+    ("time-averaged output fields", lambda c: wants_means(c),
+     {"structured": _CONFIG_ERROR}),
+)
+
+
+def wants_means(config: Config) -> bool:
+    """Whether an output reads the time-averaged solution."""
+    obs = config.output.time_series.observations
+    return any(f.endswith("_Mean") for f in (config.output.fields or [])) or (
+        bool(obs.interval and not obs.time_sampling.instantaneous))
+
+
+def refuse_on_path(config: Config, path: str) -> None:
+    """Raise for each configured feature that `path` does not run (the
+    table above). The raster paths' temporal schemes, source method and
+    walls are checked where the raster kind is decided
+    (`Simulation._init_structured_backend`)."""
+    unsupported = []
+    for feature, present, refusals in _PATH_REFUSALS:
+        if path not in refusals or not present(config):
+            continue
+        if refusals[path] is _CONFIG_ERROR:
+            unsupported.append(feature)
+        else:
+            _not_ported(*refusals[path])
+    if unsupported:
+        raise ConfigError(
+            f"edge_flux_backend: {path} does not support: "
+            + ", ".join(unsupported)
+        )
 
 
 def load_mesh_file(path: str) -> Mesh:
@@ -229,13 +304,25 @@ class Simulation:
                     f"material '{mat.name}' has no manning value or file"
                 )
         self.mannings_n = mannings
-        self.ndof = N_FLOW_DOF
+
+        # ---- tracers (sediment classes, then salinity and heat) ----
+        self.num_sediment = config.physics.sediment.num_classes
+        self.num_tracers = num_tracers(config)
+        self.ndof = N_FLOW_DOF + self.num_tracers
+        self.sediment_conditions = {c.name: c for c in config.sediment_conditions}
+        self.salinity_conditions = {c.name: c for c in config.salinity_conditions}
+        self.temperature_conditions = {
+            c.name: c for c in config.temperature_conditions
+        }
 
         # ---- operator ----
         self.operator: SWEOperator = build_operator(
             self._mesh_for_op,
             bc_types=bc_types,
             mannings_n=mannings,
+            num_tracers=self.num_tracers,
+            num_sediment=self.num_sediment,
+            riemann=config.numerics.riemann,
             tiny_h=config.physics.flow.tiny_h,
             h_anuga=config.physics.flow.h_anuga_reg_parameter,
             source_method=_SOURCE_CODES[config.physics.flow.source.method],
@@ -358,7 +445,44 @@ class Simulation:
                     q[row, cells] = self._eval_cells(
                         value if value is not None else 0.0, cells
                     )
+            # tracer ICs: condition values go directly into the state rows
+            # (InitTracerSolution, rdysetup.c:911-1067)
+            if self.num_tracers:
+                self._init_tracer_rows(q, ic, cells)
         return q
+
+    def _cell_values(self, cond, value, cells) -> np.ndarray:
+        """A tracer condition's values on `cells`: from its file (natural
+        order, or the first len(cells) values), else `value`."""
+        if cond.file:
+            vals = read_petsc_vec(self.config.resolve_path(cond.file))
+            if len(vals) >= self.mesh.num_cells:
+                return vals[self.mesh.natural_ids[cells]]
+            return vals[: len(cells)]
+        return self._eval_cells(value, cells)
+
+    def _init_tracer_rows(self, q, ic, cells):
+        """The tracer rows of the initial condition `ic` on its cells (the
+        JAX package's simulation.py:440-481)."""
+        row = N_FLOW_DOF
+        if self.num_sediment and ic.sediment:
+            classes = self.sediment_conditions[ic.sediment].classes
+            for k, cond in enumerate(classes[: self.num_sediment]):
+                if cond.file or cond.value is not None:
+                    q[row + k, cells] = self._cell_values(cond, cond.value,
+                                                          cells)
+        row += self.num_sediment
+        if self.config.physics.salinity and ic.salinity:
+            cond = self.salinity_conditions[ic.salinity]
+            if cond.file or cond.concentration is not None:
+                q[row, cells] = self._cell_values(cond, cond.concentration,
+                                                  cells)
+            row += 1
+        if self.config.physics.heat and ic.temperature:
+            cond = self.temperature_conditions[ic.temperature]
+            if cond.file or cond.temperature is not None:
+                q[row, cells] = self._cell_values(cond, cond.temperature,
+                                                  cells)
 
     def _dirichlet_values(self, t: float) -> np.ndarray:
         bvals = np.zeros((self.ndof, max(self.operator.num_boundary_edges, 1)))
@@ -416,16 +540,8 @@ class Simulation:
     def _needs_accumulators(self) -> bool:
         """Accumulate time-averaged/boundary-flux diagnostics only when some
         output consumes them."""
-        cfg = self.config
-        ts = cfg.output.time_series
-        return bool(
-            ts.boundary_fluxes
-            or (
-                ts.observations.interval
-                and not ts.observations.time_sampling.instantaneous
-            )
-            or any(f.endswith("_Mean") for f in (cfg.output.fields or []))
-        )
+        return bool(self.config.output.time_series.boundary_fluxes
+                    or wants_means(self.config))
 
     def advance(self):
         """Advance one coupling interval (RDyAdvance, rdyadvance.c:261-383).
@@ -511,32 +627,16 @@ class Simulation:
         package's simulation.py:585-915, single device).
 
         'structured' = the zero-gather operator in plain PyTorch
-        (ops/structured.py); 'fused_structured' = the raster step kernel K2
-        (ops/kernels/raster_step.py) through the fused stepper. Both require
-        a row-major uniform quad raster and flow-only first-order physics;
-        anything the JAX package's raster paths refuse is a ConfigError
-        here too, and a fused_structured deck whose raster is not 128-wide
-        aligned falls back to 'structured' as it does there.
+        (ops/structured.py), flow only; 'fused_structured' = the raster step
+        kernel K2 (ops/kernels/raster_step.py) through the fused stepper,
+        with tracers in K2's nt mode. Both require a row-major uniform quad
+        raster and first-order physics; anything the JAX package's raster
+        paths refuse is a ConfigError here too (`refuse_on_path`), and a
+        fused_structured deck whose raster is not 128-wide aligned falls
+        back to 'structured', with that path's refusals, as it does there.
         """
         cfg = self.config
-        p = cfg.physics
         kind = cfg.numerics.edge_flux_backend
-        tracers = p.sediment.num_classes or p.salinity or p.heat
-        if kind == "fused_structured":
-            # the JAX package's fused raster kernel runs these; K2 not yet
-            if cfg.numerics.second_order:
-                _not_ported("numerics.second_order on the raster",
-                            "queue 2 K2 mode 4: MUSCL in the raster kernel")
-            if tracers:
-                _not_ported("tracers on the raster",
-                            "queue 2 K2 mode 3: tracers in the raster kernel")
-            if cfg.numerics.temporal == "beuler":
-                _not_ported("temporal: beuler on the raster",
-                            "queue 1 item 13")
-            if cfg.parallel.n_devices > 1:
-                _not_ported("parallel.n_devices > 1 on the raster",
-                            "queue 1 item 16 and queue 2 K2 row 13: the "
-                            "row-strip sharded raster kernel")
         raster = detect_uniform_raster(self._mesh_for_op)
         if raster is None:
             raise ConfigError(
@@ -544,35 +644,6 @@ class Simulation:
                 "quad raster mesh (and numerics.cell_ordering: natural)"
             )
         nx, ny, dx, dy = raster
-        # what the JAX package's raster paths refuse (the fused kind reaches
-        # only well_balancing here)
-        unsupported = []
-        if tracers:
-            unsupported.append("tracers/sediment")
-        if cfg.numerics.second_order:
-            unsupported.append("second_order")
-        if p.flow.well_balancing not in (None, "", "none"):
-            unsupported.append("well_balancing")
-        if cfg.parallel.n_devices > 1:
-            unsupported.append("parallel.n_devices > 1")
-        ts = cfg.output.time_series
-        wants_bflux = bool(ts.boundary_fluxes)
-        wants_means = any(
-            f.endswith("_Mean") for f in (cfg.output.fields or [])
-        ) or bool(
-            ts.observations.interval
-            and not ts.observations.time_sampling.instantaneous
-        )
-        if kind != "fused_structured":
-            if wants_bflux:
-                unsupported.append("time_series.boundary_fluxes")
-            if wants_means:
-                unsupported.append("time-averaged output fields")
-        if unsupported:
-            raise ConfigError(
-                f"edge_flux_backend: {kind} does not support: "
-                + ", ".join(unsupported)
-            )
 
         # wall BCs from the operator's boundary segments via outward normals
         a = self.operator.arrays
@@ -622,6 +693,7 @@ class Simulation:
                     "path"
                 )
                 kind = "structured"
+                refuse_on_path(cfg, kind)
         if kind == "fused_structured":
             plan = StructuredPlan(
                 nx=nx, ny=ny, dx=dx, dy=dy,
@@ -649,17 +721,20 @@ class Simulation:
                         f"'{side}' is not fully covered by boundary edges"
                     )
                 side_cols[side] = torch.as_tensor(cols, device=self.device)
-            accum = wants_bflux or wants_means
+            accum = self._needs_accumulators()
             bnd = None
-            if wants_bflux and self.operator.num_boundary_edges:
+            if (cfg.output.time_series.boundary_fluxes
+                    and self.operator.num_boundary_edges):
                 bnd = boundary_edge_arrays(a)
 
             def plane(x):
                 return torch.as_tensor(x, dtype=torch.float32,
                                        device=self.device)
 
-            op = FusedStructuredOperator(plan, plane(dzx), plane(dzy),
-                                         plane(mann), bnd)
+            op = FusedStructuredOperator(
+                plan, plane(dzx), plane(dzy), plane(mann), bnd,
+                num_tracers=self.num_tracers, num_sediment=self.num_sediment,
+                riemann=cfg.numerics.riemann)
             # the rain plane goes to the kernel when the config declares
             # sources, or from the first interval a coupler sets one
             self._structured = dict(
@@ -672,6 +747,7 @@ class Simulation:
             self.log.info(
                 f"structured raster {nx}x{ny}: raster step kernel K2 "
                 f"({scheme}{', +src' if cfg.sources else ''}"
+                f"{f', {self.num_tracers} tracers' if self.num_tracers else ''}"
                 f"{'; its plain version on the CPU' if self.device.type == 'cpu' else ''})"
             )
         else:
@@ -846,14 +922,53 @@ class Simulation:
     def set_flow_dirichlet_boundary_values(
         self, boundary: str, values: np.ndarray
     ):
-        """RDySetFlowDirichletBoundaryValues: [3, n_edges] or [n_edges * 3]."""
+        """RDySetFlowDirichletBoundaryValues: [3, n_edges] or [n_edges * 3]
+        into the flow rows (the JAX package's setter fails on a state with
+        tracer rows: it assigns 3 rows to all of them)."""
         seg = self._segment(boundary)
         vals = np.asarray(values, dtype=np.float64)
         if vals.ndim == 1:
             vals = vals.reshape(seg.count, N_FLOW_DOF).T
         bv = self.boundary_values.cpu().numpy().copy()
-        bv[:, seg.start : seg.start + seg.count] = vals
+        bv[:N_FLOW_DOF, seg.start : seg.start + seg.count] = vals
         self.boundary_values = self._tensor(bv)
+
+    # ---- tracer Dirichlet values and sources (RDySet*DirichletBoundaryValues,
+    # RDySetRegional*Source) ----
+    def _set_tracer_dirichlet(self, boundary: str, row: int, values):
+        seg = self._segment(boundary)
+        bv = self.boundary_values.cpu().numpy().copy()
+        bv[row, seg.start : seg.start + seg.count] = values
+        self.boundary_values = self._tensor(bv)
+
+    def set_sediment_dirichlet_boundary_values(
+        self, boundary: str, class_values: np.ndarray
+    ):
+        """class_values: [num_classes, n_edges] of h*c_i."""
+        vals = np.atleast_2d(np.asarray(class_values, dtype=np.float64))
+        for k in range(vals.shape[0]):
+            self._set_tracer_dirichlet(boundary, N_FLOW_DOF + k, vals[k])
+
+    def set_salinity_dirichlet_boundary_values(self, boundary: str, values):
+        self._set_tracer_dirichlet(
+            boundary, N_FLOW_DOF + self.num_sediment, values)
+
+    def set_temperature_dirichlet_boundary_values(self, boundary: str,
+                                                  values):
+        row = (N_FLOW_DOF + self.num_sediment
+               + (1 if self.config.physics.salinity else 0))
+        self._set_tracer_dirichlet(boundary, row, values)
+
+    def set_regional_sediment_source(self, region: str, class_idx: int, rate):
+        src = self.ext_src.cpu().numpy().copy()
+        src[N_FLOW_DOF + class_idx, self.region_cells[region]] = rate
+        self._update_ext_src(src)
+
+    def set_regional_tracer_source(self, region: str, row: int, rate):
+        """row: the tracer's index among the tracers (0 = the first)."""
+        src = self.ext_src.cpu().numpy().copy()
+        src[N_FLOW_DOF + row, self.region_cells[region]] = rate
+        self._update_ext_src(src)
 
     # ---- time accessors (RDyGetTime/GetTimeStep/Get-SetCouplingInterval) ----
     def get_time(self, unit: Optional[str] = None) -> float:

@@ -15,6 +15,12 @@ q_out = alpha*q^n + beta*(q_s + dt*F(q_s)) with (alpha, beta, gamma) from
 `_FUSED_STEP_STAGES`. rk4 goes through `SWEOperator.apply` (the cell
 kernel's rhs mode) and `_rk4_step`.
 
+The state has ndof = 3 + num_tracers rows, and so do the boundary-flux
+accumulator and the stage kernels' outputs: unlike the JAX package, whose
+fused tier computes no tracer boundary fluxes and falls back to its
+two-kernel tier when accumulating (timestepping.py:285-297), stage mode
+keeps every row.
+
 Adaptive dt stays *between* intervals, on the host (`adapt_timestep`),
 exactly like the reference (rdyadvance.c:303-343).
 """
@@ -44,13 +50,13 @@ _FUSED_STEP_STAGES = {
 
 
 class IntervalResult(NamedTuple):
-    q: torch.Tensor  # [3, C] final state
+    q: torch.Tensor  # [ndof, C] final state
     t: torch.Tensor  # final time (seconds)
     max_courant: torch.Tensor  # max Courant number over the interval
     courant_edge: torch.Tensor  # edge index achieving it
-    bflux_accum: torch.Tensor  # [3, Eb] sum over steps of dt * boundary flux
-    accum_sol: torch.Tensor  # [3, C] sum of dt * q (time-averaged output)
-    accum_prim: torch.Tensor  # [3, C] sum of dt * primitives
+    bflux_accum: torch.Tensor  # [ndof, Eb] sum of dt * boundary flux
+    accum_sol: torch.Tensor  # [ndof, C] sum of dt * q (time-averaged output)
+    accum_prim: torch.Tensor  # [ndof, C] sum of dt * primitives
     accum_time: torch.Tensor  # total time accumulated
 
 
@@ -101,8 +107,8 @@ def make_interval_advancer(
         dt, t_end, tt = scalar(dt), scalar(t_end), scalar(t0)
         cmax = torch.zeros((), dtype=dtype, device=dev)
         cedge = torch.zeros((), dtype=torch.int32, device=dev)
-        bfa = torch.zeros((3, max(op.num_boundary_edges, 1)), dtype=dtype,
-                          device=dev)
+        bfa = torch.zeros((op.ndof, max(op.num_boundary_edges, 1)),
+                          dtype=dtype, device=dev)
         asol = torch.zeros_like(q)
         aprim = torch.zeros_like(q)
         atime = torch.zeros((), dtype=dtype, device=dev)

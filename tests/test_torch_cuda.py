@@ -11,7 +11,10 @@ Tolerances, relative to each output's largest magnitude: 1e-12 in f64 and
 rsqrt are not PyTorch's). Launch counts must move only on the CUDA path.
 The raster step K2 runs in f32 only; its Simulation on the card is held to
 the CPU run to 1e-5 after 20 ssprk3 steps, and the `structured` kind (plain
-PyTorch, f64) to 1e-12 after 10 rk4 steps.
+PyTorch, f64) to 1e-12 after 10 rk4 steps. The tracer instances (three
+tracers, two of them sediment classes, Roe and upwind-Roe) of K1a, K1b
+and K2 are held to their plain versions the same way, and a sediment deck
+on the card to the CPU run on both paths.
 """
 
 import numpy as np
@@ -50,22 +53,26 @@ def rel(got, want):
         float(want.abs().max()), 1e-30)
 
 
-def setup(mesh_fn, dtype, dev, seed=0):
+def setup(mesh_fn, dtype, dev, seed=0, nt=0, riemann="roe"):
     mesh = mesh_fn()
     rng = np.random.default_rng(seed)
     op = build_operator(mesh, bc_types={"left": 0, "right": 2, "top": 1},
                         mannings_n=rng.uniform(0.01, 0.05, mesh.num_cells),
-                        dtype=dtype, device=dev)
+                        num_tracers=nt, num_sediment=min(nt, 2),
+                        riemann=riemann, dtype=dtype, device=dev)
     C, Eb = op.num_cells, op.num_boundary_edges
     h = rng.uniform(0.05, 1.0, C)
     h = np.where(rng.uniform(size=C) < 0.3, 0.0, h)
-    q = np.stack([h, h * rng.normal(0, 0.4, C), h * rng.normal(0, 0.4, C)])
-    bv = np.stack([np.full(Eb, 0.3), np.full(Eb, 0.05), np.zeros(Eb)])
+    q = np.concatenate([
+        [h, h * rng.normal(0, 0.4, C), h * rng.normal(0, 0.4, C)],
+        h * rng.uniform(0.0, 0.5, (nt, C))])
+    bv = np.concatenate([[np.full(Eb, 0.3), np.full(Eb, 0.05), np.zeros(Eb)],
+                         rng.uniform(0.0, 0.1, (nt, Eb))])
 
     def t(x):
         return torch.as_tensor(x, dtype=dtype, device=dev)
 
-    return op, t(q), t(bv), t(rng.normal(0, 1e-3, (3, C)))
+    return op, t(q), t(bv), t(rng.normal(0, 1e-3, (3 + nt, C)))
 
 
 MESHES = [lambda: structured_quad(48, 32, 0.0, 2.0, 0.0, 1.0),
@@ -97,6 +104,35 @@ def test_kernels_match_plain_versions(dev, mesh, dtype):
     mp, ip = courant_argmax_plain(cp)
     assert float(m) == float(mp) and int(i) == int(ip)
     assert [k.launches for k in kernels.KERNELS] == [1, 6, 1, 0]
+
+
+@pytest.mark.parametrize("riemann", ["roe", "upwind_roe"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mesh", [0, 1])
+def test_tracer_kernels_match_plain_versions(dev, mesh, dtype, riemann):
+    op, q, bv, ext = setup(MESHES[mesh], dtype, dev, nt=3, riemann=riemann)
+    a = op.arrays
+    upwind = riemann == "upwind_roe"
+    kernels.reset_launch_counts()
+    flux, courant = op.edge_flux(q, bv)
+    fp, cp = swe_edge_flux_plain(a, q, bv, op.tiny_h, op.h_anuga, upwind)
+    assert flux.shape == (6, op.num_edges + 1)
+    assert rel(flux, fp) <= TOL[dtype] and rel(courant, cp) <= TOL[dtype]
+    dt = torch.tensor(0.002, dtype=dtype, device=dev)
+    for method in (0, 2):
+        kw = dict(tiny_h=op.tiny_h, h_anuga=op.h_anuga,
+                  xq2018_threshold=op.xq2018_threshold, source_method=method,
+                  num_sediment=2)
+        for mode in (dict(), dict(stage=(0.75, 0.25, 0.25), qA=q.flip(1))):
+            got = kernels.swe_cell_stage(a, fp, q, dt, ext, emit_prim=True,
+                                         **kw, **mode)
+            want = swe_cell_stage_plain(a, fp, q, dt, ext, emit_prim=True,
+                                        **kw, **mode)
+            for g, w in zip(got, want):
+                if w is not None:
+                    assert g.shape == (6, op.num_cells)
+                    assert rel(g, w) <= TOL[dtype]
+    assert [k.launches for k in kernels.KERNELS] == [1, 4, 0, 0]
 
 
 def test_simulation_on_the_card_matches_the_cpu(dev):
@@ -153,6 +189,82 @@ def test_raster_step_matches_plain_version(dev, rain):
         for g, w in zip(got, want):
             assert rel(g, w) <= TOL[torch.float32]
     assert kernels.swe_raster_step.launches == len(modes)
+
+
+@pytest.mark.parametrize("upwind", [False, True])
+def test_tracer_raster_step_matches_plain_version(dev, upwind):
+    nx, ny, nt = 100, 37, 3
+    rng = np.random.default_rng(2)
+    h = rng.uniform(0.05, 1.0, (ny, nx))
+    h = np.where(rng.uniform(size=h.shape) < 0.3, 0.0, h)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)
+
+    q = t(np.concatenate([
+        [h, h * rng.normal(0, 0.4, h.shape), h * rng.normal(0, 0.4, h.shape)],
+        h * rng.uniform(0.0, 0.5, (nt,) + h.shape)]).reshape(3 + nt, -1))
+    geo = [t(rng.normal(0, 0.01, (ny, nx))), t(rng.normal(0, 0.01, (ny, nx))),
+           t(rng.uniform(0.01, 0.05, (ny, nx)))]
+    plan = StructuredPlan(nx, ny, 0.01, 0.02, 1e-7, 0.0, 0, 2, 2, 1)
+    bcl = np.concatenate([[np.full(ny, 0.3), np.full(ny, 0.05),
+                           np.zeros(ny)], rng.uniform(0, 0.1, (nt, ny))])
+    kw = dict(src=t(rng.uniform(0, 1e-2, (ny, nx))), bc_vals={"left": t(bcl)},
+              num_sediment=2, upwind=upwind)
+    dt = t(0.002)
+    qA = q.flip(1).contiguous()
+    modes = [dict(emit_prim=True)] + [
+        dict(stage=s, qA=qA if i else None, emit_prim=True)
+        for i, s in enumerate(FUSED_STAGES["ssprk3"])
+    ]
+    kernels.reset_launch_counts()
+    for mode in modes:
+        got = swe_raster_step(plan, q, *geo, dt, **kw, **mode)
+        want = swe_raster_step_plain(plan, q, *geo, dt, **kw, **mode)
+        for g, w in zip(got, want):
+            assert rel(g, w) <= TOL[torch.float32]
+    assert kernels.swe_raster_step.launches == len(modes)
+
+
+@pytest.mark.parametrize("backend", ["xla", "fused_structured"])
+def test_tracer_simulation_on_the_card_matches_the_cpu(dev, backend):
+    cfg = {
+        "physics": {"sediment": {"num_classes": 2}, "salinity": True},
+        "numerics": {"temporal": "euler", "precision": "single",
+                     "edge_flux_backend": backend},
+        "time": {"stop": 0.02, "time_step": 0.001},
+        "logging": {"level": "none"},
+        "output": {"time_series": {"boundary_fluxes": 10}},
+        "regions": [{"name": "all", "grid_region_id": 1}],
+        "initial_conditions": [{"region": "all", "flow": "bump",
+                                "sediment": "mud", "salinity": "salt"}],
+        "boundaries": [{"name": "right", "grid_boundary_id": 2}],
+        "boundary_conditions": [{"boundaries": ["right"], "flow": "out"}],
+        "flow_conditions": [
+            {"name": "bump", "type": "dirichlet",
+             "height": "0.1 + 0.05*exp(-20*((x-1)^2+(y-0.25)^2))",
+             "x_momentum": 0.02, "y_momentum": 0},
+            {"name": "out", "type": "critical-outflow"}],
+        "sediment_conditions": [{"name": "mud", "c0": {"value": 2e-4},
+                                 "c1": {"value": 1e-4}}],
+        "salinity_conditions": [{"name": "salt", "concentration": 1e-3}],
+    }
+    mesh = structured_quad(128, 32, 0.0, 2.0, 0.0, 0.5,
+                           region_fn=lambda cx, cy: np.ones_like(cx))
+    sims = [Simulation(config_from_dict(cfg).validate(), mesh=mesh, device=d)
+            for d in (dev, "cpu")]
+    kernels.reset_launch_counts()
+    for sim in sims:
+        sim.run()
+    gpu, cpu = sims
+    assert gpu.step == cpu.step == 20 and gpu.ndof == 6
+    for k in range(6):
+        assert rel(torch.as_tensor(gpu.get_solution()[k]),
+                   torch.as_tensor(cpu.get_solution()[k])) <= 1e-5
+        assert rel(torch.as_tensor(gpu.bflux_accum[k]),
+                   torch.as_tensor(cpu.bflux_accum[k])) <= 1e-5
+    expected = ([20, 20, 20, 0] if backend == "xla" else [20, 0, 20, 20])
+    assert [k.launches for k in kernels.KERNELS] == expected
 
 
 def test_raster_simulation_on_the_card_matches_the_cpu(dev):

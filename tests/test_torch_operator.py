@@ -9,7 +9,10 @@ seed. The walls are Dirichlet (left), critical outflow (right) and
 reflecting (top, bottom). Tolerance, relative to each field's largest
 magnitude: 1e-12 in f64 and 2e-5 in f32 (XLA contracts multiply-adds into
 FMAs on the CPU and PyTorch does not). The Courant edge id must be equal.
+The JAX results of each mesh and dtype come from one jitted call.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -50,6 +53,9 @@ def port_operator(jop, dtype) -> SWEOperator:
         tiny_h=jop.tiny_h, h_anuga=jop.h_anuga,
         source_method=jop.source_method,
         xq2018_threshold=jop.xq2018_threshold,
+        num_tracers=jop.num_tracers,
+        num_sediment=jop.num_sediment,
+        riemann=jop.riemann,
     )
 
 
@@ -79,21 +85,44 @@ def assert_rel_close(a, b, tol, what):
     assert err <= tol * scale, f"{what}: {err} > {tol} * {scale}"
 
 
+@functools.lru_cache(maxsize=None)
+def jax_reference(mesh, dtype):
+    """The JAX operators of the three source methods on one mesh and dtype,
+    their inputs, and their `apply` results (with, on the f64 quad mesh,
+    the boundary fluxes of seed 5) from ONE jitted call: one XLA compile
+    serves four tests."""
+    jdt = DTYPES[dtype][0]
+    m = MESHES[mesh]()
+    n = np.random.default_rng(3).uniform(0.01, 0.05, m.num_cells)
+    jops = [jax_build_operator(m, bc_types=BC_TYPES, mannings_n=n,
+                               source_method=method, dtype=jdt)
+            for method in (0, 1, 2)]
+    inputs = [random_inputs(jop, seed=method)
+              for method, jop in enumerate(jops)]
+    bnd_inputs = random_inputs(jops[0], seed=5)[:2]
+    dt = 0.002
+
+    def run(args, bnd_args):
+        out = [jop.apply(q, jnp.asarray(dt, jdt), bv, ext)
+               for jop, (q, bv, ext) in zip(jops, args)]
+        return out, jops[0].boundary_fluxes(*bnd_args)
+
+    def j(xs):
+        return tuple(jnp.asarray(x, jdt) for x in xs)
+
+    results, bnd = jax.jit(run)(tuple(j(x) for x in inputs), j(bnd_inputs))
+    return jops, inputs, dt, results, (bnd_inputs, bnd)
+
+
 @pytest.mark.parametrize("source_method", [0, 1, 2])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("mesh", sorted(MESHES))
 def test_apply_matches_jax(mesh, dtype, source_method):
-    jdt, tdt, tol = DTYPES[dtype]
-    m = MESHES[mesh]()
-    n = np.random.default_rng(3).uniform(0.01, 0.05, m.num_cells)
-    jop = jax_build_operator(m, bc_types=BC_TYPES, mannings_n=n,
-                             source_method=source_method, dtype=jdt)
-    top = port_operator(jop, tdt)
-    q, bv, ext = random_inputs(jop, seed=source_method)
-    dt = 0.002
-    # jitted: one XLA compile is cheaper than compiling op by op
-    rj = jax.jit(jop.apply)(jnp.asarray(q, jdt), jnp.asarray(dt, jdt),
-                            jnp.asarray(bv, jdt), jnp.asarray(ext, jdt))
+    _, tdt, tol = DTYPES[dtype]
+    jops, inputs, dt, results, _ = jax_reference(mesh, dtype)
+    top = port_operator(jops[source_method], tdt)
+    q, bv, ext = inputs[source_method]
+    rj = results[source_method]
     rt = top.apply(torch.as_tensor(q, dtype=tdt), dt,
                    torch.as_tensor(bv, dtype=tdt),
                    torch.as_tensor(ext, dtype=tdt))
@@ -107,11 +136,8 @@ def test_apply_matches_jax(mesh, dtype, source_method):
 
 
 def test_boundary_fluxes_match_jax():
-    m = MESHES["quad"]()
-    jop = jax_build_operator(m, bc_types=BC_TYPES)
-    top = port_operator(jop, torch.float64)
-    q, bv, _ = random_inputs(jop, seed=5)
-    fj, aj = jax.jit(jop.boundary_fluxes)(jnp.asarray(q), jnp.asarray(bv))
+    jops, _, _, _, ((q, bv), (fj, aj)) = jax_reference("quad", "f64")
+    top = port_operator(jops[0], torch.float64)
     ft, at = top.boundary_fluxes(torch.as_tensor(q), torch.as_tensor(bv))
     assert_rel_close(fj, ft.numpy(), 1e-12, "fb")
     assert_rel_close(aj, at.numpy(), 1e-12, "amax_b")

@@ -187,7 +187,7 @@ def test_momentum_sources_are_refused_on_the_fused_raster(tmp_path):
 
 @pytest.mark.parametrize("deck", [
     dict(numerics=", second_order: true"),
-    dict(physics=", sediment: {num_classes: 1}"),
+    dict(physics=", sediment: {num_classes: 1}", scheme="beuler"),
     dict(scheme="beuler"),
     dict(extra="parallel: {n_devices: 2}\n"),
 ])

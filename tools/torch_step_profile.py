@@ -3,9 +3,11 @@
 
     python3 tools/torch_step_profile.py [--nx 2048] [--ny 1408] [--steps 200]
                                         [--scheme euler] [--f64] [--raster]
+                                        [--tracers]
 
 Runs the dam break of chip_smoke.py (f32, or f64 with --f64; boundary-flux
-accumulators on) through `Simulation` on the CUDA device, on its
+accumulators on; with --tracers two sediment classes and salinity, the
+deck of its phase 5) through `Simulation` on the CUDA device, on its
 unstructured path or, with --raster, on the raster path
 (`edge_flux_backend: fused_structured`, float32 whatever --f64 says): one
 warm-up interval, then
@@ -29,6 +31,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import (  # noqa: E402
     DT, DX, dam_break_config, device_events, nvidia_smi_line,
+    tracer_dam_break_config,
 )
 
 
@@ -41,6 +44,8 @@ def main():
     ap.add_argument("--f64", action="store_true", help="double precision")
     ap.add_argument("--raster", action="store_true",
                     help="edge_flux_backend: fused_structured")
+    ap.add_argument("--tracers", action="store_true",
+                    help="two sediment classes and salinity")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_step_profile: no CUDA device", file=sys.stderr)
@@ -56,7 +61,8 @@ def main():
         args.nx, args.ny, 0.0, lx, 0.0, ly,
         region_fn=lambda cx, cy: np.where(cx < lx / 2, 1, 2),
     )
-    cfg = dam_break_config(
+    config = tracer_dam_break_config if args.tracers else dam_break_config
+    cfg = config(
         10 * args.steps, "fused_structured" if args.raster else "xla",
         args.scheme)
     if args.f64:
@@ -83,6 +89,7 @@ def main():
     busy_us = sum(r[0] for r in rows)
     print(f"[{card}] {args.nx}x{args.ny} ({mesh.num_cells} cells) "
           f"{'raster ' if args.raster else ''}{args.scheme} "
+          f"{'tracers (ndof 6) ' if args.tracers else ''}"
           f"{'f64' if args.f64 else 'f32'}: {steps} steps in {wall:.4f} s wall = "
           f"{1e3 * wall / steps:.4f} ms/step, "
           f"{steps * mesh.num_cells / wall:.4e} cell-updates/s")
