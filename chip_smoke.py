@@ -29,19 +29,21 @@ Phases, each printing as it goes; any failure exits non-zero:
    2,883,584 cells; a spacing exact in binary, which the raster detection
    of phase 4 needs), built once with the package's own mesh generator
    for phases 3 and 4. 10 steps through `Simulation` on the kernels are
-   held against 10 steps on the plain versions (relative 1e-4); then
-   --steps steps through `Simulation.run` with every launch count set to 0
-   just before: h must be finite and >= 0, the volume lost must equal the
+   held against 10 steps on the plain versions (every row of q and of the
+   accumulators, and the Courant number, to relative 1e-4); then --steps
+   steps through `Simulation.advance` and `run` with every launch count set
+   to 0 just before: h must be finite and >= 0, the volume lost must equal the
    outflow through the accumulated boundary fluxes (to 1e-4 of the initial
    volume, summed in f64 on the host), and K1a, K1b and K1c must have been
    launched once per step and K2 never. Then each kernel is timed at the
    path's shapes (device time per call, from torch.profiler) beside its
    plain version, its bound and, where one PyTorch call computes the same
-   function, that call.
+   function, that call. Phases 4-6 drive their paths the same way
+   (`run_main_path`).
 4. The raster main path at full size: the same deck and mesh with
    `edge_flux_backend: fused_structured`. 10 steps on the kernels against
-   10 steps on the plain versions: q, each row of the boundary-flux
-   accumulator and the Courant number to relative 1e-4. Then --steps steps
+   10 steps on the plain versions: every row of q and of the
+   accumulators, and the Courant number, to relative 1e-4. Then --steps steps
    with the launch counts set to 0 just before, the same checks of the
    state and the volume budget, and K2, K1c and K1a (on the boundary edges,
    for the boundary-flux accumulator) launched once per step each and K1b
@@ -69,11 +71,35 @@ Phases, each printing as it goes; any failure exits non-zero:
    1e-4 of the initial mass); the NT = 3 kernels held against their plain
    versions at the path's shapes and timed like the others.
 
+6. Second order (MUSCL with the positivity limiter, flow only). At
+   256x176 (quad and triangle meshes, f32 and f64, every BC code,
+   h_anuga = 1e-3): K3a swe_muscl_grad, K1a in MUSCL mode for each
+   limiter, K3b swe_positivity_drain and swe_positivity_scale (on a state
+   where some donor factor is below 1, and with dt = 0), and on the raster
+   K2 MUSCL (swe_raster_muscl_faces for each limiter with its block maxima
+   and their K1c fold; swe_raster_muscl_update in each ssprk3 stage and
+   rhs mode, rain off and on), against their plain versions, tolerances
+   as in phase 2. Then, on each main path at full size, the dam break at
+   second order (minmod, ssprk2, dt = 0.00025 s, a Courant number near
+   0.4, the floodplain dry): 10 steps on the kernels against 10 on the
+   plain versions (every row of q and of the accumulators, and the
+   Courant number, to relative 1e-4), with the number of cells whose
+   donor factor fell below 1 in each stage of the plain run; --steps
+   steps with the launch counts set to 0 just before (per step 2 each of
+   K3a, K1a, K3b drain, K3b scale and K1b and 1 K1c; on the raster 2
+   faces, 2 update, 1 K1c and 1 boundary-only K1a); h finite and >=
+   -1e-7, the volume kept to 1e-4 (the front does not reach the outflow
+   wall); each kernel of the path held against its plain version at the
+   path's shapes (K3b drain and scale, and the raster update, also at 40
+   times the step, where the limiter acts) and timed like the others.
+
 Before the last line it prints the card's name and power limit and a JSON
 line {"kernels": [...]} with one row per kernel and path ("path":
-"unstructured", "raster", "unstructured+tracers" or "raster+tracers", the
-last two with "nt": 3), each with that path's own launches, times and
-bound; the last line is
+"unstructured", "raster", "unstructured+tracers", "raster+tracers" (these
+two with "nt": 3), "unstructured+muscl" or "raster+muscl"), each with that
+path's own launches, times and bound, and "timers" naming the timer of each
+time ("profiler", or "cuda events" where torch.profiler recorded no device
+time); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -115,15 +141,44 @@ SALINITY_C = 1e-3
 # waves, the divergence, sources and stage
 OPS_PER_TRACER = {"swe_edge_flux": 25, "swe_cell_stage": 20,
                   "swe_raster_step": 75}
+# phase 6: the second-order dam break (dry floodplain, minmod, ssprk2)
+DT_MUSCL = 0.00025
+LIMITERS = ("minmod", "van_leer", "none")
+# operations per item of the second-order kernels, counted from the CUDA
+# sources: K3a per cell (4 slots of 3 differences and 6 multiply-adds);
+# K1a in MUSCL mode per edge (K1a's plus two sides' 3 extrapolations and
+# limited slopes); K3b per cell (4 slots, the factor) and per edge (the
+# donor test, 3 products); K2 MUSCL per cell: faces (two Roe solves, four
+# gradients, twelve limited slopes) and update (five donor factors, the
+# divergence, sources and stage)
+OPS_PER_GRAD_CELL = 60
+OPS_PER_MUSCL_EDGE = 225
+OPS_PER_DRAIN_CELL = 16
+OPS_PER_SCALE_EDGE = 4
+OPS_PER_MUSCL_FACES_CELL = 400
+OPS_PER_MUSCL_UPDATE_CELL = 100
 _CSRC = "rdycore_tpu_torch/ops/kernels/csrc/"
 SOURCES = {"swe_edge_flux": _CSRC + "swe_edge_flux.cu",
            "swe_cell_stage": _CSRC + "swe_cell_stage.cu",
            "courant_argmax": _CSRC + "courant_argmax.cu",
-           "swe_raster_step": _CSRC + "swe_raster_step.cu"}
-REPLACES = {"swe_edge_flux": "rdycore_tpu/ops/pallas/slotted.py:2463",
-            "swe_cell_stage": "rdycore_tpu/ops/pallas/slotted.py:2463",
-            "courant_argmax": "rdycore_tpu/ops/pallas/slotted.py:2463",
-            "swe_raster_step": "rdycore_tpu/ops/pallas/structured_step.py:172"}
+           "swe_raster_step": _CSRC + "swe_raster_step.cu",
+           "swe_muscl_grad": _CSRC + "swe_muscl_grad.cu",
+           "swe_positivity_drain": _CSRC + "swe_positivity.cu",
+           "swe_positivity_scale": _CSRC + "swe_positivity.cu",
+           "swe_raster_muscl_faces": _CSRC + "swe_raster_muscl.cu",
+           "swe_raster_muscl_update": _CSRC + "swe_raster_muscl.cu"}
+_SLOTTED = "rdycore_tpu/ops/pallas/slotted.py"
+REPLACES = {"swe_edge_flux": _SLOTTED + ":2463",
+            "swe_cell_stage": _SLOTTED + ":2463",
+            "courant_argmax": _SLOTTED + ":2463",
+            "swe_raster_step": "rdycore_tpu/ops/pallas/structured_step.py:172",
+            "swe_muscl_grad": _SLOTTED + ":3066",
+            "swe_positivity_drain": _SLOTTED + ":1597",
+            "swe_positivity_scale": _SLOTTED + ":1654",
+            "swe_raster_muscl_faces":
+                "rdycore_tpu/ops/pallas/structured_step.py:341",
+            "swe_raster_muscl_update":
+                "rdycore_tpu/ops/pallas/structured_step.py:341"}
 
 
 def log(*args):
@@ -182,22 +237,34 @@ def device_events(prof):
                                                              ""))]
 
 
-def device_ms(fn, reps=20) -> float:
-    """Mean device milliseconds per call of fn(): the device time of every
-    kernel and copy it launches, from torch.profiler."""
+def device_time(fn, reps=20):
+    """(mean device milliseconds per call of fn(), the timer that gave
+    them): the device time of every kernel and copy it launches, from
+    torch.profiler ("profiler"). Where the profiler records no device time
+    (it has missed a whole session on that card, once in four runs), a
+    second session is tried, then the time between CUDA events ("cuda
+    events"), which counts the host's launch time where that is longer."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = device_events(prof)
-    if not events:
-        raise SystemExit("torch.profiler recorded no device time")
-    return sum(e[0] for e in events) / 1e3 / reps
+    for _ in range(2):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        if events:
+            return sum(e[0] for e in events) / 1e3 / reps, "profiler"
+    log("  torch.profiler recorded no device time twice: timing between "
+        "CUDA events instead")
+    return cuda_ms(fn, reps), "cuda events"
+
+
+def device_ms(fn, reps=20) -> float:
+    """The milliseconds of `device_time`, for the log."""
+    return device_time(fn, reps)[0]
 
 
 # ------------------------------------------------------------------ phase 1
@@ -229,7 +296,8 @@ def phase_build():
 def ptxas_summary(report):
     """'kernel<args>: R registers, S spill bytes' of each entry function in
     nvcc's -Xptxas -v report whose tracer count is 0 or NT (the others are
-    the same source at other counts)."""
+    the same source at other counts); a MUSCL instance names its limiter
+    code."""
     out, entry, spill = [], None, ""
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -241,12 +309,16 @@ def ptxas_summary(report):
         m = re.search(r"Used (\d+) registers", line)
         if entry and m:
             k = re.search(r"\d+([a-z_]+_kernel|argmax_partial|argmax_final)"
-                          r"I(\w+?)EE", entry)
+                          r"(I\w+?EE|E)", entry)
             counts = re.findall(r"Li(\d+)E", entry)
+            lims = counts[1:] if "edge_flux" in entry else []
+            if "raster_muscl" in entry:
+                counts, lims = [], counts
             if k and (not counts or int(counts[0]) in (0, NT)):
                 args = k.group(2)
-                what = ["f64" if args.startswith("d") else "f32"]
-                what += [f"nt {c}" for c in counts]
+                what = ["f64" if args.startswith("Id") else "f32"]
+                what += [f"nt {c}" for c in counts[:1]]
+                what += [f"limiter {c}" for c in lims if c != "0"]
                 what += ["upwind"] if "Lb1" in args else []
                 spills = re.findall(r"(\d+) bytes spill", spill)
                 out.append(f"{k.group(1)}<{', '.join(what)}>: {m.group(1)} "
@@ -467,17 +539,33 @@ def tracer_dam_break_config(steps, backend="xla", scheme="euler"):
 
 def plain_operator(op):
     """The same operator with every kernel replaced by its plain version
-    (run on the card's tensors), for holding the kernels' run against."""
+    (run on the card's tensors), for holding the kernels' run against. Its
+    `donor_counts` collects, per positivity pass, the number of cells whose
+    donor factor is below 1."""
     from rdycore_tpu_torch.operator import SWEOperator
     from rdycore_tpu_torch.ops.kernels.cell_stage import swe_cell_stage_plain
     from rdycore_tpu_torch.ops.kernels.courant import courant_argmax_plain
     from rdycore_tpu_torch.ops.kernels.edge_flux import swe_edge_flux_plain
+    from rdycore_tpu_torch.ops.kernels.muscl import (
+        positivity_drain_plain, positivity_scale_plain)
+    from rdycore_tpu_torch.ops.swe.muscl import ls_gradients
 
     class PlainSWEOperator(SWEOperator):
-        def edge_flux(self, q, bv):
+        donor_counts = []
+
+        def muscl_grad(self, q):
+            return ls_gradients(self.arrays, q)
+
+        def edge_flux(self, q, bv, grad=None):
             return swe_edge_flux_plain(self.arrays, q, bv, self.tiny_h,
                                        self.h_anuga,
-                                       self.riemann == "upwind_roe")
+                                       self.riemann == "upwind_roe", grad,
+                                       self.limiter)
+
+        def limit_positivity(self, flux, h, dt):
+            s = positivity_drain_plain(self.arrays, flux, h, dt)
+            self.donor_counts.append(int((s < 1.0).sum()))
+            return positivity_scale_plain(self.arrays, flux, s)
 
         def courant_max(self, courant, dt=None, run_max=None, run_idx=None):
             return courant_argmax_plain(courant, dt, run_max, run_idx)
@@ -527,60 +615,68 @@ def raster_step_bytes(C, ndof, blocks, s):
     return s * ((3 * ndof + 3) * C + blocks + 1)
 
 
-def kernel_row(name, path, source, replaces, launches, err, timing, nbytes,
-               nops, dtype):
-    """One entry of the {"kernels": [...]} line; timing = (device ms, plain
-    ms, library ms or None)."""
-    ms, plain_ms, lib_ms = timing
+def kernel_row(card, name, path, fns, launches, err, nbytes, nops, dtype,
+               replaces=REPLACES, **extra):
+    """One entry of the {"kernels": [...]} line, logged. fns = (the
+    kernel's call, its plain version's, one PyTorch call that computes the
+    same function or None), each timed here; the bound from nbytes and
+    nops; "timers" names the timer that gave each time (`device_time`)."""
+    times = [None if f is None else device_time(f, reps=5 if i == 1 else 20)
+             for i, f in enumerate(fns)]
+    ms, plain_ms, lib_ms = (None if t is None else t[0] for t in times)
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     t_ops = 1e3 * nops / PEAK_OPS_PER_S[dtype]
-    return {
-        "name": name, "path": path, "route": "cuda", "source": source,
-        "replaces": replaces, "launches": launches, "max_abs_err": err,
+    row = {
+        "name": name, "path": path, "route": "cuda", "source": SOURCES[name],
+        "replaces": replaces[name], "launches": launches, "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": lib_ms,
+        "library_ms": lib_ms, **extra,
+        "timers": {k: None if t is None else t[1] for k, t in
+                   zip(("ms", "plain_ms", "library_ms"), times)},
     }
-
-
-def log_row(card, row, nbytes, nops, extra=""):
-    log(f"  [{card}] {row['name']} on the {row['path']} path: device "
-        f"{row['ms']:.4f} ms/call, plain {row['plain_ms']:.4f} ms, bound "
-        f"{row['bound_ms']:.4f} ms ({nbytes / 1e6:.3f} MB, "
-        f"{nops / 1e9:.4f} Gop), bound/time "
-        f"{100 * row['bound_ms'] / row['ms']:.1f}%"
-        + (f", torch.max(dim) {row['library_ms']:.4f} ms"
-           if row["library_ms"] else "") + extra)
+    log(f"  [{card}] {name} on the {path} path: device {ms:.4f} ms/call "
+        f"(between CUDA events {cuda_ms(fns[0]):.4f} ms), plain "
+        f"{plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({nbytes / 1e6:.3f} MB, {nops / 1e9:.4f} Gop), bound/time "
+        f"{100 * row['bound_ms'] / ms:.1f}%, "
+        + (f"one PyTorch call {lib_ms:.4f} ms" if lib_ms is not None
+           else "no single PyTorch call computes it"))
+    return row
 
 
 def dam_break_mesh(nx=2048, ny=1408):
-    """The full-size raster of both main paths and the seconds it took."""
+    """The full-size raster of both main paths."""
     from rdycore_tpu_torch.mesh import structured_quad
 
     lx, ly = nx * DX, ny * DX
     t0 = time.perf_counter()
     mesh = structured_quad(nx, ny, 0.0, lx, 0.0, ly,
                            region_fn=lambda cx, cy: np.where(cx < lx / 2, 1, 2))
-    t_mesh = time.perf_counter() - t0
     log(f"== mesh: {nx}x{ny} raster of {DX} m cells, {mesh.num_cells} cells, "
-        f"{mesh.num_edges} edges in {t_mesh:.2f} s")
-    return mesh, t_mesh
+        f"{mesh.num_edges} edges in {time.perf_counter() - t0:.2f} s")
+    return mesh
 
 
 def check_launches(path, launches, expected):
-    """Fail unless the path launched each kernel exactly as expected."""
+    """Fail unless the path launched each kernel exactly as expected (a
+    kernel that `expected` does not name: never)."""
     log(f"  launches over the {path}: {launches}")
-    if launches != expected:
+    unknown = set(expected) - set(launches)
+    expected = {k: expected.get(k, 0) for k in launches}
+    if unknown or launches != expected:
         raise SystemExit(f"{path}: launches {launches}, expected {expected}")
 
 
-def check_state_and_budget(sim, v0, area):
-    """h finite and >= 0, and the volume lost equal to the outflow through
-    the accumulated boundary fluxes, to 1e-4 of the initial volume."""
+def check_state_and_budget(sim, q0, area):
+    """h finite and >= 0, and the volume lost (from the initial state q0)
+    equal to the outflow through the accumulated boundary fluxes, to 1e-4
+    of the initial volume."""
     h = sim.get_height()
     if not (np.all(np.isfinite(sim.get_solution())) and h.min() >= 0.0):
         raise SystemExit(f"bad state: finite={np.isfinite(h).all()}, "
                          f"min h {h.min()}")
+    v0 = float(np.sum(q0[0] * area))
     v1 = float(np.sum(h.astype(np.float64) * area))
     lens = sim.operator.arrays.bnd_len.cpu().numpy().astype(np.float64)
     outflow = float(np.sum(sim.bflux_accum[0] * lens))
@@ -594,44 +690,63 @@ def check_state_and_budget(sim, v0, area):
         raise SystemExit("no outflow through the critical-outflow boundary")
 
 
-def phase_main(steps, errs, dev, mesh, t_mesh):
-    from rdycore_tpu_torch import Simulation
+def rows_rel_err(a, b):
+    """The worst over rows of each row's error relative to its largest
+    magnitude (a row of zeros in both counts 0)."""
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    return max(rel_err(a[k], b[k]) for k in range(a.shape[0]))
+
+
+def path_operator(sim):
+    """The operator whose kernels the simulation's steps launch."""
+    return sim._structured["op"] if sim._structured else sim.operator
+
+
+def run_main_path(path, make_sim, steps, per_step, check):
+    """Drive one main path at full size through `Simulation`, as a user
+    does. make_sim(n, plain=False) builds the deck for n steps (its kernels
+    replaced by their plain versions when `plain`). 10 steps on the kernels
+    are held against 10 on the plain versions: every row of q and of the
+    accumulators, and the Courant number, to relative 1e-4. Then `steps`
+    steps through advance and run, with every launch count set to 0 just
+    before: each kernel must have been launched per_step[name] times a step
+    (a kernel per_step does not name: never), and check(sim, q0) (q0 the
+    initial state in f64) must pass. Returns the simulation and the
+    launches."""
     from rdycore_tpu_torch.ops import kernels
-    from rdycore_tpu_torch.ops.kernels.cell_stage import swe_cell_stage_plain
-    from rdycore_tpu_torch.ops.kernels.courant import courant_argmax_plain
-    from rdycore_tpu_torch.ops.kernels.edge_flux import swe_edge_flux_plain
 
-    log(f"== phase 3: unstructured main path, dam break on {mesh.num_cells:,} "
-        "cells, f32")
     card = nvidia_smi_line()
-
-    # 10 steps on the kernels against 10 steps on the plain versions
-    sim_k = Simulation(dam_break_config(10), mesh=mesh, device=dev)
-    sim_p = Simulation(dam_break_config(10), mesh=mesh, device=dev)
-    sim_p.operator = plain_operator(sim_p.operator)
+    sim_k, sim_p = make_sim(10), make_sim(10, plain=True)
     sim_k.run()
     sim_p.run()
     torch.cuda.synchronize()
     if sim_k.step != 10 or sim_p.step != 10:
         raise SystemExit(f"10-step runs took {sim_k.step}/{sim_p.step} steps")
-    r10 = rel_err(sim_k.q, sim_p.q)
-    log(f"  10 steps, kernels vs plain versions: q rel {r10:.3e} "
-        f"abs {abs_err(sim_k.q, sim_p.q):.3e}, courant "
-        f"{sim_k.prev_max_courant:.6f} vs {sim_p.prev_max_courant:.6f}")
-    if not r10 <= 1e-4:
-        raise SystemExit(f"10-step kernel run differs from plain: {r10}")
+    r10 = {"q": rows_rel_err(sim_k.q, sim_p.q)}
+    for name in ("bflux_accum", "accum_sol", "accum_prim"):
+        r10[name] = rows_rel_err(getattr(sim_k, name), getattr(sim_p, name))
+    ck, cp = sim_k.prev_max_courant, sim_p.prev_max_courant
+    r10["courant"] = abs(ck - cp) / max(abs(cp), 1e-30)
+    log(f"  10 steps, kernels vs plain versions (worst row): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in r10.items())
+        + f"; courant {ck:.9f} vs {cp:.9f}")
+    counts = path_operator(sim_p).donor_counts
+    if counts:
+        log(f"  cells with donor factor s < 1 (plain run, per stage): first "
+            f"step {counts[:2]}, all 10 steps {sum(counts)} over "
+            f"{len(counts)} stages")
+    if not all(v <= 1e-4 for v in r10.values()):
+        raise SystemExit(f"10-step {path} run differs from plain: {r10}")
     del sim_k, sim_p
 
-    # the main path: --steps steps through Simulation.run
     t0 = time.perf_counter()
-    sim = Simulation(dam_break_config(steps), mesh=mesh, device=dev)
+    sim = make_sim(steps)
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
-    area = mesh.cell_area
-    v0 = float(np.sum(sim.get_height().astype(np.float64) * area))
+    q0 = sim.get_solution().astype(np.float64)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    sim.advance()  # first interval: kernel libraries load
+    sim.advance()  # first interval: the kernel libraries load
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
     s_first = sim.step
@@ -642,17 +757,43 @@ def phase_main(steps, errs, dev, mesh, t_mesh):
     launches = {k.__name__: k.launches for k in kernels.KERNELS}
     n_steady = sim.step - s_first
     if sim.step != steps:
-        raise SystemExit(f"main path took {sim.step} steps, expected {steps}")
-    check_launches("unstructured main path", launches, {
-        "swe_edge_flux": steps, "swe_cell_stage": steps,
-        "courant_argmax": steps, "swe_raster_step": 0})
-    check_state_and_budget(sim, v0, area)
-    rate = n_steady * mesh.num_cells / t_steady
-    log(f"  [{card}] setup {t_setup:.2f} s (mesh {t_mesh:.2f} s more); first "
-        f"interval {t_first:.3f} s ({s_first} steps); steady state "
-        f"{t_steady:.3f} s for {n_steady} steps = {1e3 * t_steady / n_steady:.4f}"
-        f" ms/step, {rate:.4e} cell-updates/s; max Courant "
-        f"{sim.prev_max_courant:.4f}")
+        raise SystemExit(f"{path} took {sim.step} steps, expected {steps}")
+    check_launches(path, launches,
+                   {k: n * steps for k, n in per_step.items()})
+    check(sim, q0)
+    rate = n_steady * sim.q.shape[1] / t_steady
+    log(f"  [{card}] setup {t_setup:.2f} s; first interval {t_first:.3f} s "
+        f"({s_first} steps); steady state {t_steady:.3f} s for {n_steady} "
+        f"steps = {1e3 * t_steady / n_steady:.4f} ms/step, {rate:.4e} "
+        f"cell-updates/s; max Courant {sim.prev_max_courant:.4f}")
+    return sim, launches
+
+
+def unstructured_simulation(steps, dev, mesh, plain=False,
+                            config=dam_break_config):
+    """The dam break (`config`) on the unstructured path, its kernels
+    replaced by their plain versions when `plain`."""
+    from rdycore_tpu_torch import Simulation
+
+    sim = Simulation(config(steps), mesh=mesh, device=dev)
+    if plain:
+        sim.operator = plain_operator(sim.operator)
+    return sim
+
+
+def phase_main(steps, errs, dev, mesh):
+    from rdycore_tpu_torch.ops.kernels.cell_stage import swe_cell_stage_plain
+    from rdycore_tpu_torch.ops.kernels.courant import courant_argmax_plain
+    from rdycore_tpu_torch.ops.kernels.edge_flux import swe_edge_flux_plain
+
+    log(f"== phase 3: unstructured main path, dam break on {mesh.num_cells:,} "
+        "cells, f32")
+    card = nvidia_smi_line()
+    sim, launches = run_main_path(
+        "unstructured main path",
+        lambda n, plain=False: unstructured_simulation(n, dev, mesh, plain),
+        steps, {"swe_edge_flux": 1, "swe_cell_stage": 1, "courant_argmax": 1},
+        lambda sim, q0: check_state_and_budget(sim, q0, mesh.cell_area))
 
     # each kernel at the main path's shapes: time, plain time, bound
     op, q, bv = sim.operator, sim.q, sim.boundary_values
@@ -700,23 +841,14 @@ def phase_main(steps, errs, dev, mesh, t_mesh):
             lambda: courant_argmax_plain(courant, dt, *run),
             lambda: torch.max(courant, 0)),
     }
-    timings = {
-        name: tuple(None if f is None else device_ms(f) for f in fns)
-        for name, fns in calls.items()
-    }
-    call_ms = {name: cuda_ms(fns[0]) for name, fns in calls.items()}
     nbytes = kernel_bytes(op, q.numel() * s, s)
     nops = {"swe_edge_flux": OPS_PER_EDGE * op.num_edges,
             "swe_cell_stage": OPS_PER_CELL * op.num_cells,
             "courant_argmax": OPS_PER_VALUE * op.num_edges}
-    rows = []
-    for name, timing in timings.items():
-        rows.append(kernel_row(
-            name, "unstructured", SOURCES[name], REPLACES[name],
-            launches[name], max(errs.get(name, 0.0), main_abs[name]), timing,
-            nbytes[name], nops[name], q.dtype))
-        log_row(card, rows[-1], nbytes[name], nops[name],
-                f" (between CUDA events {call_ms[name]:.4f} ms)")
+    rows = [kernel_row(card, name, "unstructured", fns, launches[name],
+                       max(errs.get(name, 0.0), main_abs[name]),
+                       nbytes[name], nops[name], q.dtype)
+            for name, fns in calls.items()]
     # rhs mode (rk4 and apply), and apply = K1a + K1c + K1b rhs
     pop = plain_operator(op)
     rhs_ms = device_ms(lambda: op.cell_stage(flux, q, dt, None,
@@ -734,21 +866,35 @@ def phase_main(steps, errs, dev, mesh, t_mesh):
         f"plain {apply_plain:.4f} ms, sum of its kernels' bounds "
         f"{apply_bound:.4f} ms")
     kern_ms = sum(r["ms"] for r in rows)
-    log(f"  [{card}] kernel device time per step {kern_ms:.4f} ms of "
-        f"{1e3 * t_steady / n_steady:.4f} ms/step wall")
+    log(f"  [{card}] kernel device time per step {kern_ms:.4f} ms")
     return rows
 
 
 def plain_raster_operator(op):
     """The raster path's operator with every kernel replaced by its plain
-    version (run on the card's tensors)."""
+    version (run on the card's tensors); `donor_counts` as for
+    `plain_operator`, per second-order step or stage."""
     from rdycore_tpu_torch.ops.kernels.courant import courant_argmax_plain
     from rdycore_tpu_torch.ops.kernels.edge_flux import swe_edge_flux_plain
-    from rdycore_tpu_torch.ops.kernels.raster_step import swe_raster_step_plain
+    from rdycore_tpu_torch.ops.kernels.raster_muscl import (
+        donor_factors, raster_muscl_faces_plain, raster_muscl_update_plain)
+    from rdycore_tpu_torch.ops.kernels.raster_step import (
+        RasterStepOut, swe_raster_step_plain)
     from rdycore_tpu_torch.ops.structured import FusedStructuredOperator
 
     class PlainFusedStructuredOperator(FusedStructuredOperator):
+        donor_counts = []
+
         def step(self, q, dt, src=None, bc_vals=None, **mode):
+            if self.second_order:
+                fx, fy, cmax = raster_muscl_faces_plain(
+                    self.plan, q, bc_vals, self.limiter)
+                s = donor_factors(self.plan, q, fx, fy, dt)
+                self.donor_counts.append(int((s < 1.0).sum()))
+                out, prim = raster_muscl_update_plain(
+                    self.plan, q, fx, fy, self.dz_dx, self.dz_dy,
+                    self.mannings_n, dt, src=src, **mode)
+                return RasterStepOut(out, prim, cmax)
             return swe_raster_step_plain(
                 self.plan, q, self.dz_dx, self.dz_dy, self.mannings_n, dt,
                 src=src, bc_vals=bc_vals, num_sediment=self.num_sediment,
@@ -794,65 +940,17 @@ def phase_raster(steps, errs, dev, mesh):
         f"{mesh.num_cells:,} cells, f32")
     card = nvidia_smi_line()
     area = mesh.cell_area
-
-    # 10 steps on the kernels against 10 steps on the plain versions
-    sim_k = raster_simulation(10, dev, mesh)
-    sim_p = raster_simulation(10, dev, mesh, plain=True)
-    sim_k.run()
-    sim_p.run()
-    torch.cuda.synchronize()
-    if sim_k.step != 10 or sim_p.step != 10:
-        raise SystemExit(f"10-step runs took {sim_k.step}/{sim_p.step} steps")
-    r10 = rel_err(sim_k.q, sim_p.q)
-    # each row (h, hu, hv) of the accumulated boundary fluxes on its own
-    bk, bp = (torch.as_tensor(s.bflux_accum) for s in (sim_k, sim_p))
-    rb = max(rel_err(bk[k], bp[k]) for k in range(3))
-    ck, cp = sim_k.prev_max_courant, sim_p.prev_max_courant
-    rc = abs(ck - cp) / max(abs(cp), 1e-30)
-    log(f"  10 steps, kernels vs plain versions: q rel {r10:.3e} "
-        f"abs {abs_err(sim_k.q, sim_p.q):.3e}, boundary flux accumulator "
-        f"rel {rb:.3e} (worst row), courant {ck:.9f} vs {cp:.9f} (rel "
-        f"{rc:.3e})")
-    if not (r10 <= 1e-4 and rb <= 1e-4 and rc <= 1e-4):
-        raise SystemExit(f"10-step raster run differs from plain: q {r10}, "
-                         f"boundary fluxes {rb}, courant {rc}")
-    del sim_k, sim_p
-
-    # the main path: --steps steps through Simulation.run
-    t0 = time.perf_counter()
-    sim = raster_simulation(steps, dev, mesh)
-    torch.cuda.synchronize()
-    t_setup = time.perf_counter() - t0
-    v0 = float(np.sum(sim.get_height().astype(np.float64) * area))
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    sim.advance()  # first interval: the kernel library loads
-    torch.cuda.synchronize()
-    t_first = time.perf_counter() - t0
-    s_first = sim.step
-    t0 = time.perf_counter()
-    sim.run()
-    torch.cuda.synchronize()
-    t_steady = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in kernels.KERNELS}
-    n_steady = sim.step - s_first
-    if sim.step != steps:
-        raise SystemExit(f"raster path took {sim.step} steps, expected {steps}")
-    check_launches("raster main path", launches, {
-        "swe_edge_flux": steps, "swe_cell_stage": 0,
-        "courant_argmax": steps, "swe_raster_step": steps})
-    check_state_and_budget(sim, v0, area)
-    rate = n_steady * mesh.num_cells / t_steady
-    log(f"  [{card}] setup {t_setup:.2f} s; first interval {t_first:.3f} s "
-        f"({s_first} steps); steady state {t_steady:.3f} s for {n_steady} "
-        f"steps = {1e3 * t_steady / n_steady:.4f} ms/step, {rate:.4e} "
-        f"cell-updates/s; max Courant {sim.prev_max_courant:.4f}")
+    sim, launches = run_main_path(
+        "raster main path",
+        lambda n, plain=False: raster_simulation(n, dev, mesh, plain=plain),
+        steps, {"swe_edge_flux": 1, "courant_argmax": 1, "swe_raster_step": 1},
+        lambda sim, q0: check_state_and_budget(sim, q0, area))
 
     # ssprk3 (stage mode with qA) and rk4 (rhs mode) at full size
     for scheme, per_step in (("ssprk3", 3), ("rk4", 4)):
         n = 24
         s2 = raster_simulation(n, dev, mesh, scheme)
-        v0_2 = float(np.sum(s2.get_height().astype(np.float64) * area))
+        q0 = s2.get_solution().astype(np.float64)
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         s2.run()
@@ -860,10 +958,9 @@ def phase_raster(steps, errs, dev, mesh):
         wall = time.perf_counter() - t0
         check_launches(f"raster {scheme} run of {n} steps",
                        {k.__name__: k.launches for k in kernels.KERNELS}, {
-                           "swe_edge_flux": n, "swe_cell_stage": 0,
-                           "courant_argmax": n,
+                           "swe_edge_flux": n, "courant_argmax": n,
                            "swe_raster_step": per_step * n})
-        check_state_and_budget(s2, v0_2, area)
+        check_state_and_budget(s2, q0, area)
         log(f"  [{card}] raster {scheme}: {n} steps in {wall:.3f} s "
             f"(first interval included) = {1e3 * wall / n:.4f} ms/step")
         del s2
@@ -946,16 +1043,10 @@ def phase_raster(steps, errs, dev, mesh):
     replaces = dict(REPLACES,
                     swe_edge_flux="rdycore_tpu/ops/pallas/slotted.py:1254",
                     courant_argmax=REPLACES["swe_raster_step"])
-    rows = []
-    for name, fns in calls.items():
-        timing = tuple(None if f is None else
-                       device_ms(f, reps=5 if i == 1 else 20)
-                       for i, f in enumerate(fns))
-        rows.append(kernel_row(
-            name, "raster", SOURCES[name], replaces[name], launches[name],
-            main_abs[name], timing, nbytes[name], nops[name], q.dtype))
-        log_row(card, rows[-1], nbytes[name], nops[name],
-                f" (between CUDA events {cuda_ms(fns[0]):.4f} ms)")
+    rows = [kernel_row(card, name, "raster", fns, launches[name],
+                       main_abs[name], nbytes[name], nops[name], q.dtype,
+                       replaces)
+            for name, fns in calls.items()]
     log(f"  [{card}] swe_raster_step in rhs mode: device "
         f"{device_ms(lambda: op.step(q, dt, **modes['rhs'])):.4f} ms/call; "
         "no single PyTorch call computes it")
@@ -1100,31 +1191,17 @@ def phase_tracer_kernels(seed, errs, dev):
 def tracer_simulation(steps, backend, dev, mesh, plain=False):
     """The sediment and salinity dam break on `backend`, its kernels
     replaced by their plain versions when `plain`."""
-    from rdycore_tpu_torch import Simulation
-
     if backend == "fused_structured":
         return raster_simulation(steps, dev, mesh, plain=plain,
                                  config=tracer_dam_break_config)
-    sim = Simulation(tracer_dam_break_config(steps, backend), mesh=mesh,
-                     device=dev)
-    if plain:
-        sim.operator = plain_operator(sim.operator)
-    return sim
-
-
-def rows_rel_err(a, b):
-    """The worst over rows of each row's error relative to its largest
-    magnitude (a row of zeros in both counts 0)."""
-    a, b = torch.as_tensor(a), torch.as_tensor(b)
-    return max(rel_err(a[k], b[k]) for k in range(a.shape[0]))
+    return unstructured_simulation(steps, dev, mesh, plain,
+                                   tracer_dam_break_config)
 
 
 def phase_tracers(steps, errs, dev, mesh):
-    """Both main paths with NT = 3 at full size: 10 steps on the kernels
-    against 10 on the plain versions, then `steps` euler steps with the
-    launch counts, the state, the volume and (unstructured) the salinity
-    budget checked, and each NT = 3 kernel timed at the path's shapes."""
-    from rdycore_tpu_torch.ops import kernels
+    """Both main paths with NT = 3 at full size (`run_main_path`), with the
+    sediment moved, the volume and (unstructured) the salinity budget
+    checked, and each NT = 3 kernel timed at the path's shapes."""
     from rdycore_tpu_torch.ops.kernels.cell_stage import swe_cell_stage_plain
     from rdycore_tpu_torch.ops.kernels.edge_flux import swe_edge_flux_plain
     from rdycore_tpu_torch.ops.kernels.raster_step import swe_raster_step_plain
@@ -1137,62 +1214,22 @@ def phase_tracers(steps, errs, dev, mesh):
         log(f"== phase 5: {path} main path with {NUM_SEDIMENT} sediment "
             f"classes and salinity (ndof {3 + NT}), {mesh.num_cells:,} "
             "cells, f32")
-        sim_k = tracer_simulation(10, backend, dev, mesh)
-        sim_p = tracer_simulation(10, backend, dev, mesh, plain=True)
-        sim_k.run()
-        sim_p.run()
-        torch.cuda.synchronize()
-        if sim_k.step != 10 or sim_p.step != 10 or sim_k.ndof != 3 + NT:
-            raise SystemExit(f"10-step runs took {sim_k.step}/{sim_p.step} "
-                             f"steps, ndof {sim_k.ndof}")
-        r10 = {"q": rows_rel_err(sim_k.q, sim_p.q)}
-        for name in ("bflux_accum", "accum_sol", "accum_prim"):
-            r10[name] = rows_rel_err(getattr(sim_k, name),
-                                     getattr(sim_p, name))
-        ck, cp = sim_k.prev_max_courant, sim_p.prev_max_courant
-        r10["courant"] = abs(ck - cp) / max(abs(cp), 1e-30)
-        log(f"  10 steps, kernels vs plain versions (worst row): "
-            + ", ".join(f"{k} {v:.3e}" for k, v in r10.items())
-            + f"; courant {ck:.9f} vs {cp:.9f}")
-        if not all(v <= 1e-4 for v in r10.values()):
-            raise SystemExit(f"10-step {path} tracer run differs from "
-                             f"plain: {r10}")
-        del sim_k, sim_p
-
-        t0 = time.perf_counter()
-        sim = tracer_simulation(steps, backend, dev, mesh)
-        torch.cuda.synchronize()
-        t_setup = time.perf_counter() - t0
-        q0 = sim.get_solution().astype(np.float64)
-        v0 = float(np.sum(q0[0] * area))
-        m0 = float(np.sum(q0[3 + NUM_SEDIMENT] * area))
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        sim.advance()
-        torch.cuda.synchronize()
-        t_first = time.perf_counter() - t0
-        s_first = sim.step
-        t0 = time.perf_counter()
-        sim.run()
-        torch.cuda.synchronize()
-        t_steady = time.perf_counter() - t0
-        launches = {k.__name__: k.launches for k in kernels.KERNELS}
-        n_steady = sim.step - s_first
-        if sim.step != steps:
-            raise SystemExit(f"{path} tracer run took {sim.step} steps")
         raster = backend == "fused_structured"
-        check_launches(f"{path} main path with tracers", launches, {
-            "swe_edge_flux": steps, "swe_cell_stage": 0 if raster else steps,
-            "courant_argmax": steps, "swe_raster_step": steps if raster
-            else 0})
-        check_state_and_budget(sim, v0, area)
-        q1 = sim.get_solution().astype(np.float64)
-        moved = np.abs(q1[3:3 + NUM_SEDIMENT] - q0[3:3 + NUM_SEDIMENT]).max()
-        log(f"  sediment moved by up to {moved:.3e} (mass h*c)")
-        if not moved > 0.0:
-            raise SystemExit("the sediment rows did not move")
-        if not raster:
+
+        def check(sim, q0):
+            if sim.ndof != 3 + NT:
+                raise SystemExit(f"tracer run has ndof {sim.ndof}")
+            check_state_and_budget(sim, q0, area)
+            q1 = sim.get_solution().astype(np.float64)
+            moved = np.abs(q1[3:3 + NUM_SEDIMENT]
+                           - q0[3:3 + NUM_SEDIMENT]).max()
+            log(f"  sediment moved by up to {moved:.3e} (mass h*c)")
+            if not moved > 0.0:
+                raise SystemExit("the sediment rows did not move")
+            if raster:
+                return
             # salinity is passive: mass lost = accumulated outflow
+            m0 = float(np.sum(q0[3 + NUM_SEDIMENT] * area))
             m1 = float(np.sum(q1[3 + NUM_SEDIMENT] * area))
             lens = sim.operator.arrays.bnd_len.cpu().numpy().astype(
                 np.float64)
@@ -1204,11 +1241,14 @@ def phase_tracers(steps, errs, dev, mesh):
             if not (budget <= 1e-4 and out > 0.0):
                 raise SystemExit(f"salinity budget error {budget}, "
                                  f"outflow {out}")
-        log(f"  [{card}] setup {t_setup:.2f} s; first interval {t_first:.3f}"
-            f" s ({s_first} steps); steady state {t_steady:.3f} s for "
-            f"{n_steady} steps = {1e3 * t_steady / n_steady:.4f} ms/step, "
-            f"{n_steady * mesh.num_cells / t_steady:.4e} cell-updates/s; "
-            f"max Courant {sim.prev_max_courant:.4f}")
+
+        sim, launches = run_main_path(
+            f"{path} main path with tracers",
+            lambda n, plain=False: tracer_simulation(n, backend, dev, mesh,
+                                                     plain),
+            steps, {"swe_edge_flux": 1, "courant_argmax": 1,
+                    "swe_raster_step" if raster else "swe_cell_stage": 1},
+            check)
 
         # the NT = 3 kernels at the path's shapes: held against their plain
         # versions, then timed beside them and their bounds
@@ -1230,7 +1270,7 @@ def phase_tracers(steps, errs, dev, mesh):
                 lambda: op.step(q, dt, **stage),
                 lambda: swe_raster_step_plain(
                     op.plan, q, op.dz_dx, op.dz_dy, op.mannings_n, dt,
-                    num_sediment=op.num_sediment, **stage))}
+                    num_sediment=op.num_sediment, **stage), None)}
             nbytes = {"swe_raster_step": raster_step_bytes(
                 C, 3 + NT, got.cmax.numel(), s)}
             nops = {"swe_raster_step": (OPS_PER_RASTER_CELL + NT *
@@ -1256,11 +1296,11 @@ def phase_tracers(steps, errs, dev, mesh):
                 "swe_edge_flux": (
                     lambda: op.edge_flux(q, bv),
                     lambda: swe_edge_flux_plain(a, q, bv, op.tiny_h,
-                                                op.h_anuga)),
+                                                op.h_anuga), None),
                 "swe_cell_stage": (
                     lambda: op.cell_stage(flux, q, dt, None, **stage),
                     lambda: swe_cell_stage_plain(a, flux, q, dt, None, **kw,
-                                                 **stage))}
+                                                 **stage), None)}
             nbytes = kernel_bytes(op, q.numel() * s, s)
             nops = {name: (base + NT * OPS_PER_TRACER[name]) * n
                     for name, base, n in (
@@ -1270,18 +1310,11 @@ def phase_tracers(steps, errs, dev, mesh):
             f"rel {r:.3e}")
         if not r <= TOL[q.dtype]:
             raise SystemExit(f"full-size {path} tracer kernel check failed")
-        for name, (fk, fpl) in calls.items():
-            timing = (device_ms(fk), device_ms(fpl, reps=5), None)
-            key = f"{name} nt{NT}"
-            row = kernel_row(
-                name, f"{path}+tracers", SOURCES[name], REPLACES[name],
-                launches[name], max(errs.get(key, 0.0), err[name]), timing,
-                nbytes[name], nops[name], q.dtype)
-            row["nt"] = NT
-            rows.append(row)
-            log_row(card, row, nbytes[name], nops[name],
-                    f" (between CUDA events {cuda_ms(fk):.4f} ms); no single "
-                    "PyTorch call computes it")
+        rows += [kernel_row(card, name, f"{path}+tracers", fns,
+                            launches[name],
+                            max(errs.get(f"{name} nt{NT}", 0.0), err[name]),
+                            nbytes[name], nops[name], q.dtype, nt=NT)
+                 for name, fns in calls.items()]
         # rhs mode (rk4): K2, or K1b and SWEOperator.apply (K1a + K1c +
         # K1b rhs), at NT = 3
         if raster:
@@ -1317,6 +1350,417 @@ def phase_tracers(steps, errs, dev, mesh):
     return rows
 
 
+# ------------------------------------------------------------------ phase 6
+def muscl_bytes(op, q_bytes, s):
+    """Bytes the second-order unstructured kernels must move at the
+    operator's shapes (flow only): each input read once, each output
+    written once."""
+    C, Ei, Eb = op.num_cells, op.num_internal_edges, op.num_boundary_edges
+    E, K = Ei + Eb, op.arrays.cell_edges.shape[1]
+    return {
+        # q, cell_edges, the two coefficient planes, both cell ids of each
+        # interior edge; grad out
+        "swe_muscl_grad": q_bytes + C * K * (4 + 2 * s) + 8 * Ei + 6 * C * s,
+        # K1a's, plus the gradients and four offsets per interior edge
+        "swe_edge_flux": edge_flux_bytes(Ei, Eb, q_bytes, s) + 6 * C * s
+        + 4 * Ei * s,
+        # the h-flux row, cell_edges, coefficients, h and dt; s out
+        "swe_positivity_drain": (E + 1) * s + C * K * (4 + s) + 2 * C * s + s,
+        # three flux rows read and written, the donor ids, the factors
+        "swe_positivity_scale": 6 * E * s + 8 * Ei + 4 * Eb + C * s,
+    }
+
+
+def raster_muscl_bytes(nx, ny, blocks, s):
+    """Bytes K2 MUSCL must move: faces reads q and writes the six face
+    planes and the block maxima; update (an euler stage with the
+    primitives) reads q, the faces, three geometry planes and dt and writes
+    out and prim."""
+    C, faces = nx * ny, 3 * (ny * (nx + 1) + (ny + 1) * nx)
+    return {"swe_raster_muscl_faces": s * (3 * C + faces + blocks),
+            "swe_raster_muscl_update": s * (3 * C + faces + 3 * C + 1
+                                            + 6 * C)}
+
+
+def phase_muscl_kernels(seed, errs, dev):
+    """K3a, K1a in MUSCL mode (each limiter), K3b drain and scale (a state
+    where some donor factor is below 1) on quad and triangle meshes in f32
+    and f64, and K2 MUSCL (each limiter; each ssprk3 stage and rhs mode,
+    rain off and on) on a raster, against their plain versions at
+    256x176. The random wet/dry state has layers thinner than tiny_h, and
+    a MUSCL face between such a cell and a wet one can be thin with a
+    momentum that is not: with h_anuga = 0 its u = hu/h, and with it the
+    flux and Courant coefficient, changes by orders of magnitude with the
+    last bit of h (FMA contraction on the card, none in PyTorch), so these
+    checks take h_anuga = 1e-3, which bounds u."""
+    from rdycore_tpu_torch.mesh import structured_quad, structured_tri
+    from rdycore_tpu_torch.operator import build_operator
+    from rdycore_tpu_torch.ops.kernels import muscl as mk
+    from rdycore_tpu_torch.ops.kernels import raster_muscl as rm
+    from rdycore_tpu_torch.ops.kernels.courant import courant_argmax
+    from rdycore_tpu_torch.ops.kernels.edge_flux import (
+        swe_edge_flux, swe_edge_flux_plain)
+    from rdycore_tpu_torch.ops.kernels.raster_step import StructuredPlan
+    from rdycore_tpu_torch.ops.structured import FUSED_STAGES
+    from rdycore_tpu_torch.ops.swe.muscl import ls_gradients
+
+    log("== phase 6a: the second-order kernels against their plain "
+        "versions")
+    rng = np.random.default_rng(seed + 6)
+    meshes = {
+        "quad 256x176": structured_quad(256, 176, 0.0, 0.512, 0.0, 0.352),
+        "tri 128x88": structured_tri(128, 88, 0.0, 0.512, 0.0, 0.352),
+    }
+    bc = {"left": 0, "right": 2, "top": 1, "bottom": 0}  # all three codes
+    failures = []
+
+    def check(kernel, what, got, want, dtype, key=None):
+        r, a = rel_err(got, want), abs_err(got, want)
+        key = key or kernel
+        errs[key] = max(errs.get(key, 0.0), a)
+        ok = r <= TOL[dtype] and got.shape == want.shape
+        log(f"  {kernel:23s} {what:48s} rel {r:.3e} abs {a:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{kernel} {what}")
+
+    for mname, mesh in meshes.items():
+        for dtype in (torch.float32, torch.float64):
+            tag = f"{mname} {str(dtype)[6:]}"
+            op = build_operator(
+                mesh, bc_types=bc,
+                mannings_n=rng.uniform(0.01, 0.05, mesh.num_cells),
+                h_anuga=1e-3, second_order=True, dtype=dtype, device=dev)
+            a = op.arrays
+            q, bv, _ = random_state(op, rng, dtype, dev)
+            gp = ls_gradients(a, q)
+            check("swe_muscl_grad", f"{tag} grad", mk.swe_muscl_grad(a, q),
+                  gp, dtype)
+            for lim in LIMITERS:
+                fk, ck = swe_edge_flux(a, q, bv, op.tiny_h, op.h_anuga,
+                                       grad=gp, limiter=lim)
+                fp, cp = swe_edge_flux_plain(a, q, bv, op.tiny_h, op.h_anuga,
+                                             grad=gp, limiter=lim)
+                for what, g, w in (("flux", fk, fp), ("courant", ck, cp)):
+                    check("swe_edge_flux", f"{tag} muscl {lim} {what}", g, w,
+                          dtype, "swe_edge_flux muscl")
+            # K3b on the plain minmod flux: a fifth of the cells start dry
+            fp, _ = swe_edge_flux_plain(a, q, bv, op.tiny_h, op.h_anuga,
+                                        grad=gp, limiter="minmod")
+            for dt_s in (0.002, 0.0):
+                dt = torch.tensor(dt_s, dtype=dtype, device=dev)
+                sk = mk.swe_positivity_drain(a, fp, q[0], dt)
+                sp = mk.positivity_drain_plain(a, fp, q[0], dt)
+                check("swe_positivity_drain", f"{tag} dt {dt_s} s", sk, sp,
+                      dtype)
+                n_lim = int((sp < 1.0).sum())
+                log(f"    cells with s < 1: {n_lim} of {op.num_cells}")
+                if not (n_lim > 0 and bool(torch.isfinite(sk).all())):
+                    failures.append(f"swe_positivity_drain {tag} limiter "
+                                    "idle or not finite")
+                check("swe_positivity_scale", f"{tag} dt {dt_s} flux",
+                      mk.swe_positivity_scale(a, fp.clone(), sp),
+                      mk.positivity_scale_plain(a, fp.clone(), sp), dtype)
+    # K2 MUSCL on a 256x176 raster, f32
+    nx, ny = 256, 176
+    f32 = torch.float32
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), dtype=f32, device=dev)
+
+    h = rng.uniform(0.05, 1.0, nx * ny)
+    h = np.where(rng.uniform(size=h.size) < 0.25, rng.uniform(0, 5e-8, h.size),
+                 h)
+    h = np.where(rng.uniform(size=h.size) < 0.1, 0.0, h)
+    q = t([h, h * rng.normal(0, 0.4, h.size), h * rng.normal(0, 0.4, h.size)])
+    qA = t([h[::-1], h * rng.normal(0, 0.4, h.size), np.zeros(h.size)])
+    geo = [t(rng.normal(0, 0.01, (ny, nx))), t(rng.normal(0, 0.01, (ny, nx))),
+           t(rng.uniform(0.01, 0.05, (ny, nx)))]
+    plan = StructuredPlan(nx, ny, 0.002, 0.002, 1e-7, 1e-3, bc_left=0,
+                          bc_right=2, bc_bottom=2, bc_top=1)
+    bc_vals = {"left": t([rng.uniform(0.1, 0.6, ny), rng.normal(0, 0.1, ny),
+                          rng.normal(0, 0.1, ny)])}
+    dt = torch.tensor(0.002, dtype=f32, device=dev)
+    modes = [("rhs", dict(emit_prim=True))] + [
+        (f"stage {i + 1}", dict(stage=st, qA=qA if i else None,
+                                emit_prim=True))
+        for i, st in enumerate(FUSED_STAGES["ssprk3"])
+    ]
+    for lim in LIMITERS:
+        got = rm.swe_raster_muscl_faces(plan, q, bc_vals, lim)
+        want = rm.raster_muscl_faces_plain(plan, q, bc_vals, lim)
+        for field, g, w in zip(("fx", "fy", "cmax"), got, want):
+            check("swe_raster_muscl_faces", f"raster 256x176 {lim} {field}",
+                  g, w, f32)
+        run = (torch.zeros((), dtype=f32, device=dev),
+               torch.zeros((), dtype=torch.int32, device=dev))
+        courant_argmax(got[2], dt, *run)
+        check("swe_raster_muscl_faces", f"raster 256x176 {lim} courant fold",
+              run[0], want[2].max() * dt, f32)
+        if lim != "minmod":
+            continue
+        n_lim = int((rm.donor_factors(plan, q, *want[:2], dt) < 1.0).sum())
+        log(f"    raster cells with s < 1: {n_lim} of {nx * ny}")
+        if not n_lim > 0:
+            failures.append("swe_raster_muscl_update limiter idle")
+        for rain in (False, True):
+            src = t(rng.uniform(0.0, 1e-2, (ny, nx))) if rain else None
+            for mode, extra in modes:
+                tag = f"raster rain {'on' if rain else 'off'} {mode}"
+                g = rm.swe_raster_muscl_update(plan, q, *want[:2], *geo, dt,
+                                               src=src, **extra)
+                w = rm.raster_muscl_update_plain(plan, q, *want[:2], *geo, dt,
+                                                 src=src, **extra)
+                for field, gi, wi in zip(("out", "prim"), g, w):
+                    check("swe_raster_muscl_update", f"{tag} {field}", gi, wi,
+                          f32)
+    torch.cuda.synchronize()
+    if failures:
+        raise SystemExit(f"second-order kernel checks failed: {failures}")
+
+
+def muscl_dam_break_config(steps, backend="xla", scheme="ssprk2"):
+    """The dam break at second order (minmod) with the positivity limiter
+    and a DRY floodplain, ssprk2, dt = DT_MUSCL (Courant number about
+    0.4)."""
+    from rdycore_tpu_torch.config.yaml_input import config_from_dict
+
+    d = dam_break_dict(steps, backend, scheme)
+    d["numerics"].update(second_order=True, limiter="minmod")
+    d["time"].update(time_step=DT_MUSCL, stop=steps * DT_MUSCL)
+    d["flow_conditions"][1]["height"] = 0.0
+    return config_from_dict(d).validate()
+
+
+def muscl_simulation(steps, backend, dev, mesh, plain=False):
+    """The second-order dam break on `backend`, its kernels replaced by
+    their plain versions when `plain`."""
+    if backend == "fused_structured":
+        return raster_simulation(steps, dev, mesh, "ssprk2", plain,
+                                 muscl_dam_break_config)
+    return unstructured_simulation(steps, dev, mesh, plain,
+                                   muscl_dam_break_config)
+
+
+def phase_muscl(steps, errs, dev, mesh):
+    """Both main paths at second order at full size (`run_main_path`, with
+    the state and the volume kept), and each kernel of the path held
+    against its plain version and timed at the path's shapes."""
+    from rdycore_tpu_torch.ops.kernels import muscl as mk
+    from rdycore_tpu_torch.ops.kernels import raster_muscl as rm
+    from rdycore_tpu_torch.ops.kernels.cell_stage import swe_cell_stage_plain
+    from rdycore_tpu_torch.ops.kernels.courant import courant_argmax_plain
+    from rdycore_tpu_torch.ops.kernels.edge_flux import swe_edge_flux_plain
+    from rdycore_tpu_torch.ops.swe.muscl import ls_gradients
+
+    card = nvidia_smi_line()
+    area = mesh.cell_area
+    rows = []
+
+    def check(sim, q0):
+        """h finite and >= -1e-7, the volume kept to 1e-4 (the front does
+        not reach the outflow wall)."""
+        hq = sim.get_height()
+        v0 = float(np.sum(q0[0] * area))
+        v1 = float(np.sum(hq.astype(np.float64) * area))
+        lens = sim.operator.arrays.bnd_len.cpu().numpy().astype(np.float64)
+        outflow = float(np.sum(sim.bflux_accum[0] * lens))
+        kept = abs(v1 - v0) / v0
+        finite = bool(np.isfinite(sim.get_solution()).all())
+        log(f"  state: finite {finite}, min h {hq.min():.3e}; volume initial "
+            f"{v0:.9e} m^3, final {v1:.9e}, change {kept:.3e} of the initial "
+            f"volume, outflow {outflow:.3e}")
+        if not (finite and hq.min() >= -1e-7 and kept <= 1e-4):
+            raise SystemExit("second-order state or volume failed")
+
+    for path, backend in (("unstructured", "xla"),
+                          ("raster", "fused_structured")):
+        raster = backend == "fused_structured"
+        log(f"== phase 6: {path} main path at second order (MUSCL minmod, "
+            f"positivity limiter, ssprk2, dt {DT_MUSCL} s, dry floodplain), "
+            f"{mesh.num_cells:,} cells, f32")
+        if raster:  # two launch pairs a step; K1a for the accumulator
+            per_step = {"swe_raster_muscl_faces": 2,
+                        "swe_raster_muscl_update": 2, "courant_argmax": 1,
+                        "swe_edge_flux": 1}
+        else:  # two stages of K3a, K1a, K3b drain and scale, K1b
+            per_step = {k: 2 for k in (
+                "swe_muscl_grad", "swe_edge_flux", "swe_positivity_drain",
+                "swe_positivity_scale", "swe_cell_stage")}
+            per_step["courant_argmax"] = 1
+        sim, launches = run_main_path(
+            f"second-order {path} main path",
+            lambda n, plain=False: muscl_simulation(n, backend, dev, mesh,
+                                                    plain),
+            steps, per_step, check)
+
+        # each kernel of the path at its shapes: held against its plain
+        # version on the final state, then timed
+        q, bv = sim.q, sim.boundary_values
+        s = q.element_size()
+        dt = torch.tensor(DT_MUSCL, dtype=q.dtype, device=dev)
+        # a step 40 times longer, so that the limiter acts at full size
+        dt_long = torch.tensor(40 * DT_MUSCL, dtype=q.dtype, device=dev)
+        run = (torch.zeros((), dtype=q.dtype, device=dev),
+               torch.zeros((), dtype=torch.int32, device=dev))
+        stage = dict(stage=(0.0, 1.0, 1.0), emit_prim=True)
+        if raster:
+            op = sim._structured["op"]
+            plan = op.plan
+            geo = (op.dz_dx, op.dz_dy, op.mannings_n)
+            fk = rm.swe_raster_muscl_faces(plan, q, None, op.limiter)
+            fp = rm.raster_muscl_faces_plain(plan, q, None, op.limiter)
+            mk_, ik = op.courant_max(fk[2], dt, *run)
+            mp, ip = courant_argmax_plain(fk[2])
+            fbk = op.boundary_fluxes(q, bv)
+            fbp = swe_edge_flux_plain(op.bnd, q, bv, plan.tiny_h,
+                                      plan.h_anuga)[0][:, :-1]
+            pairs = {
+                "swe_raster_muscl_faces": list(zip(fk, fp)),
+                # the update at dt and at 40 times dt, where the donor
+                # factors fall below 1
+                "swe_raster_muscl_update": [
+                    gw for t in (dt, dt_long) for gw in zip(
+                        rm.swe_raster_muscl_update(plan, q, *fp[:2], *geo, t,
+                                                   **stage),
+                        rm.raster_muscl_update_plain(plan, q, *fp[:2], *geo,
+                                                     t, **stage))],
+                "swe_edge_flux": [(fbk[k], fbp[k]) for k in range(3)],
+            }
+            n_lim = int((rm.donor_factors(plan, q, *fp[:2], dt_long)
+                         < 1.0).sum())
+            blocks = fk[2]
+            calls = {
+                "swe_raster_muscl_faces": (
+                    lambda: rm.swe_raster_muscl_faces(plan, q, None,
+                                                      op.limiter),
+                    lambda: rm.raster_muscl_faces_plain(plan, q, None,
+                                                        op.limiter),
+                    None),
+                "swe_raster_muscl_update": (
+                    lambda: rm.swe_raster_muscl_update(
+                        plan, q, *fk[:2], *geo, dt, **stage),
+                    lambda: rm.raster_muscl_update_plain(
+                        plan, q, *fk[:2], *geo, dt, **stage),
+                    None),
+                "courant_argmax": (
+                    lambda: op.courant_max(blocks, dt, *run),
+                    lambda: courant_argmax_plain(blocks, dt, *run),
+                    lambda: torch.max(blocks, 0)),
+                "swe_edge_flux": (
+                    lambda: op.boundary_fluxes(q, bv),
+                    lambda: swe_edge_flux_plain(op.bnd, q, bv, op.plan.tiny_h,
+                                                op.plan.h_anuga),
+                    None),
+            }
+            Eb = op.bnd.bnd_left.shape[0]
+            nbytes = raster_muscl_bytes(plan.nx, plan.ny, blocks.numel(), s)
+            nbytes["courant_argmax"] = courant_bytes(blocks.numel(), s)
+            nbytes["swe_edge_flux"] = edge_flux_bytes(
+                0, Eb, 3 * s * int(torch.unique(op.bnd.bnd_left).numel()), s)
+            C = q.shape[1]
+            nops = {"swe_raster_muscl_faces": OPS_PER_MUSCL_FACES_CELL * C,
+                    "swe_raster_muscl_update": OPS_PER_MUSCL_UPDATE_CELL * C,
+                    "courant_argmax": OPS_PER_VALUE * blocks.numel(),
+                    "swe_edge_flux": OPS_PER_EDGE * Eb}
+            replaces = dict(
+                REPLACES, courant_argmax=REPLACES["swe_raster_muscl_faces"],
+                swe_edge_flux=_SLOTTED + ":1254")
+        else:
+            op = sim.operator
+            a = op.arrays
+            kw = dict(tiny_h=op.tiny_h, h_anuga=op.h_anuga,
+                      xq2018_threshold=op.xq2018_threshold,
+                      source_method=op.source_method)
+            gk = op.muscl_grad(q)
+            gp = ls_gradients(a, q)
+            flux, courant = op.edge_flux(q, bv, gp)
+            fp, cp = swe_edge_flux_plain(a, q, bv, op.tiny_h, op.h_anuga,
+                                         grad=gp, limiter=op.limiter)
+            # K3b at dt and at 40 times dt, where the donor factors fall
+            # below 1: drain on the same flux, scale on the same factors
+            sk = mk.swe_positivity_drain(a, fp, q[0], dt)
+            drain, scale = [], []
+            for t in (dt, dt_long):
+                s_p = mk.positivity_drain_plain(a, fp, q[0], t)
+                drain.append((mk.swe_positivity_drain(a, fp, q[0], t), s_p))
+                scale.append((mk.swe_positivity_scale(a, fp.clone(), s_p),
+                              mk.positivity_scale_plain(a, fp.clone(), s_p)))
+            n_lim = int((drain[1][1] < 1.0).sum())
+            ok_ = op.cell_stage(fp, q, dt, None, **stage)
+            op_ = swe_cell_stage_plain(a, fp, q, dt, None, **kw, **stage)
+            mk_, ik = op.courant_max(cp, dt, *run)
+            mp, ip = courant_argmax_plain(cp)
+            pairs = {
+                "swe_muscl_grad": [(gk, gp)],
+                "swe_edge_flux": [(flux, fp), (courant, cp)],
+                "swe_positivity_drain": drain,
+                "swe_positivity_scale": scale,
+                "swe_cell_stage": [(ok_.q_out, op_.q_out),
+                                   (ok_.prim, op_.prim)],
+            }
+            calls = {
+                "swe_muscl_grad": (lambda: op.muscl_grad(q),
+                                   lambda: ls_gradients(a, q), None),
+                "swe_edge_flux": (
+                    lambda: op.edge_flux(q, bv, gk),
+                    lambda: swe_edge_flux_plain(a, q, bv, op.tiny_h,
+                                                op.h_anuga, grad=gk,
+                                                limiter=op.limiter),
+                    None),
+                "swe_positivity_drain": (
+                    lambda: mk.swe_positivity_drain(a, flux, q[0], dt),
+                    lambda: mk.positivity_drain_plain(a, flux, q[0], dt),
+                    None),
+                "swe_positivity_scale": (
+                    lambda: mk.swe_positivity_scale(a, flux, sk),
+                    lambda: mk.positivity_scale_plain(a, flux, sk),
+                    None),
+                "swe_cell_stage": (
+                    lambda: op.cell_stage(flux, q, dt, None, **stage),
+                    lambda: swe_cell_stage_plain(a, flux, q, dt, None, **kw,
+                                                 **stage),
+                    None),
+                "courant_argmax": (
+                    lambda: op.courant_max(courant, dt, *run),
+                    lambda: courant_argmax_plain(courant, dt, *run),
+                    lambda: torch.max(courant, 0)),
+            }
+            nbytes = muscl_bytes(op, q.numel() * s, s)
+            base = kernel_bytes(op, q.numel() * s, s)
+            nbytes["swe_cell_stage"] = base["swe_cell_stage"]
+            nbytes["courant_argmax"] = base["courant_argmax"]
+            C, E, Ei = op.num_cells, op.num_edges, op.num_internal_edges
+            nops = {"swe_muscl_grad": OPS_PER_GRAD_CELL * C,
+                    "swe_edge_flux": OPS_PER_EDGE * (E - Ei)
+                    + OPS_PER_MUSCL_EDGE * Ei,
+                    "swe_positivity_drain": OPS_PER_DRAIN_CELL * C,
+                    "swe_positivity_scale": OPS_PER_SCALE_EDGE * E,
+                    "swe_cell_stage": OPS_PER_CELL * C,
+                    "courant_argmax": OPS_PER_VALUE * E}
+            replaces = dict(REPLACES, swe_edge_flux=_SLOTTED + ":3180",
+                            swe_cell_stage=_SLOTTED + ":1441")
+        rel = {k: max(rel_err(g, w) for g, w in v) for k, v in pairs.items()}
+        err = {k: max(abs_err(g, w) for g, w in v) for k, v in pairs.items()}
+        rel["courant_argmax"] = abs(float(mk_) - float(mp)) / float(mp)
+        err["courant_argmax"] = abs(float(mk_) - float(mp))
+        log(f"  full-size kernels vs plain on the second-order {path} path "
+            f"(relative): {rel}; courant idx {int(ik)} (plain {int(ip)}); "
+            f"cells with s < 1 at dt x40: {n_lim}")
+        if not (all(v <= TOL[q.dtype] for v in rel.values()) and n_lim > 0
+                and int(ik) == int(ip)):
+            raise SystemExit(f"full-size second-order {path} kernel check "
+                             "failed")
+        for name, fns in calls.items():
+            # phase 6a's errors of the same kernel in the same mode count
+            key = ("swe_edge_flux muscl"
+                   if name == "swe_edge_flux" and not raster else name)
+            rows.append(kernel_row(
+                card, name, f"{path}+muscl", fns, launches[name],
+                max(err[name], errs.get(key, 0.0)), nbytes[name],
+                nops[name], q.dtype, replaces))
+        del sim
+    return rows
 
 
 def main():
@@ -1334,12 +1778,14 @@ def main():
     phase_build()
     dev = torch.device("cuda")
     phase_kernels(args.seed, errs, dev)
-    mesh, t_mesh = dam_break_mesh()
+    mesh = dam_break_mesh()
     # one row per kernel and path, each with that path's own launches
-    rows = phase_main(args.steps, errs, dev, mesh, t_mesh)
+    rows = phase_main(args.steps, errs, dev, mesh)
     rows += phase_raster(args.steps, errs, dev, mesh)
     phase_tracer_kernels(args.seed, errs, dev)
     rows += phase_tracers(args.steps, errs, dev, mesh)
+    phase_muscl_kernels(args.seed, errs, dev)
+    rows += phase_muscl(args.steps, errs, dev, mesh)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi_line())
     print(json.dumps({"kernels": rows}))

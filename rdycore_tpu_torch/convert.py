@@ -27,11 +27,13 @@ from .ops.structured import StructuredArrays
 def operator_arrays_from_numpy(
     d: Dict[str, np.ndarray], device: DeviceLike, dtype: torch.dtype
 ) -> OperatorArrays:
-    """This package's OperatorArrays from the flow fields of `d` on
-    `device` ("cpu" or CUDA) in `dtype`; fields of `d` that the first-order
-    flow path does not use (the Pallas plan, MUSCL, BS2002 and HR arrays,
-    None values) are ignored."""
-    flow = {k: v for k, v in d.items() if k in ARRAY_FIELDS}
+    """This package's OperatorArrays from the fields of `d` on `device`
+    ("cpu" or CUDA) in `dtype`: the first-order flow fields and, when `d`
+    has them, the six MUSCL arrays (cell_ls_cx/cy, int_dxl/dyl/dxr/dyr);
+    the fields this package does not use (the Pallas plan, BS2002 and HR
+    arrays) and None values are ignored."""
+    flow = {k: v for k, v in d.items()
+            if k in ARRAY_FIELDS and v is not None}
     return arrays_from_numpy(flow, resolve_device(device), dtype)
 
 

@@ -1,7 +1,8 @@
-"""The SWE spatial operator F(q, t) -> dq/dt, first order.
+"""The SWE spatial operator F(q, t) -> dq/dt.
 
-The counterpart of rdycore_tpu/operator.py at first order without
-well-balancing, for the flow equations (3 unknowns) and for the coupled
+The counterpart of rdycore_tpu/operator.py without well-balancing, at
+first order or (flow only) second order, for the flow equations (3
+unknowns) and for the coupled
 flow + tracer system (3 + num_tracers unknowns: sediment classes with
 Hairsine-Rose sources, then salinity and heat; the JAX package's
 `_apply_tracer`/`_finish_tracer`). The JAX package's XLA gather form
@@ -18,6 +19,17 @@ Steps 1-3 are the edge kernel K1a (`ops/kernels/edge_flux.py`), 4-5 the
 cell kernel K1b (`ops/kernels/cell_stage.py`), and the Courant maximum with
 its location the reduction kernel K1c (`ops/kernels/courant.py`). On CPU
 tensors each runs its plain PyTorch version instead.
+
+With `second_order` (MUSCL, the JAX package's `second_order=True`), K3a
+(`ops/kernels/muscl.py`) first forms each cell's least-squares gradients,
+K1a solves Roe on the limited face states of the interior edges, and,
+with `positivity_limit` (on by default, as `Simulation` builds it), K3b
+scales every edge's flux by its donor cell's factor min(1, h / (dt *
+drain)) before the cell gather (the JAX package's `_finish_apply`
+positivity step, operator.py:482-497 and :1084-1115). The scaled boundary
+fluxes are those the accumulators read. A step with dt <= 0 takes 1 for
+dt in that factor, as the raster kernel does: the JAX package's XLA path
+divides by zero there and hides the NaN behind its loop's guard.
 
 Boundary edges carry a BC code each (`bnd_code`), so one launch covers all
 edges whatever the segments; the JAX XLA path loops over segments instead.
@@ -37,7 +49,13 @@ from .mesh.core import Mesh, named_boundary_sets
 from .ops.kernels.cell_stage import CellStageOut, swe_cell_stage
 from .ops.kernels.courant import courant_argmax
 from .ops.kernels.edge_flux import boundary_flux_plain, swe_edge_flux
+from .ops.kernels.muscl import (
+    swe_muscl_grad,
+    swe_positivity_drain,
+    swe_positivity_scale,
+)
 from .ops.swe import boundary as bc_mod
+from .ops.swe.muscl import LIMITERS, precompute_ls_coefficients
 from .ops.swe.sources import SOURCE_IMPLICIT_XQ2018, SOURCE_SEMI_IMPLICIT
 
 
@@ -78,13 +96,24 @@ class OperatorArrays:
     edge_courant_coef: torch.Tensor
     # boundary edge lengths [Eb]
     bnd_len: torch.Tensor
+    # MUSCL (second order only): LS gradient coefficients per cell_edges
+    # slot [C, MAX_CE], centroid -> midpoint offsets per interior edge [Ei]
+    cell_ls_cx: Optional[torch.Tensor] = None
+    cell_ls_cy: Optional[torch.Tensor] = None
+    int_dxl: Optional[torch.Tensor] = None
+    int_dyl: Optional[torch.Tensor] = None
+    int_dxr: Optional[torch.Tensor] = None
+    int_dyr: Optional[torch.Tensor] = None
 
     def numpy(self) -> Dict[str, np.ndarray]:
-        """Every field as a host numpy array."""
-        return {k: getattr(self, k).cpu().numpy() for k in ARRAY_FIELDS}
+        """Every field that is set as a host numpy array."""
+        return {k: getattr(self, k).cpu().numpy() for k in ARRAY_FIELDS
+                if getattr(self, k) is not None}
 
 
 ARRAY_FIELDS = tuple(f.name for f in dataclasses.fields(OperatorArrays))
+MUSCL_FIELDS = ("cell_ls_cx", "cell_ls_cy", "int_dxl", "int_dyl", "int_dxr",
+                "int_dyr")
 INDEX_FIELDS = {
     "int_left": torch.int32, "int_right": torch.int32,
     "bnd_left": torch.int32, "cell_edges": torch.int32,
@@ -96,15 +125,17 @@ def arrays_from_numpy(
     d: Dict[str, np.ndarray], device: torch.device, dtype: torch.dtype
 ) -> OperatorArrays:
     """OperatorArrays from host arrays: index fields as int32 (bnd_code
-    int8), the rest as `dtype`, all on `device`."""
-    missing = [k for k in ARRAY_FIELDS if k not in d]
-    if missing:
-        raise KeyError(f"operator arrays lack {missing}")
+    int8), the rest as `dtype`, all on `device`. The MUSCL fields are
+    optional, all six or none."""
+    missing = [k for k in ARRAY_FIELDS if k not in d and k not in MUSCL_FIELDS]
+    muscl = [k for k in MUSCL_FIELDS if d.get(k) is not None]
+    if missing or muscl and len(muscl) != len(MUSCL_FIELDS):
+        raise KeyError(f"operator arrays lack {missing or muscl}")
     return OperatorArrays(**{
         k: torch.as_tensor(
             np.array(d[k]), dtype=INDEX_FIELDS.get(k, dtype), device=device
         )
-        for k in ARRAY_FIELDS
+        for k in ARRAY_FIELDS if d.get(k) is not None
     })
 
 
@@ -112,7 +143,8 @@ class RHSResult(NamedTuple):
     rhs: torch.Tensor  # [ndof, C] dq/dt
     flux_div: torch.Tensor  # [ndof, C] flux-divergence part ("riemannf")
     prim: torch.Tensor  # [ndof, C] (h, u, v[, concentrations])
-    boundary_fluxes: torch.Tensor  # [ndof, Eb] raw fluxes on boundary edges
+    # [ndof, Eb] fluxes on boundary edges (positivity-scaled when limited)
+    boundary_fluxes: torch.Tensor
     max_courant_per_dt: torch.Tensor  # 0-dim: max over edges of amax*len/area
     courant_edge: torch.Tensor  # 0-dim int32: index of that edge
 
@@ -136,10 +168,22 @@ class SWEOperator:
     num_tracers: int = 0
     num_sediment: int = 0
     riemann: str = "roe"
+    # MUSCL reconstruction (flow only) with minmod | van_leer | none, and
+    # the Audusse positivity limiter on its fluxes
+    second_order: bool = False
+    limiter: str = "minmod"
+    positivity_limit: bool = True
 
     def __post_init__(self):
         if self.riemann not in ("roe", "upwind_roe"):
             raise ValueError(f"riemann: {self.riemann!r}")
+        if self.limiter not in LIMITERS:
+            raise ValueError(f"limiter: {self.limiter!r}")
+        if self.second_order and self.num_tracers:
+            raise ValueError("second-order MUSCL reconstruction is only "
+                             "supported for pure SWE (no tracers)")
+        if self.second_order and self.arrays.cell_ls_cx is None:
+            raise ValueError("a second-order operator needs the MUSCL arrays")
         if not 0 <= self.num_sediment <= self.num_tracers:
             raise ValueError(f"{self.num_sediment} sediment classes of "
                              f"{self.num_tracers} tracers")
@@ -165,14 +209,44 @@ class SWEOperator:
                            dtype=a.area.dtype, device=a.area.device)
 
     # ------------------------------------------------------------ kernels
+    def muscl_grad(self, q: torch.Tensor) -> torch.Tensor:
+        """K3a: the LS gradients [6, C] of the flow rows of q."""
+        return swe_muscl_grad(self.arrays, q)
+
     def edge_flux(
-        self, q: torch.Tensor, boundary_values: torch.Tensor
+        self, q: torch.Tensor, boundary_values: torch.Tensor,
+        grad: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """K1a: (flux [ndof, E + 1] with column E zero, courant [E])."""
+        """K1a: (flux [ndof, E + 1] with column E zero, courant [E]); with
+        grad, MUSCL faces on the interior edges."""
         return swe_edge_flux(
             self.arrays, q, boundary_values, self.tiny_h, self.h_anuga,
-            upwind=self.riemann == "upwind_roe",
+            upwind=self.riemann == "upwind_roe", grad=grad,
+            limiter=self.limiter,
         )
+
+    def limit_positivity(self, flux: torch.Tensor, h: torch.Tensor,
+                         dt: torch.Tensor) -> torch.Tensor:
+        """K3b: the donor factors of the depths h over dt (drain), then
+        flux scaled in place by them (scale). Returns flux."""
+        s = swe_positivity_drain(self.arrays, flux, h, dt)
+        return swe_positivity_scale(self.arrays, flux, s)
+
+    def fluxes(
+        self, q: torch.Tensor, boundary_values: torch.Tensor,
+        dt: torch.Tensor,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The edge phase: K1a at first order; at second order K3a, K1a in
+        MUSCL mode and, with positivity_limit, K3b over dt. Returns (flux
+        [ndof, E + 1], courant [E]); courant is taken before the positivity
+        scaling."""
+        if not self.second_order:
+            return self.edge_flux(q, boundary_values)
+        flux, courant = self.edge_flux(q, boundary_values,
+                                       self.muscl_grad(q))
+        if self.positivity_limit and self.num_edges:
+            self.limit_positivity(flux, q[0], dt)
+        return flux, courant
 
     def courant_max(
         self, courant: torch.Tensor, dt: Optional[torch.Tensor] = None,
@@ -204,10 +278,10 @@ class SWEOperator:
         boundary_values: torch.Tensor,  # [ndof, >= Eb] Dirichlet values
         ext_src: Optional[torch.Tensor],  # [ndof, C] external sources or None
     ) -> RHSResult:
-        """Evaluate dq/dt: one edge launch, one Courant reduction and one
-        cell launch in rhs mode."""
+        """Evaluate dq/dt: the edge phase (`fluxes`), one Courant reduction
+        and one cell launch in rhs mode."""
         dt = torch.as_tensor(dt, dtype=q.dtype, device=q.device)
-        flux, courant = self.edge_flux(q, boundary_values)
+        flux, courant = self.fluxes(q, boundary_values, dt)
         cmax, cedge = self.courant_max(courant)
         out = self.cell_stage(flux, q, dt, ext_src, emit_prim=True)
         Ei = self.num_internal_edges
@@ -254,6 +328,9 @@ def build_operator(
     num_tracers: int = 0,
     num_sediment: int = 0,
     riemann: str = "roe",
+    second_order: bool = False,
+    limiter: str = "minmod",
+    positivity_limit: bool = True,
     dtype: torch.dtype = torch.float64,
     device: DeviceLike = None,
 ) -> SWEOperator:
@@ -261,7 +338,8 @@ def build_operator(
 
     bc_types maps boundary name -> BC_* code; unlisted boundaries get the
     reflecting wall BC, like the reference's auto-assignment
-    (rdysetup.c:706-777).
+    (rdysetup.c:706-777). second_order adds the MUSCL arrays, built on the
+    host in float64 (`precompute_ls_coefficients`).
     """
     device = resolve_device(device)
     bc_types = dict(bc_types or {})
@@ -320,6 +398,10 @@ def build_operator(
 
     if mannings_n is None:
         mannings_n = np.zeros(C)
+    muscl = {}
+    if second_order:
+        muscl = dict(zip(MUSCL_FIELDS,
+                         precompute_ls_coefficients(mesh, edge_perm, Ei)))
 
     arrays = arrays_from_numpy(
         dict(
@@ -340,6 +422,7 @@ def build_operator(
             cell_edge_coef=coef,
             edge_courant_coef=ccoef,
             bnd_len=lengths[Ei:],
+            **muscl,
         ),
         device, dtype,
     )
@@ -356,4 +439,7 @@ def build_operator(
         num_tracers=num_tracers,
         num_sediment=num_sediment,
         riemann=riemann,
+        second_order=second_order,
+        limiter=limiter,
+        positivity_limit=positivity_limit,
     )

@@ -5,6 +5,11 @@ package's ops/pallas/), each beside its plain PyTorch version:
 - K1b `swe_cell_stage` (cell_stage.py, csrc/swe_cell_stage.cu)
 - K1c `courant_argmax` (courant.py, csrc/courant_argmax.cu)
 - K2 `swe_raster_step` (raster_step.py, csrc/swe_raster_step.cu)
+- K3a `swe_muscl_grad`, K3b `swe_positivity_drain` and
+  `swe_positivity_scale` (muscl.py, csrc/swe_muscl_grad.cu,
+  csrc/swe_positivity.cu)
+- K2 MUSCL `swe_raster_muscl_faces` and `swe_raster_muscl_update`
+  (raster_muscl.py, csrc/swe_raster_muscl.cu)
 
 A wrapper launches its kernel for CUDA tensors and takes the plain version
 for CPU tensors; `launches` on each wrapper counts its kernel's launches.
@@ -13,9 +18,13 @@ for CPU tensors; `launches` on each wrapper counts its kernel's launches.
 from .cell_stage import swe_cell_stage
 from .courant import courant_argmax
 from .edge_flux import swe_edge_flux
+from .muscl import swe_muscl_grad, swe_positivity_drain, swe_positivity_scale
+from .raster_muscl import swe_raster_muscl_faces, swe_raster_muscl_update
 from .raster_step import swe_raster_step
 
-KERNELS = (swe_edge_flux, swe_cell_stage, courant_argmax, swe_raster_step)
+KERNELS = (swe_edge_flux, swe_cell_stage, courant_argmax, swe_raster_step,
+           swe_muscl_grad, swe_positivity_drain, swe_positivity_scale,
+           swe_raster_muscl_faces, swe_raster_muscl_update)
 
 
 def reset_launch_counts() -> None:

@@ -27,6 +27,17 @@
 // (Roe, or upwind-Roe with kUpwind); and the either-wet mask (hl > tiny_h or hr > tiny_h) on every
 // row and on amax.
 //
+// MUSCL mode (flow only; kLim = kLimMinmod, kLimVanLeer or kLimNone, a
+// template parameter; 0 is first order) replaces the TPU kernels
+// _muscl_flux_kernel (slotted.py:3180, without BS2002) and, with K3a's
+// gradients, _muscl_pre_kernel (:2946): an interior edge reconstructs
+// q_c + limit(grad_c . d_c, +-dq/2) on both sides from the gradients
+// grad[6, C] and the centroid -> midpoint offsets d (int_dxl/dyl/dxr/dyr),
+// clamps h >= 0 and solves Roe with the both-dry mask on the reconstructed
+// depths; boundary edges stay first order on the raw state. The extra
+// streams are 4 offsets per interior edge and 6 gradient values per cell
+// (about 404 MB in f32 at 2,883,584 cells, at least 0.12 ms).
+//
 // Bound: device memory. Per interior edge it streams two int32 indices, two
 // normals and one Courant coefficient in, and ndof fluxes + 1 Courant value
 // out (36 bytes in f32 flow-only, 48 with NT = 3), plus the gathered
@@ -43,7 +54,7 @@
 
 namespace {
 
-template <typename T, int NT, bool kUpwind>
+template <typename T, int NT, bool kUpwind, int kLim>
 __global__ void __launch_bounds__(256) swe_edge_flux_kernel(
     const T* __restrict__ q, int64_t C, const int32_t* __restrict__ int_left,
     const int32_t* __restrict__ int_right, const T* __restrict__ int_cn,
@@ -52,7 +63,10 @@ __global__ void __launch_bounds__(256) swe_edge_flux_kernel(
     const T* __restrict__ bnd_sn, const int8_t* __restrict__ bnd_code,
     const T* __restrict__ bvals, int64_t bvals_ld, int64_t Eb,
     const T* __restrict__ ccoef, T tiny_h, T h_anuga, T* __restrict__ flux,
-    T* __restrict__ courant) {
+    T* __restrict__ courant, const T* __restrict__ grad,
+    const T* __restrict__ dxl, const T* __restrict__ dyl,
+    const T* __restrict__ dxr, const T* __restrict__ dyr) {
+  static_assert(kLim == 0 || NT == 0, "MUSCL faces are flow only");
   constexpr int ND = 3 + NT;
   const int64_t E = Ei + Eb;
   const int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
@@ -69,12 +83,27 @@ __global__ void __launch_bounds__(256) swe_edge_flux_kernel(
   if (e < Ei) {
     const int64_t l = int_left[e];
     const int64_t r = int_right[e];
-    hl = q[l];
-    hr = q[r];
-    rdy::regularized_velocity(hl, q[C + l], q[2 * C + l], tiny_h, h_anuga,
-                              ul, vl);
-    rdy::regularized_velocity(hr, q[C + r], q[2 * C + r], tiny_h, h_anuga,
-                              ur, vr);
+    T ql[3] = {q[l], q[C + l], q[2 * C + l]};
+    T qr[3] = {q[r], q[C + r], q[2 * C + r]};
+    if constexpr (kLim != 0) {
+      // limited second-order face states (muscl.py
+      // reconstruct_interior_states), h clamped >= 0
+      const T xl = dxl[e], yl = dyl[e], xr = dxr[e], yr = dyr[e];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const T dq = qr[k] - ql[k];
+        const T el = grad[k * C + l] * xl + grad[(3 + k) * C + l] * yl;
+        const T er = grad[k * C + r] * xr + grad[(3 + k) * C + r] * yr;
+        ql[k] = ql[k] + rdy::limit_slope<T, kLim>(el, T(0.5) * dq);
+        qr[k] = qr[k] + rdy::limit_slope<T, kLim>(er, T(-0.5) * dq);
+      }
+      ql[0] = rdy::clamp_min0(ql[0]);
+      qr[0] = rdy::clamp_min0(qr[0]);
+    }
+    hl = ql[0];
+    hr = qr[0];
+    rdy::regularized_velocity(hl, ql[1], ql[2], tiny_h, h_anuga, ul, vl);
+    rdy::regularized_velocity(hr, qr[1], qr[2], tiny_h, h_anuga, ur, vr);
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       cil[j] = rdy::safe_div(q[(3 + j) * C + l], hl, hl, tiny_h);
@@ -133,27 +162,47 @@ int launch(const void* q, int64_t C, const void* int_left,
            const void* bnd_sn, const void* bnd_code, const void* bvals,
            int64_t bvals_ld, int64_t Eb, const void* ccoef, T tiny_h,
            T h_anuga, void* flux, void* courant, int nt, int upwind,
-           void* stream) {
+           const void* grad, const void* dxl, const void* dyl,
+           const void* dxr, const void* dyr, int limiter, void* stream) {
   const int64_t n = Ei + Eb + 1;
   const int threads = 256;
   const int64_t blocks = (n + threads - 1) / threads;
+  auto run = [&](auto kernel) {
+    kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const T*)q, C, (const int32_t*)int_left, (const int32_t*)int_right,
+        (const T*)int_cn, (const T*)int_sn, Ei, (const int32_t*)bnd_left,
+        (const T*)bnd_cn, (const T*)bnd_sn, (const int8_t*)bnd_code,
+        (const T*)bvals, bvals_ld, Eb, (const T*)ccoef, tiny_h, h_anuga,
+        (T*)flux, (T*)courant, (const T*)grad, (const T*)dxl, (const T*)dyl,
+        (const T*)dxr, (const T*)dyr);
+    return (int)cudaGetLastError();
+  };
+  if (limiter != 0) {
+    if (nt != 0 || grad == nullptr) return (int)cudaErrorInvalidValue;
+    switch (limiter) {
+      case rdy::kLimMinmod:
+        return run(swe_edge_flux_kernel<T, 0, false, rdy::kLimMinmod>);
+      case rdy::kLimVanLeer:
+        return run(swe_edge_flux_kernel<T, 0, false, rdy::kLimVanLeer>);
+      case rdy::kLimNone:
+        return run(swe_edge_flux_kernel<T, 0, false, rdy::kLimNone>);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
   return rdy::dispatch_nt(nt, upwind != 0, [&](auto tag) {
     using Tag = decltype(tag);
-    swe_edge_flux_kernel<T, Tag::nt, Tag::upwind>
-        <<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-            (const T*)q, C, (const int32_t*)int_left,
-            (const int32_t*)int_right, (const T*)int_cn, (const T*)int_sn,
-            Ei, (const int32_t*)bnd_left, (const T*)bnd_cn, (const T*)bnd_sn,
-            (const int8_t*)bnd_code, (const T*)bvals, bvals_ld, Eb,
-            (const T*)ccoef, tiny_h, h_anuga, (T*)flux, (T*)courant);
-    return (int)cudaGetLastError();
+    return run(swe_edge_flux_kernel<T, Tag::nt, Tag::upwind, 0>);
   });
 }
 
 }  // namespace
 
 // nt: tracer rows of q, bvals and flux beyond (h, hu, hv); upwind != 0
-// takes upwind-Roe tracer fluxes. Returns cudaGetLastError().
+// takes upwind-Roe tracer fluxes. limiter != 0 (kLim* of swe_physics.cuh,
+// nt = 0 only) takes MUSCL faces from grad [6, C] and the interior edges'
+// offsets dxl, dyl, dxr, dyr [Ei] (else those may be NULL). Returns
+// cudaGetLastError().
 #define RDY_EDGE_FLUX_API(SUFFIX, T)                                         \
   extern "C" int rdy_swe_edge_flux_##SUFFIX(                                 \
       const void* q, int64_t C, const void* int_left, const void* int_right, \
@@ -161,11 +210,13 @@ int launch(const void* q, int64_t C, const void* int_left,
       const void* bnd_left, const void* bnd_cn, const void* bnd_sn,          \
       const void* bnd_code, const void* bvals, int64_t bvals_ld, int64_t Eb, \
       const void* ccoef, T tiny_h, T h_anuga, void* flux, void* courant,     \
-      int nt, int upwind, void* stream) {                                    \
+      int nt, int upwind, const void* grad, const void* dxl,                 \
+      const void* dyl, const void* dxr, const void* dyr, int limiter,        \
+      void* stream) {                                                        \
     return launch<T>(q, C, int_left, int_right, int_cn, int_sn, Ei,          \
                      bnd_left, bnd_cn, bnd_sn, bnd_code, bvals, bvals_ld, Eb, \
                      ccoef, tiny_h, h_anuga, flux, courant, nt, upwind,      \
-                     stream);                                                \
+                     grad, dxl, dyl, dxr, dyr, limiter, stream);             \
   }
 
 RDY_EDGE_FLUX_API(f32, float)

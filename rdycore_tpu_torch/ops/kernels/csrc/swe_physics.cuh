@@ -26,6 +26,11 @@ constexpr int kSemiImplicit = 0;
 constexpr int kXQ2018 = 1;
 constexpr int kSourceNone = 2;
 
+// MUSCL slope limiters (ops/swe/muscl.py LIMITERS); 0 is first order
+constexpr int kLimMinmod = 1;
+constexpr int kLimVanLeer = 2;
+constexpr int kLimNone = 3;
+
 // most tracers a state carries: MAX_NUM_SEDIMENT_CLASSES (5), salinity and
 // heat. Each kernel is instantiated for every count 0..kMaxTracers, so the
 // tracer arrays of a thread live in registers; count 0 is the flow-only
@@ -66,6 +71,26 @@ template <typename T>
 __device__ __forceinline__ T safe_div(T a, T b, T cond, T tiny) {
   const T b_safe = fabs(b) > T(0) ? b : T(1);
   return cond > tiny ? a / b_safe : T(0);
+}
+
+// limited slope of a face extrapolation against half the jump across the
+// face (muscl.py limit_slope): minmod, van Leer or none
+template <typename T, int kLim>
+__device__ __forceinline__ T limit_slope(T extrap, T half_dq) {
+  if constexpr (kLim == kLimNone) {
+    return extrap;
+  } else {
+    const T prod = extrap * half_dq;
+    if constexpr (kLim == kLimVanLeer) {
+      const T s = extrap + half_dq;
+      const T s_safe = s != T(0) ? s : T(1);
+      return prod > T(0) ? T(2) * prod / s_safe : T(0);
+    } else {
+      static_assert(kLim == kLimMinmod, "unknown limiter");
+      return prod <= T(0) ? T(0)
+                          : (fabs(extrap) < fabs(half_dq) ? extrap : half_dq);
+    }
+  }
 }
 
 // ANUGA velocity regularization u = hu*h/(h^2 + h_anuga^2), zero when dry

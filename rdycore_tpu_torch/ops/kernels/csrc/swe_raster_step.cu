@@ -58,59 +58,20 @@
 // through L1/L2 rather than a shared-memory tile with a halo, the four Roe
 // solves per cell double the face work, and no cp.async/TMA overlaps loads
 // with compute.
-#include "swe_physics.cuh"
+#include "raster_common.cuh"
 
 namespace {
 
-using rdy::kCriticalOutflow;
+using rdy::Cell;
 using rdy::kDirichlet;
-using rdy::kReflecting;
-
-constexpr int kThreads = 256;
-
-struct Cell {
-  float h, hu, hv;
-};
+using rdy::kRasterThreads;
+using rdy::load_cell;
+using rdy::nanmax;
+using rdy::wall_ghost;
 
 struct Prep {
   float h, u, v, sq;
 };
-
-__device__ __forceinline__ Cell load(const float* __restrict__ q, int64_t C,
-                                     int64_t c) {
-  return Cell{q[c], q[C + c], q[2 * C + c]};
-}
-
-// wall ghost of interior cell s with outward normal (sn, cn) (_ghost): the
-// prescribed (h, hu, hv) for Dirichlet, else (hg, hg*ug, hg*vg) of the
-// reflecting or critical-outflow ghost of the regularized state
-__device__ __forceinline__ Cell wall_ghost(int bc, Cell s, float sn, float cn,
-                                           const float* __restrict__ bv,
-                                           int64_t pos, int64_t n,
-                                           float tiny_h, float h_anuga) {
-  if (bc == kDirichlet) return Cell{bv[pos], bv[n + pos], bv[2 * n + pos]};
-  float u, v;
-  rdy::regularized_velocity(s.h, s.hu, s.hv, tiny_h, h_anuga, u, v);
-  float hg, ug, vg;
-  if (bc == kReflecting) {
-    const float dum1 = sn * sn - cn * cn;
-    const float dum2 = 2.0f * sn * cn;
-    hg = s.h;
-    ug = u * dum1 - v * dum2;
-    vg = -u * dum2 - v * dum1;
-  } else {  // critical outflow: the ghost only
-    const float g = float(rdy::kGravity);
-    const float uperp = u * cn + v * sn;
-    const float qn = s.h * fabsf(uperp);
-    const float h_crit = cbrtf(qn * qn / g);
-    const float vel = sqrtf(g * h_crit);
-    const bool out = uperp >= 0.0f;
-    hg = out ? h_crit : 0.0f;
-    ug = out ? vel * cn : 0.0f;
-    vg = out ? vel * sn : 0.0f;
-  }
-  return Cell{hg, hg * ug, hg * vg};
-}
 
 __device__ __forceinline__ Prep prep(Cell s, float tiny_h, float h_anuga) {
   Prep p;
@@ -191,13 +152,8 @@ __device__ __forceinline__ void face(const Prep& l, const Prep& r,
   for (int j = 0; j < NT; ++j) ft.m[j] *= m;
 }
 
-// max that keeps a NaN from either side, as jnp.max does
-__device__ __forceinline__ float nanmax(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
-
 template <int NT, bool kUpwind>
-__global__ void __launch_bounds__(kThreads) swe_raster_step_kernel(
+__global__ void __launch_bounds__(kRasterThreads) swe_raster_step_kernel(
     const float* __restrict__ q, const float* __restrict__ qA,
     const float* __restrict__ dzx, const float* __restrict__ dzy,
     const float* __restrict__ mann, const float* __restrict__ src,
@@ -214,17 +170,17 @@ __global__ void __launch_bounds__(kThreads) swe_raster_step_kernel(
   if (i < nx && j < ny) {
     const int64_t C = nx * ny;
     const int64_t c = j * nx + i;
-    const Cell s = load(q, C, c);
-    const Cell w = i > 0 ? load(q, C, c - 1)
+    const Cell s = load_cell(q, C, c);
+    const Cell w = i > 0 ? load_cell(q, C, c - 1)
                          : wall_ghost(bc_l, s, 0.0f, -1.0f, bv_l, j, ny,
                                       tiny_h, h_anuga);
-    const Cell e = i < nx - 1 ? load(q, C, c + 1)
+    const Cell e = i < nx - 1 ? load_cell(q, C, c + 1)
                               : wall_ghost(bc_r, s, 0.0f, 1.0f, bv_r, j, ny,
                                            tiny_h, h_anuga);
-    const Cell so = j > 0 ? load(q, C, c - nx)
+    const Cell so = j > 0 ? load_cell(q, C, c - nx)
                           : wall_ghost(bc_b, s, -1.0f, 0.0f, bv_b, i, nx,
                                        tiny_h, h_anuga);
-    const Cell no = j < ny - 1 ? load(q, C, c + nx)
+    const Cell no = j < ny - 1 ? load_cell(q, C, c + nx)
                                : wall_ghost(bc_t, s, 1.0f, 0.0f, bv_t, i, nx,
                                             tiny_h, h_anuga);
     // tracer masses of the cell and its neighbours, then concentrations
@@ -273,42 +229,9 @@ __global__ void __launch_bounds__(kThreads) swe_raster_step_kernel(
 
     // semi-implicit bed slope and Manning friction (_kernel :579-599)
     const float dt = *dt_ptr;
-    const float g = float(rdy::kGravity);
-    const float bedx = dzx[c] * g * s.h;
-    const float bedy = dzy[c] * g * s.h;
-    const bool wet = s.h >= tiny_h;
-    const float h_safe = wet ? s.h : 1.0f;
-    const float inv_h = 1.0f / h_safe;
-    const float uu = s.hu * inv_h;
-    const float vv = s.hv * inv_h;
-    const float n = mann[c];
-    const float cd = g * n * n * powf(h_safe, -1.0f / 3.0f);
-    const float speed = sqrtf(uu * uu + vv * vv);
-    const float tb = cd * speed * inv_h;
-    const float factor = tb / (1.0f + dt * tb);
-    const float tbx = wet ? (s.hu + dt * dhu - dt * bedx) * factor : 0.0f;
-    const float tby = wet ? (s.hv + dt * dhv - dt * bedy) * factor : 0.0f;
-    const float rh = dh + (src ? src[c] : 0.0f);
-    const float rhu = dhu - bedx - tbx;
-    const float rhv = dhv - bedy - tby;
-
-    if (rhs_mode) {
-      out[c] = rh;
-      out[C + c] = rhu;
-      out[2 * C + c] = rhv;
-    } else {
-      float o0 = beta * (s.h + dt * rh);
-      float o1 = beta * (s.hu + dt * rhu);
-      float o2 = beta * (s.hv + dt * rhv);
-      if (qA) {
-        o0 = alpha * qA[c] + o0;
-        o1 = alpha * qA[C + c] + o1;
-        o2 = alpha * qA[2 * C + c] + o2;
-      }
-      out[c] = o0;
-      out[C + c] = o1;
-      out[2 * C + c] = o2;
-    }
+    const rdy::FlowRhs fr =
+        rdy::flow_rhs(s, dh, dhu, dhv, dzx, dzy, mann, src, c, dt, tiny_h);
+    rdy::store_flow(out, qA, C, c, rhs_mode, alpha, beta, s, dt, fr);
     if (prim) {
       prim[c] = s.h;
       prim[C + c] = pc.u;
@@ -319,7 +242,8 @@ __global__ void __launch_bounds__(kThreads) swe_raster_step_kernel(
       // erosion minus deposition on the sediment classes under the strict
       // wet test, and the primitive row, the concentration under it
       const bool wet_t = s.h > tiny_h;
-      const float tau_b = 0.5f * sp.rhow * cd * (uu * uu + vv * vv);
+      const float tau_b =
+          0.5f * sp.rhow * fr.cd * (fr.uu * fr.uu + fr.vv * fr.vv);
       const float ero = sp.kp * (tau_b - sp.tau_ce) / sp.tau_ce;
 #pragma unroll
       for (int k = 0; k < NT; ++k) {
@@ -345,21 +269,7 @@ __global__ void __launch_bounds__(kThreads) swe_raster_step_kernel(
     }
   }
 
-  // block maximum of cm: warp shuffles, then one warp over the warp maxima
-  __shared__ float wmax[kThreads / 32];
-  for (int off = 16; off > 0; off >>= 1)
-    cm = nanmax(cm, __shfl_down_sync(0xffffffffu, cm, off));
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  if (lane == 0) wmax[warp] = cm;
-  __syncthreads();
-  if (warp == 0) {
-    const int nw = (blockDim.x * blockDim.y) >> 5;
-    cm = lane < nw ? wmax[lane] : 0.0f;
-    for (int off = 16; off > 0; off >>= 1)
-      cm = nanmax(cm, __shfl_down_sync(0xffffffffu, cm, off));
-    if (lane == 0) cmax[blockIdx.y * (int64_t)gridDim.x + blockIdx.x] = cm;
-  }
+  rdy::store_block_max(cm, cmax);
 }
 
 }  // namespace
@@ -381,10 +291,9 @@ extern "C" int rdy_swe_raster_step_f32(
     int nt, int upwind, int num_sediment, float kp, float ws, float tau_ce,
     float tau_cd, float rhow, void* out, void* prim, void* cmax, int bx,
     int by, void* stream) {
-  const int64_t gx = (nx + bx - 1) / bx, gy = (ny + by - 1) / by;
-  if (bx * by > kThreads || (bx * by) % 32 != 0 || nx < 1 || ny < 1 ||
-      gy > 65535 || gx > 2147483647)
+  if (!rdy::raster_launch_ok(nx, ny, bx, by))
     return (int)cudaErrorInvalidValue;
+  const int64_t gx = (nx + bx - 1) / bx, gy = (ny + by - 1) / by;
   const dim3 block(bx, by);
   const dim3 grid((unsigned)gx, (unsigned)gy);
   const rdy::SedimentParams<float> sp{kp, ws, tau_ce, tau_cd, rhow};

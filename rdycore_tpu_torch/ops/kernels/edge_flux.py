@@ -11,16 +11,24 @@ per tracer (Roe, or upwind-Roe with `upwind`), and every row, like amax,
 is kept where either side is wet (h > tiny_h), as the JAX package's
 coupled operator keeps it; the flow-only flux is zeroed where both sides
 are below tiny_h.
+
+Given the LS gradients `grad` [6, C] of K3a (`ops/kernels/muscl.py`), the
+launch runs in MUSCL mode (flow only): each interior edge solves Roe on
+the limited second-order face states (`ops/swe/muscl.py`), and the both-dry
+mask and amax see those reconstructed depths; boundary edges stay first
+order on the raw state. This replaces the TPU kernel `_muscl_flux_kernel`
+(slotted.py:3180) without its BS2002 correction.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ..swe.boundary import BC_DIRICHLET, ghost_states
+from ..swe.muscl import LIMITERS, reconstruct_interior_states
 from ..swe.riemann import regularized_velocity, roe_flux
 from ..tracer.flux import safe_div, tracer_roe_flux
 from . import build
@@ -30,7 +38,7 @@ _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 
 def _argtypes(real):
     return [_P, _I64, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _I64, _I64,
-            _P, real, real, _P, _P, _INT, _INT, _P]
+            _P, real, real, _P, _P, _INT, _INT, _P, _P, _P, _P, _P, _INT, _P]
 
 
 _FUNCTIONS = {
@@ -84,19 +92,21 @@ def boundary_flux_plain(a, q, bvals, tiny_h: float, h_anuga: float,
 
 
 def swe_edge_flux_plain(a, q, bvals, tiny_h: float, h_anuga: float,
-                        upwind: bool = False):
+                        upwind: bool = False, grad=None,
+                        limiter: str = "minmod"):
     """Plain version of the kernel (the JAX package's XLA gather twin,
     operator.py:387-467 and boundary_fluxes :1023, or with tracers
-    :721-777 and :796-845). Returns (flux [ndof, E + 1] with a zero column
-    E, courant [E])."""
+    :721-777 and :796-845; with `grad`, the MUSCL branch :388-391).
+    Returns (flux [ndof, E + 1] with a zero column E, courant [E])."""
     h, hu, hv = q[0], q[1], q[2]
-    hl, hr = h[a.int_left], h[a.int_right]
-    ul, vl = regularized_velocity(
-        hl, hu[a.int_left], hv[a.int_left], tiny_h, h_anuga
-    )
-    ur, vr = regularized_velocity(
-        hr, hu[a.int_right], hv[a.int_right], tiny_h, h_anuga
-    )
+    if grad is not None:
+        (hl, hul, hvl), (hr, hur, hvr) = reconstruct_interior_states(
+            a, q, grad, limiter)
+    else:
+        hl, hul, hvl = h[a.int_left], hu[a.int_left], hv[a.int_left]
+        hr, hur, hvr = h[a.int_right], hu[a.int_right], hv[a.int_right]
+    ul, vl = regularized_velocity(hl, hul, hvl, tiny_h, h_anuga)
+    ur, vr = regularized_velocity(hr, hur, hvr, tiny_h, h_anuga)
     if q.shape[0] == 3:
         fi, amax_i = _masked(
             *roe_flux(hl, ul, vl, hr, ur, vr, a.int_sn, a.int_cn),
@@ -118,15 +128,20 @@ def swe_edge_flux_plain(a, q, bvals, tiny_h: float, h_anuga: float,
 
 def swe_edge_flux(
     a, q: torch.Tensor, bvals: torch.Tensor, tiny_h: float, h_anuga: float,
-    upwind: bool = False,
+    upwind: bool = False, grad: Optional[torch.Tensor] = None,
+    limiter: str = "minmod",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flux [ndof, E + 1] (column E zero) and courant [E] = amax * coef of
     all edges of operator arrays `a` for the state q [ndof, C] (ndof = 3,
     or 3 + the tracers). bvals [ndof, >= Eb] holds the Dirichlet (h, hu,
     hv and tracer masses) of each boundary edge. upwind: upwind-Roe tracer
-    fluxes."""
+    fluxes. grad [6, C]: the LS gradients of q, for MUSCL faces limited by
+    `limiter` (minmod, van_leer or none; flow only)."""
+    if grad is not None and q.shape[0] != 3:
+        raise ValueError("swe_edge_flux: MUSCL faces are flow only")
     if q.device.type == "cpu":
-        return swe_edge_flux_plain(a, q, bvals, tiny_h, h_anuga, upwind)
+        return swe_edge_flux_plain(a, q, bvals, tiny_h, h_anuga, upwind,
+                                   grad, limiter)
     dev, dt = q.device, q.dtype
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"swe_edge_flux: unsupported dtype {dt}")
@@ -149,6 +164,14 @@ def swe_edge_flux(
     ck(bvals, "bvals", dt, (ndof, None), dev)
     if bvals.shape[1] < Eb:
         raise ValueError(f"bvals: {bvals.shape[1]} columns for {Eb} edges")
+    lim, offsets = 0, [None] * 4
+    if grad is not None:
+        lim = LIMITERS[limiter]
+        ck(grad, "grad", dt, (6, C), dev)
+        offsets = [a.int_dxl, a.int_dyl, a.int_dxr, a.int_dyr]
+        for name, t in zip(("int_dxl", "int_dyl", "int_dxr", "int_dyr"),
+                           offsets):
+            ck(t, name, dt, (Ei,), dev)
 
     flux = torch.empty((ndof, E + 1), dtype=dt, device=dev)
     courant = torch.empty((E,), dtype=dt, device=dev)
@@ -163,6 +186,8 @@ def swe_edge_flux(
             a.bnd_code.data_ptr(), bvals.data_ptr(), bvals.shape[1], Eb,
             a.edge_courant_coef.data_ptr(), tiny_h, h_anuga,
             flux.data_ptr(), courant.data_ptr(), ndof - 3, int(upwind),
+            None if grad is None else grad.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in offsets), lim,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check_status(status, "swe_edge_flux")

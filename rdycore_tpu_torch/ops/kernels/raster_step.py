@@ -135,20 +135,12 @@ def wall_ghost_hc(bc: int, h, hc, hg, tiny_h: float, dirichlet=None):
     return hg * torch.where(h > tiny_h, hc / hden, 0.0)
 
 
-def swe_raster_step_plain(
-    plan: StructuredPlan, q, dz_dx, dz_dy, mannings_n, dt, *, src=None,
-    bc_vals: Optional[Dict[str, torch.Tensor]] = None,
-    stage: Optional[Tuple[float, float, float]] = None, qA=None,
-    emit_prim: bool = False, num_sediment: int = 0, upwind: bool = False,
-) -> RasterStepOut:
-    """Plain version of the kernel: the ghost frame of `fill_ghost_frame`
-    around the raster, then the TPU kernel's faces, divergence, sources and
-    update (structured_step.py:269-656) on whole planes. q with more than 3
-    rows carries tracers (the kernel's nt mode)."""
+def ghost_frame(plan: StructuredPlan, q, bc_vals=None):
+    """q [ndof, ny*nx] in a [ndof, ny + 2, nx + 2] frame whose border holds
+    the wall ghosts of `fill_ghost_frame` (structured_step.py:60-169; the
+    corners stay zero)."""
     nx, ny, th, ta = plan.nx, plan.ny, plan.tiny_h, plan.h_anuga
     ndof = q.shape[0]
-    nt = ndof - 3
-    inv_dx, inv_dy = f32(1.0 / plan.dx), f32(1.0 / plan.dy)
     qn = q.reshape(ndof, ny, nx)
     h, hu, hv = qn[:3]
     bc_vals = bc_vals or {}
@@ -160,46 +152,36 @@ def swe_raster_step_plain(
                        bc_vals.get(side))
         for k in range(3):
             frame[k][ghosts] = g[k]
-        if nt:
+        if ndof > 3:
             frame[3:][(slice(None),) + ghosts] = wall_ghost_hc(
                 bc, h[cells], qn[3:][(slice(None),) + cells], g[0], th,
                 bc_vals.get(side))
-    H, HU, HV = frame[:3]
-    U, V = regularized_velocity(H, HU, HV, th, ta)
-    if nt:
-        hden = torch.where(torch.abs(H) > 0.0, H, 1.0)
-        CT = torch.where(H > th, frame[3:] / hden, 0.0)
+    return frame
 
-    def faces(lo, hi, sn, cn):
-        tr = dict(cil=CT[(slice(None),) + lo], cir=CT[(slice(None),) + hi],
-                  upwind=upwind) if nt else {}
-        fl = roe_flux(H[lo], U[lo], V[lo], H[hi], U[hi], V[hi], sn, cn,
-                      fast=True, **tr)
-        if nt:
-            m = ((H[lo] > th) | (H[hi] > th)).to(H.dtype)
-            rows = torch.cat([torch.stack(fl[:3]), fl[4]])
-        else:
-            m = (~((H[lo] < th) & (H[hi] < th))).to(H.dtype)
-            rows = torch.stack(fl[:3])
-        return rows * m, fl[3] * m
 
-    inner = slice(1, -1)
-    fx, ax = faces((inner, slice(0, -1)), (inner, slice(1, None)), 0.0, 1.0)
-    fy, ay = faces((slice(0, -1), inner), (slice(1, None), inner), 1.0, 0.0)
-    div = -((fx[:, :, 1:] - fx[:, :, :-1]) * inv_dx
-            + (fy[:, 1:] - fy[:, :-1]) * inv_dy)
-
-    # per-cell Courant coefficient, then its maximum over each block
-    cx, cy = ax * inv_dx, ay * inv_dy
-    cell = torch.maximum(torch.maximum(cx[:, :-1], cx[:, 1:]),
-                         torch.maximum(cy[:-1], cy[1:]))
+def block_max(cell, nx: int, ny: int):
+    """The maximum of cell [ny, nx] over each BLOCK of cells (row-major
+    by block), as the kernels write it."""
     bx, by = BLOCK
     gx, gy = -(-nx // bx), -(-ny // by)
     tiles = cell.new_zeros((gy * by, gx * bx))
     tiles[:ny, :nx] = cell
-    cmax = tiles.reshape(gy, by, gx, bx).amax(dim=(1, 3)).reshape(-1)
+    return tiles.reshape(gy, by, gx, bx).amax(dim=(1, 3)).reshape(-1)
 
-    # semi-implicit bed slope and Manning friction (_kernel :579-599)
+
+def cell_update(plan: StructuredPlan, q, div, dz_dx, dz_dy, mannings_n, dt,
+                src=None, stage=None, qA=None, emit_prim=False,
+                num_sediment=0):
+    """The cell phase of the TPU kernel on whole planes (_kernel
+    :579-656): the semi-implicit bed slope and Manning friction on the
+    raw state q [ndof, ny*nx], the rain plane, Hairsine-Rose on the
+    sediment classes, then the stage or rhs output and the primitives.
+    div [ndof, ny, nx] is the flux divergence."""
+    nx, ny, th = plan.nx, plan.ny, plan.tiny_h
+    ndof = q.shape[0]
+    nt = ndof - 3
+    qn = q.reshape(ndof, ny, nx)
+    h, hu, hv = qn[:3]
     g = torch.tensor(GRAVITY, dtype=q.dtype)
     bedx = dz_dx * g * h
     bedy = dz_dy * g * h
@@ -242,11 +224,85 @@ def swe_raster_step_plain(
             out = alpha * qA.reshape(ndof, ny, nx) + out
     prim = None
     if emit_prim:
-        prim_rows = [h, U[inner, inner], V[inner, inner]]
+        prim_rows = [h, *regularized_velocity(h, hu, hv, th, plan.h_anuga)]
         if nt:
             prim_rows += list(cc)
         prim = torch.stack(prim_rows).reshape(ndof, -1)
-    return RasterStepOut(out.reshape(ndof, -1), prim, cmax)
+    return out.reshape(ndof, -1), prim
+
+
+def swe_raster_step_plain(
+    plan: StructuredPlan, q, dz_dx, dz_dy, mannings_n, dt, *, src=None,
+    bc_vals: Optional[Dict[str, torch.Tensor]] = None,
+    stage: Optional[Tuple[float, float, float]] = None, qA=None,
+    emit_prim: bool = False, num_sediment: int = 0, upwind: bool = False,
+) -> RasterStepOut:
+    """Plain version of the kernel: the ghost frame of `fill_ghost_frame`
+    around the raster, then the TPU kernel's faces, divergence, sources and
+    update (structured_step.py:269-656) on whole planes. q with more than 3
+    rows carries tracers (the kernel's nt mode)."""
+    nx, ny, th, ta = plan.nx, plan.ny, plan.tiny_h, plan.h_anuga
+    nt = q.shape[0] - 3
+    inv_dx, inv_dy = f32(1.0 / plan.dx), f32(1.0 / plan.dy)
+    frame = ghost_frame(plan, q, bc_vals)
+    H, HU, HV = frame[:3]
+    U, V = regularized_velocity(H, HU, HV, th, ta)
+    if nt:
+        hden = torch.where(torch.abs(H) > 0.0, H, 1.0)
+        CT = torch.where(H > th, frame[3:] / hden, 0.0)
+
+    def faces(lo, hi, sn, cn):
+        tr = dict(cil=CT[(slice(None),) + lo], cir=CT[(slice(None),) + hi],
+                  upwind=upwind) if nt else {}
+        fl = roe_flux(H[lo], U[lo], V[lo], H[hi], U[hi], V[hi], sn, cn,
+                      fast=True, **tr)
+        if nt:
+            m = ((H[lo] > th) | (H[hi] > th)).to(H.dtype)
+            rows = torch.cat([torch.stack(fl[:3]), fl[4]])
+        else:
+            m = (~((H[lo] < th) & (H[hi] < th))).to(H.dtype)
+            rows = torch.stack(fl[:3])
+        return rows * m, fl[3] * m
+
+    inner = slice(1, -1)
+    fx, ax = faces((inner, slice(0, -1)), (inner, slice(1, None)), 0.0, 1.0)
+    fy, ay = faces((slice(0, -1), inner), (slice(1, None), inner), 1.0, 0.0)
+    div = -((fx[:, :, 1:] - fx[:, :, :-1]) * inv_dx
+            + (fy[:, 1:] - fy[:, :-1]) * inv_dy)
+
+    # per-cell Courant coefficient, then its maximum over each block
+    cx, cy = ax * inv_dx, ay * inv_dy
+    cell = torch.maximum(torch.maximum(cx[:, :-1], cx[:, 1:]),
+                         torch.maximum(cy[:-1], cy[1:]))
+    out, prim = cell_update(plan, q, div, dz_dx, dz_dy, mannings_n, dt,
+                            src=src, stage=stage, qA=qA, emit_prim=emit_prim,
+                            num_sediment=num_sediment)
+    return RasterStepOut(out, prim, block_max(cell, nx, ny))
+
+
+def wall_args(plan: StructuredPlan, bc_vals, ndof: int, dev, what: str):
+    """The four wall BC codes of `plan` (left, right, bottom, top) and the
+    Dirichlet walls' value planes [ndof, n] of `bc_vals` (None for the
+    other walls), checked as the raster kernels take them."""
+    bc_vals = bc_vals or {}
+    codes, walls = [], []
+    for side in _SIDES:
+        bc = getattr(plan, f"bc_{side}")
+        if bc not in (bc_mod.BC_DIRICHLET, bc_mod.BC_REFLECTING,
+                      bc_mod.BC_CRITICAL_OUTFLOW):
+            raise ValueError(f"{what}: {side} wall BC code {bc}")
+        wall = None
+        if bc == bc_mod.BC_DIRICHLET:
+            wall = bc_vals.get(side)
+            if wall is None:
+                raise ValueError(f"{what}: Dirichlet {side} wall without "
+                                 "bc_vals")
+            n = plan.ny if side in ("left", "right") else plan.nx
+            build.check(wall, f"bc_vals[{side!r}]", torch.float32,
+                        (ndof, n), dev)
+        codes.append(bc)
+        walls.append(wall)
+    return codes, walls
 
 
 def swe_raster_step(
@@ -291,23 +347,7 @@ def swe_raster_step(
         ck(src, "src", f, (ny, nx), dev)
     if qA is not None:
         ck(qA, "qA", f, (ndof, C), dev)
-    bc_vals = bc_vals or {}
-    codes, walls = [], []
-    for side in _SIDES:
-        bc = getattr(plan, f"bc_{side}")
-        if bc not in (bc_mod.BC_DIRICHLET, bc_mod.BC_REFLECTING,
-                      bc_mod.BC_CRITICAL_OUTFLOW):
-            raise ValueError(f"swe_raster_step: {side} wall BC code {bc}")
-        wall = None
-        if bc == bc_mod.BC_DIRICHLET:
-            wall = bc_vals.get(side)
-            if wall is None:
-                raise ValueError(f"swe_raster_step: Dirichlet {side} wall "
-                                 "without bc_vals")
-            ck(wall, f"bc_vals[{side!r}]", f,
-               (ndof, ny if side in ("left", "right") else nx), dev)
-        codes.append(bc)
-        walls.append(wall)
+    codes, walls = wall_args(plan, bc_vals, ndof, dev, "swe_raster_step")
     alpha, beta = _alpha_beta(stage) if stage is not None else (0.0, 0.0)
 
     out = torch.empty((ndof, C), dtype=f, device=dev)

@@ -4,7 +4,7 @@ The counterpart of rdycore_tpu/ops/structured.py (the XLA raster twin,
 backend `structured`) and of the single-device caller of the fused raster
 kernel, `make_fused_structured_stepper` (rdycore_tpu/ops/pallas/
 structured_step.py:659, backend `fused_structured`), for the flow equations
-at first order.
+at first order, with tracers, or (flow only) at second order.
 
 - `StructuredSWEOperator` is the `structured` backend in plain PyTorch: the
   JAX package computes it with array slicing outside any Pallas kernel. It
@@ -12,9 +12,14 @@ at first order.
   the interior on inflow) and source functions, and is the f64 reference of
   the tests.
 - `make_fused_structured_stepper` runs the kernel K2 `swe_raster_step`
-  (with tracer rows in its nt mode) once per stage (euler, ssprk2 and ssprk3 in stage mode, rk4 from rhs-mode
+  (with tracer rows in its nt mode), or at second order the launch pair
+  K2 MUSCL (`swe_raster_muscl_faces` + `swe_raster_muscl_update`), once
+  per stage (euler, ssprk2 and ssprk3 in stage mode, rk4 from rhs-mode
   calls), folds the Courant maxima with K1c, and takes the boundary-flux
-  accumulator from K1a on the operator's boundary edges alone. Like the TPU
+  accumulator from K1a on the operator's boundary edges alone. That
+  accumulator is first order and unscaled also at second order, as the
+  JAX package's raster stepper takes it from the unstructured
+  `boundary_fluxes` (ROADMAP fault 16). Like the TPU
   stepper it runs in float32 with the time kept in float32, and nothing is
   read back to the host until the interval ends.
 
@@ -36,7 +41,16 @@ from ..operator import OperatorArrays
 from ..timestepping import IntervalResult
 from .kernels.courant import courant_argmax
 from .kernels.edge_flux import swe_edge_flux
-from .kernels.raster_step import StructuredPlan, f32, swe_raster_step
+from .kernels.raster_muscl import (
+    swe_raster_muscl_faces,
+    swe_raster_muscl_update,
+)
+from .kernels.raster_step import (
+    RasterStepOut,
+    StructuredPlan,
+    f32,
+    swe_raster_step,
+)
 from .swe import boundary as bc_mod
 from .swe.riemann import regularized_velocity, roe_flux
 from .swe.sources import (
@@ -273,7 +287,8 @@ def boundary_edge_arrays(a: OperatorArrays) -> OperatorArrays:
 @dataclasses.dataclass(eq=False)
 class FusedStructuredOperator:
     """The kernels of the fused raster path on one raster: K2 for each step
-    or stage, K1c for the Courant fold and, given `bnd` (the boundary edges
+    or stage (K2 MUSCL with `second_order`, limited by `limiter`, flow
+    only), K1c for the Courant fold and, given `bnd` (the boundary edges
     from `boundary_edge_arrays`), K1a for the boundary fluxes. num_tracers
     rows follow (h, hu, hv) in the state, the first num_sediment of them
     sediment classes; riemann "upwind_roe" upwinds their fluxes."""
@@ -286,13 +301,27 @@ class FusedStructuredOperator:
     num_tracers: int = 0
     num_sediment: int = 0
     riemann: str = "roe"
+    second_order: bool = False
+    limiter: str = "minmod"
+
+    def __post_init__(self):
+        if self.second_order and self.num_tracers:
+            raise ValueError("fused raster MUSCL is flow-only")
 
     @property
     def ndof(self) -> int:
         return 3 + self.num_tracers
 
     def step(self, q, dt, src=None, bc_vals=None, **mode):
-        """K2 on q [ndof, ny*nx] (mode: stage=, qA=, emit_prim=)."""
+        """K2, or K2 MUSCL, on q [ndof, ny*nx] (mode: stage=, qA=,
+        emit_prim=)."""
+        if self.second_order:
+            fx, fy, cmax = swe_raster_muscl_faces(self.plan, q, bc_vals,
+                                                  self.limiter)
+            out, prim = swe_raster_muscl_update(
+                self.plan, q, fx, fy, self.dz_dx, self.dz_dy,
+                self.mannings_n, dt, src=src, **mode)
+            return RasterStepOut(out, prim, cmax)
         return swe_raster_step(self.plan, q, self.dz_dx, self.dz_dy,
                                self.mannings_n, dt, src=src, bc_vals=bc_vals,
                                num_sediment=self.num_sediment,

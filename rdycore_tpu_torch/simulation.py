@@ -1,9 +1,11 @@
 """The Simulation object: the RDy lifecycle on one device.
 
-The counterpart of rdycore_tpu/simulation.py for the first-order,
-single-device paths, flow only or with tracers (sediment with
-Hairsine-Rose sources, salinity, heat): unstructured, and the uniform
-raster (`edge_flux_backend: structured`, flow only, or `fused_structured`)
+The counterpart of rdycore_tpu/simulation.py for the single-device paths,
+first order, flow only or with tracers (sediment with Hairsine-Rose
+sources, salinity, heat), or second order (MUSCL with the positivity
+limiter, flow only): unstructured, and the uniform raster
+(`edge_flux_backend: structured`, first order and flow only, or
+`fused_structured`)
 (the reference's RDy object, src/rdycore.c, src/rdysetup.c,
 src/rdyadvance.c):
 
@@ -90,10 +92,10 @@ def path_of(config: Config) -> str:
 
 
 def check_slice(config: Config) -> None:
-    """Raise for any configured feature outside the ported paths: first
-    order, single device, unstructured or on the uniform raster
-    (edge_flux_backend structured or fused_structured). What depends on the
-    path is refused by `refuse_on_path`."""
+    """Raise for any configured feature outside the ported paths: single
+    device, unstructured or on the uniform raster (edge_flux_backend
+    structured or fused_structured). What depends on the path is refused
+    by `refuse_on_path`."""
     p, n = config.physics, config.numerics
     if p.flow.source.method == "ark_imex":
         _not_ported(f"source.method: {p.flow.source.method}",
@@ -131,12 +133,8 @@ _CONFIG_ERROR = None
 _PATH_REFUSALS = (
     ("tracers/sediment", lambda c: num_tracers(c) > 0,
      {"structured": _CONFIG_ERROR}),
-    ("second_order", lambda c: c.numerics.second_order, {
-        "unstructured": ("numerics.second_order (MUSCL)",
-                         "queue 1 item 10 and queue 2 K3"),
-        "fused_structured": ("numerics.second_order on the raster",
-                             "queue 2 K2 mode 4: MUSCL in the raster kernel"),
-        "structured": _CONFIG_ERROR}),
+    ("second_order", lambda c: c.numerics.second_order,
+     {"structured": _CONFIG_ERROR}),
     ("well_balancing",
      lambda c: c.physics.flow.well_balancing not in (None, "", "none"), {
          "unstructured": ("well_balancing", "queue 1 item 11 and queue 2 "
@@ -323,6 +321,8 @@ class Simulation:
             num_tracers=self.num_tracers,
             num_sediment=self.num_sediment,
             riemann=config.numerics.riemann,
+            second_order=config.numerics.second_order,
+            limiter=config.numerics.limiter,
             tiny_h=config.physics.flow.tiny_h,
             h_anuga=config.physics.flow.h_anuga_reg_parameter,
             source_method=_SOURCE_CODES[config.physics.flow.source.method],
@@ -629,8 +629,9 @@ class Simulation:
         'structured' = the zero-gather operator in plain PyTorch
         (ops/structured.py), flow only; 'fused_structured' = the raster step
         kernel K2 (ops/kernels/raster_step.py) through the fused stepper,
-        with tracers in K2's nt mode. Both require a row-major uniform quad
-        raster and first-order physics; anything the JAX package's raster
+        with tracers in K2's nt mode and second order in K2 MUSCL
+        (ops/kernels/raster_muscl.py). Both require a row-major uniform
+        quad raster; anything the JAX package's raster
         paths refuse is a ConfigError here too (`refuse_on_path`), and a
         fused_structured deck whose raster is not 128-wide aligned falls
         back to 'structured', with that path's refusals, as it does there.
@@ -734,7 +735,9 @@ class Simulation:
             op = FusedStructuredOperator(
                 plan, plane(dzx), plane(dzy), plane(mann), bnd,
                 num_tracers=self.num_tracers, num_sediment=self.num_sediment,
-                riemann=cfg.numerics.riemann)
+                riemann=cfg.numerics.riemann,
+                second_order=cfg.numerics.second_order,
+                limiter=cfg.numerics.limiter)
             # the rain plane goes to the kernel when the config declares
             # sources, or from the first interval a coupler sets one
             self._structured = dict(
@@ -745,7 +748,8 @@ class Simulation:
                                                   accumulate=accum),
             )
             self.log.info(
-                f"structured raster {nx}x{ny}: raster step kernel K2 "
+                f"structured raster {nx}x{ny}: raster step kernel "
+                f"{'K2 MUSCL' if cfg.numerics.second_order else 'K2'} "
                 f"({scheme}{', +src' if cfg.sources else ''}"
                 f"{f', {self.num_tracers} tracers' if self.num_tracers else ''}"
                 f"{'; its plain version on the CPU' if self.device.type == 'cpu' else ''})"

@@ -15,6 +15,13 @@ q_out = alpha*q^n + beta*(q_s + dt*F(q_s)) with (alpha, beta, gamma) from
 `_FUSED_STEP_STAGES`. rk4 goes through `SWEOperator.apply` (the cell
 kernel's rhs mode) and `_rk4_step`.
 
+A second-order operator keeps stage mode: its edge phase (`SWEOperator.
+fluxes`) puts the gradient kernel in front of the edge launch and the
+positivity kernels behind it. The JAX package runs such an operator
+through `_rk_step` and `apply` instead (its fused step takes first order
+only, timestepping.py:285-296); both give every stage's positivity limiter
+the step's full dt_i, rk4's half-steps included (timestepping.py:333-334).
+
 The state has ndof = 3 + num_tracers rows, and so do the boundary-flux
 accumulator and the stage kernels' outputs: unlike the JAX package, whose
 fused tier computes no tracer boundary fluxes and falls back to its
@@ -118,13 +125,13 @@ def make_interval_advancer(
         for _ in range(int(n_steps)):
             dt_i = torch.clamp(torch.minimum(dt, t_end - tt), min=0.0)
             if stages is not None:
-                flux, courant = op.edge_flux(qq, bnd_values)
+                flux, courant = op.fluxes(qq, bnd_values, dt_i)
                 op.courant_max(courant, dt_i, cmax, cedge)
                 out1 = op.cell_stage(flux, qq, dt_i, es, stage=stages[0],
                                      emit_prim=accumulate)
                 qs = out1.q_out
                 for coeffs in stages[1:]:
-                    flux_s, _ = op.edge_flux(qs, bnd_values)
+                    flux_s, _ = op.fluxes(qs, bnd_values, dt_i)
                     qs = op.cell_stage(flux_s, qs, dt_i, es, stage=coeffs,
                                        qA=qq).q_out
                 fb, prim = flux[:, Ei:E], out1.prim

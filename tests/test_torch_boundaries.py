@@ -108,7 +108,7 @@ def test_wrappers_take_plain_versions_on_cpu():
     m, i = kernels.courant_argmax(courant, dt, run_max, run_idx)
     assert (m, i) == courant_argmax_plain(courant)
     assert float(run_max) == float(m * dt) and int(run_idx) == int(i)
-    assert [k.launches for k in kernels.KERNELS] == [0, 0, 0, 0]
+    assert not any(k.launches for k in kernels.KERNELS)
 
 
 def test_courant_argmax_ties_go_to_lowest_index():
@@ -126,11 +126,14 @@ def test_stage_with_gamma_other_than_beta_is_refused():
 
 
 @pytest.mark.parametrize("numerics, physics", [
-    ({"edge_flux_backend": "fused_structured", "second_order": True}, {}),
+    # second order runs on both paths; with a feature still outside the
+    # port it raises for that feature
+    ({"edge_flux_backend": "fused_structured", "second_order": True,
+      "temporal": "beuler"}, {}),
     ({"edge_flux_backend": "fused_structured", "temporal": "beuler"},
      {"sediment": {"num_classes": 1}}),
     ({"edge_flux_backend": "fused_structured", "temporal": "beuler"}, {}),
-    ({"second_order": True}, {}),
+    ({"second_order": True}, {"flow": {"well_balancing": "bs2002"}}),
     ({"temporal": "ark_imex"}, {}),
     ({"temporal": "beuler"}, {}),
     ({"cell_ordering": "rcm"}, {}),

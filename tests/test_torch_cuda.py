@@ -14,7 +14,11 @@ the CPU run to 1e-5 after 20 ssprk3 steps, and the `structured` kind (plain
 PyTorch, f64) to 1e-12 after 10 rk4 steps. The tracer instances (three
 tracers, two of them sediment classes, Roe and upwind-Roe) of K1a, K1b
 and K2 are held to their plain versions the same way, and a sediment deck
-on the card to the CPU run on both paths.
+on the card to the CPU run on both paths. So are the second-order kernels
+(K3a, K1a in MUSCL mode and K3b on the unstructured mesh for each limiter,
+f32 and f64; K2 MUSCL's faces and update launches on the raster), and a
+second-order deck on the card to the CPU run on both paths (1e-10 in f64
+on the unstructured path, 1e-5 in f32 on the raster).
 """
 
 import numpy as np
@@ -29,6 +33,15 @@ from rdycore_tpu_torch.ops import kernels
 from rdycore_tpu_torch.ops.kernels.cell_stage import swe_cell_stage_plain
 from rdycore_tpu_torch.ops.kernels.courant import courant_argmax_plain
 from rdycore_tpu_torch.ops.kernels.edge_flux import swe_edge_flux_plain
+from rdycore_tpu_torch.ops.kernels.muscl import (
+    positivity_drain_plain,
+    positivity_scale_plain,
+)
+from rdycore_tpu_torch.ops.kernels.raster_muscl import (
+    raster_muscl_faces_plain,
+    raster_muscl_update_plain,
+)
+from rdycore_tpu_torch.ops.swe.muscl import ls_gradients
 from rdycore_tpu_torch.ops.kernels.raster_step import (
     StructuredPlan,
     swe_raster_step,
@@ -53,13 +66,13 @@ def rel(got, want):
         float(want.abs().max()), 1e-30)
 
 
-def setup(mesh_fn, dtype, dev, seed=0, nt=0, riemann="roe"):
+def setup(mesh_fn, dtype, dev, seed=0, nt=0, riemann="roe", **muscl):
     mesh = mesh_fn()
     rng = np.random.default_rng(seed)
     op = build_operator(mesh, bc_types={"left": 0, "right": 2, "top": 1},
                         mannings_n=rng.uniform(0.01, 0.05, mesh.num_cells),
                         num_tracers=nt, num_sediment=min(nt, 2),
-                        riemann=riemann, dtype=dtype, device=dev)
+                        riemann=riemann, dtype=dtype, device=dev, **muscl)
     C, Eb = op.num_cells, op.num_boundary_edges
     h = rng.uniform(0.05, 1.0, C)
     h = np.where(rng.uniform(size=C) < 0.3, 0.0, h)
@@ -73,6 +86,13 @@ def setup(mesh_fn, dtype, dev, seed=0, nt=0, riemann="roe"):
         return torch.as_tensor(x, dtype=dtype, device=dev)
 
     return op, t(q), t(bv), t(rng.normal(0, 1e-3, (3 + nt, C)))
+
+
+def launches():
+    """The launch count of each kernel, in the order of kernels.KERNELS:
+    K1a, K1b, K1c, K2, K3a, K3b drain, K3b scale, K2 MUSCL faces and
+    update."""
+    return [k.launches for k in kernels.KERNELS]
 
 
 MESHES = [lambda: structured_quad(48, 32, 0.0, 2.0, 0.0, 1.0),
@@ -103,7 +123,7 @@ def test_kernels_match_plain_versions(dev, mesh, dtype):
     m, i = op.courant_max(cp)
     mp, ip = courant_argmax_plain(cp)
     assert float(m) == float(mp) and int(i) == int(ip)
-    assert [k.launches for k in kernels.KERNELS] == [1, 6, 1, 0]
+    assert launches() == [1, 6, 1, 0, 0, 0, 0, 0, 0]
 
 
 @pytest.mark.parametrize("riemann", ["roe", "upwind_roe"])
@@ -132,7 +152,7 @@ def test_tracer_kernels_match_plain_versions(dev, mesh, dtype, riemann):
                 if w is not None:
                     assert g.shape == (6, op.num_cells)
                     assert rel(g, w) <= TOL[dtype]
-    assert [k.launches for k in kernels.KERNELS] == [1, 4, 0, 0]
+    assert launches() == [1, 4, 0, 0, 0, 0, 0, 0, 0]
 
 
 def test_simulation_on_the_card_matches_the_cpu(dev):
@@ -263,8 +283,9 @@ def test_tracer_simulation_on_the_card_matches_the_cpu(dev, backend):
                    torch.as_tensor(cpu.get_solution()[k])) <= 1e-5
         assert rel(torch.as_tensor(gpu.bflux_accum[k]),
                    torch.as_tensor(cpu.bflux_accum[k])) <= 1e-5
-    expected = ([20, 20, 20, 0] if backend == "xla" else [20, 0, 20, 20])
-    assert [k.launches for k in kernels.KERNELS] == expected
+    expected = ([20, 20, 20, 0, 0, 0, 0, 0, 0] if backend == "xla"
+                else [20, 0, 20, 20, 0, 0, 0, 0, 0])
+    assert launches() == expected
 
 
 def test_raster_simulation_on_the_card_matches_the_cpu(dev):
@@ -298,7 +319,7 @@ def test_raster_simulation_on_the_card_matches_the_cpu(dev):
                torch.as_tensor(cpu.get_solution())) <= 1e-5
     assert rel(torch.as_tensor(gpu.bflux_accum),
                torch.as_tensor(cpu.bflux_accum)) <= 1e-5
-    assert [k.launches for k in kernels.KERNELS] == [20, 0, 20, 60]
+    assert launches() == [20, 0, 20, 60, 0, 0, 0, 0, 0]
 
 
 def test_structured_kind_on_the_card_matches_the_cpu(dev):
@@ -327,3 +348,113 @@ def test_structured_kind_on_the_card_matches_the_cpu(dev):
     assert gpu.step == cpu.step == 10
     assert rel(torch.as_tensor(gpu.get_solution()),
                torch.as_tensor(cpu.get_solution())) <= 1e-12
+
+
+@pytest.mark.parametrize("limiter", ["minmod", "van_leer", "none"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mesh", [0, 1])
+def test_muscl_kernels_match_plain_versions(dev, mesh, dtype, limiter):
+    op, q, bv, _ = setup(MESHES[mesh], dtype, dev, second_order=True,
+                         limiter=limiter)
+    a = op.arrays
+    tol = TOL[dtype]
+    kernels.reset_launch_counts()
+    grad = op.muscl_grad(q)
+    gp = ls_gradients(a, q)
+    assert rel(grad, gp) <= tol
+    # each kernel on its plain predecessor's output: errors do not compound
+    flux, courant = op.edge_flux(q, bv, gp)
+    fp, cp = swe_edge_flux_plain(a, q, bv, op.tiny_h, op.h_anuga, grad=gp,
+                                 limiter=limiter)
+    assert rel(flux, fp) <= tol and rel(courant, cp) <= tol
+    dt = torch.tensor(0.002, dtype=dtype, device=dev)
+    s = kernels.swe_positivity_drain(a, fp, q[0], dt)
+    sp = positivity_drain_plain(a, fp, q[0], dt)
+    assert rel(s, sp) <= tol and bool((sp < 1.0).any())
+    scaled = kernels.swe_positivity_scale(a, fp.clone(), sp)
+    assert rel(scaled, positivity_scale_plain(a, fp.clone(), sp)) <= tol
+    # dt = 0: the factor divides by 1, never 0/0
+    s0 = kernels.swe_positivity_drain(a, fp, q[0], torch.zeros_like(dt))
+    assert bool(torch.isfinite(s0).all())
+    assert rel(s0, positivity_drain_plain(a, fp, q[0],
+                                          torch.zeros_like(dt))) <= tol
+    assert launches() == [1, 0, 0, 0, 1, 2, 1, 0, 0]
+
+
+@pytest.mark.parametrize("limiter", ["minmod", "van_leer", "none"])
+@pytest.mark.parametrize("rain", [False, True])
+def test_raster_muscl_matches_plain_version(dev, rain, limiter):
+    nx, ny = 100, 37  # ragged against the 32x8 blocks
+    rng = np.random.default_rng(3)
+    h = rng.uniform(0.05, 1.0, (ny, nx))
+    h = np.where(rng.uniform(size=h.shape) < 0.3, 0.0, h)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)
+
+    q = t(np.stack([h, h * rng.normal(0, 0.4, h.shape),
+                    h * rng.normal(0, 0.4, h.shape)]).reshape(3, -1))
+    geo = [t(rng.normal(0, 0.01, (ny, nx))), t(rng.normal(0, 0.01, (ny, nx))),
+           t(rng.uniform(0.01, 0.05, (ny, nx)))]
+    plan = StructuredPlan(nx, ny, 0.01, 0.02, 1e-7, 1e-3, 0, 2, 1, 2)
+    bc_vals = {"left": t([np.full(ny, 0.3), np.full(ny, 0.05), np.zeros(ny)])}
+    src = t(rng.uniform(0, 1e-2, (ny, nx))) if rain else None
+    dt = t(0.002)
+    qA = q.flip(1).contiguous()
+    kernels.reset_launch_counts()
+    got = kernels.swe_raster_muscl_faces(plan, q, bc_vals, limiter)
+    want = raster_muscl_faces_plain(plan, q, bc_vals, limiter)
+    for g, w in zip(got, want):
+        assert rel(g, w) <= TOL[torch.float32]
+    modes = [dict(emit_prim=True)] + [
+        dict(stage=s, qA=qA if i else None, emit_prim=True)
+        for i, s in enumerate(FUSED_STAGES["ssprk3"])
+    ]
+    for mode in modes:  # on the plain faces: errors do not compound
+        out = kernels.swe_raster_muscl_update(plan, q, *want[:2], *geo, dt,
+                                              src=src, **mode)
+        ref = raster_muscl_update_plain(plan, q, *want[:2], *geo, dt,
+                                        src=src, **mode)
+        for g, w in zip(out, ref):
+            assert rel(g, w) <= TOL[torch.float32]
+    assert launches() == [0, 0, 0, 0, 0, 0, 0, 1, len(modes)]
+
+
+@pytest.mark.parametrize("backend", ["xla", "fused_structured"])
+def test_muscl_simulation_on_the_card_matches_the_cpu(dev, backend):
+    raster = backend == "fused_structured"
+    cfg = {
+        "numerics": {"temporal": "ssprk2", "second_order": True,
+                     "limiter": "van_leer", "edge_flux_backend": backend,
+                     "precision": "single" if raster else "double"},
+        "time": {"stop": 0.02, "time_step": 0.001},
+        "logging": {"level": "none"},
+        "output": {"time_series": {"boundary_fluxes": 10}},
+        "regions": [{"name": "all", "grid_region_id": 1}],
+        "initial_conditions": [{"region": "all", "flow": "bump"}],
+        "boundaries": [{"name": "right", "grid_boundary_id": 2}],
+        "boundary_conditions": [{"boundaries": ["right"], "flow": "out"}],
+        "flow_conditions": [
+            {"name": "bump", "type": "dirichlet",
+             "height": "0.1 + 0.05*exp(-20*((x-1)^2+(y-0.25)^2))",
+             "x_momentum": 0, "y_momentum": 0},
+            {"name": "out", "type": "critical-outflow"}],
+    }
+    mesh = structured_quad(128, 32, 0.0, 2.0, 0.0, 0.5,
+                           region_fn=lambda cx, cy: np.ones_like(cx))
+    sims = [Simulation(config_from_dict(cfg).validate(), mesh=mesh, device=d)
+            for d in (dev, "cpu")]
+    kernels.reset_launch_counts()
+    for sim in sims:
+        sim.run()
+    gpu, cpu = sims
+    assert gpu.step == cpu.step == 20
+    tol = 1e-5 if raster else 1e-10
+    assert rel(torch.as_tensor(gpu.get_solution()),
+               torch.as_tensor(cpu.get_solution())) <= tol
+    assert rel(torch.as_tensor(gpu.bflux_accum),
+               torch.as_tensor(cpu.bflux_accum)) <= tol
+    # ssprk2: two stages a step, the Courant fold and (raster) the
+    # boundary fluxes once a step
+    assert launches() == ([20, 0, 20, 0, 0, 0, 0, 40, 40] if raster
+                          else [40, 40, 20, 0, 40, 40, 40, 0, 0])

@@ -132,7 +132,7 @@ def test_raster_step_modes_agree():
         assert torch.equal(got.cmax, rhs.cmax)
     plain = swe_raster_step_plain(*args, emit_prim=True, **kw)
     assert all(torch.equal(a, b) for a, b in zip(rhs, plain))
-    assert [k.launches for k in kernels.KERNELS] == [0, 0, 0, 0]
+    assert not any(k.launches for k in kernels.KERNELS)
     h = args[1][0]
     assert torch.equal(rhs.prim[0], h)
     assert torch.all(rhs.prim[1][h < 1e-7] == 0.0)

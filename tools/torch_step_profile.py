@@ -3,11 +3,14 @@
 
     python3 tools/torch_step_profile.py [--nx 2048] [--ny 1408] [--steps 200]
                                         [--scheme euler] [--f64] [--raster]
-                                        [--tracers]
+                                        [--tracers | --muscl]
 
 Runs the dam break of chip_smoke.py (f32, or f64 with --f64; boundary-flux
 accumulators on; with --tracers two sediment classes and salinity, the
-deck of its phase 5) through `Simulation` on the CUDA device, on its
+deck of its phase 5; with --muscl the second-order deck of its phase 6:
+MUSCL with minmod and the positivity limiter, a dry floodplain, ssprk2
+unless --scheme says otherwise, dt 0.00025 s) through `Simulation` on the
+CUDA device, on its
 unstructured path or, with --raster, on the raster path
 (`edge_flux_backend: fused_structured`, float32 whatever --f64 says): one
 warm-up interval, then
@@ -30,8 +33,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import (  # noqa: E402
-    DT, DX, dam_break_config, device_events, nvidia_smi_line,
-    tracer_dam_break_config,
+    DT, DT_MUSCL, DX, dam_break_config, device_events,
+    muscl_dam_break_config, nvidia_smi_line, tracer_dam_break_config,
 )
 
 
@@ -40,13 +43,19 @@ def main():
     ap.add_argument("--nx", type=int, default=2048)
     ap.add_argument("--ny", type=int, default=1408)
     ap.add_argument("--steps", type=int, default=200)
-    ap.add_argument("--scheme", default="euler")
+    ap.add_argument("--scheme", default=None,
+                    help="euler (ssprk2 with --muscl)")
     ap.add_argument("--f64", action="store_true", help="double precision")
     ap.add_argument("--raster", action="store_true",
                     help="edge_flux_backend: fused_structured")
-    ap.add_argument("--tracers", action="store_true",
-                    help="two sediment classes and salinity")
+    deck = ap.add_mutually_exclusive_group()
+    deck.add_argument("--tracers", action="store_true",
+                      help="two sediment classes and salinity")
+    deck.add_argument("--muscl", action="store_true",
+                      help="second order with the positivity limiter")
     args = ap.parse_args()
+    if args.scheme is None:
+        args.scheme = "ssprk2" if args.muscl else "euler"
     if not torch.cuda.is_available():
         print("torch_step_profile: no CUDA device", file=sys.stderr)
         return 1
@@ -61,13 +70,15 @@ def main():
         args.nx, args.ny, 0.0, lx, 0.0, ly,
         region_fn=lambda cx, cy: np.where(cx < lx / 2, 1, 2),
     )
-    config = tracer_dam_break_config if args.tracers else dam_break_config
+    config, dt = ((tracer_dam_break_config, DT) if args.tracers else
+                  (muscl_dam_break_config, DT_MUSCL) if args.muscl else
+                  (dam_break_config, DT))
     cfg = config(
         10 * args.steps, "fused_structured" if args.raster else "xla",
         args.scheme)
     if args.f64:
         cfg.numerics.precision = "double"
-    cfg.time.coupling_interval = args.steps * DT
+    cfg.time.coupling_interval = args.steps * dt
     sim = Simulation(cfg, mesh=mesh, device="cuda")
     sim.advance()  # warm-up interval: libraries load, allocator fills
     torch.cuda.synchronize()
@@ -90,6 +101,7 @@ def main():
     print(f"[{card}] {args.nx}x{args.ny} ({mesh.num_cells} cells) "
           f"{'raster ' if args.raster else ''}{args.scheme} "
           f"{'tracers (ndof 6) ' if args.tracers else ''}"
+          f"{'MUSCL minmod ' if args.muscl else ''}"
           f"{'f64' if args.f64 else 'f32'}: {steps} steps in {wall:.4f} s wall = "
           f"{1e3 * wall / steps:.4f} ms/step, "
           f"{steps * mesh.num_cells / wall:.4e} cell-updates/s")
