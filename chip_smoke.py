@@ -93,13 +93,37 @@ Phases, each printing as it goes; any failure exits non-zero:
    path's shapes (K3b drain and scale, and the raster update, also at 40
    times the step, where the limiter acts) and timed like the others.
 
+7. Well-balancing. At 256x176 (quad and triangle meshes over the bumpy
+   bed z = 0.035 (1 + sin 4 pi x sin 4 pi y), f32 and f64, every BC code;
+   phase 7a): K1a in HR mode (NT = 0 and 3, Roe and upwind-Roe), K1b in HR
+   mode (each ssprk3 stage and rhs mode, each source method, NT = 0 and
+   3), K5 swe_eta_vertex and K1a's BS2002 correction (first order and
+   each limiter, h_anuga = 1e-3), against their plain versions,
+   tolerances as in phase 2. Then, on a 1448x996 triangle mesh over the
+   dam break's 4 m x 2.75 m (2,884,416 cells) with its vertices on that
+   bed, the dam break set through `Simulation.set_height` (eta 0.25 m for
+   x < 2 m; beyond, 0.05 m for HR, whose bump tops stay dry, and 0.1 m
+   for BS2002, which diverges over dry bump tops in both packages, ROADMAP
+   fault 19), Manning 0.018, critical outflow on the right, dt 0.0002 s,
+   f32, three runs through `run_main_path`: HR euler, BS2002 euler, and
+   BS2002 with MUSCL minmod and the positivity limiter under ssprk2 (h >=
+   -1e-7). Each: 10 steps against the plain versions, exact launches
+   (K5 before every K1a under BS2002), h >= 0, the volume budget, the
+   kernels held against their plain versions and timed at the path's
+   shapes. Last, a lake at rest on the same mesh, all walls reflecting:
+   HR at eta 0.05 m (a fifth of the cells dry) must keep the momentum
+   rows of `apply` below 1e-4; BS2002 at eta 0.1 m keeps no lake at rest
+   (fault 19), so its rows and its max |hu|, |hv| after 100 steps are
+   printed beside those without well-balancing.
+
 Before the last line it prints the card's name and power limit and a JSON
 line {"kernels": [...]} with one row per kernel and path ("path":
 "unstructured", "raster", "unstructured+tracers", "raster+tracers" (these
-two with "nt": 3), "unstructured+muscl" or "raster+muscl"), each with that
-path's own launches, times and bound, and "timers" naming the timer of each
-time ("profiler", or "cuda events" where torch.profiler recorded no device
-time); the last line is
+two with "nt": 3), "unstructured+muscl", "raster+muscl",
+"unstructured+hr", "unstructured+bs2002" or "unstructured+bs2002+muscl"),
+each with that path's own launches, times and bound, and "timers" naming
+the timer of each time ("profiler", or "cuda events" where torch.profiler
+recorded no device time); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -157,6 +181,23 @@ OPS_PER_DRAIN_CELL = 16
 OPS_PER_SCALE_EDGE = 4
 OPS_PER_MUSCL_FACES_CELL = 400
 OPS_PER_MUSCL_UPDATE_CELL = 100
+# phase 7: well-balancing on a 1448x996 triangle mesh over a bumpy bed
+# (2,884,416 cells over the dam break's 4 m x 2.75 m), dt for a Courant
+# number of about 0.3-0.5
+WB_NX, WB_NY = 1448, 996
+DT_WB = 0.0002
+WB_INTERVAL_STEPS = 100  # steps per coupling interval
+H_WB_SUBMERGED = 0.1  # a floodplain level above every bump [m]
+# operations the well-balancing modes add, counted from the CUDA sources:
+# K1a HR per interior edge (two bed gathers, the higher bed, two
+# reconstructed depths, the inner mask); K1a BS2002 per edge (two eta
+# gathers, dhv, the correction of two rows); K1b HR per slot (the
+# neighbour, its reconstructed depth, the pressure term, two products);
+# K5 per (vertex, cell) pair (eta_cell with a cube or square root, the sum)
+OPS_PER_HR_EDGE = 8
+OPS_PER_BS_EDGE = 10
+OPS_PER_HR_SLOT = 14
+OPS_PER_ETA_PAIR = 30
 _CSRC = "rdycore_tpu_torch/ops/kernels/csrc/"
 SOURCES = {"swe_edge_flux": _CSRC + "swe_edge_flux.cu",
            "swe_cell_stage": _CSRC + "swe_cell_stage.cu",
@@ -166,7 +207,8 @@ SOURCES = {"swe_edge_flux": _CSRC + "swe_edge_flux.cu",
            "swe_positivity_drain": _CSRC + "swe_positivity.cu",
            "swe_positivity_scale": _CSRC + "swe_positivity.cu",
            "swe_raster_muscl_faces": _CSRC + "swe_raster_muscl.cu",
-           "swe_raster_muscl_update": _CSRC + "swe_raster_muscl.cu"}
+           "swe_raster_muscl_update": _CSRC + "swe_raster_muscl.cu",
+           "swe_eta_vertex": _CSRC + "swe_eta_vertex.cu"}
 _SLOTTED = "rdycore_tpu/ops/pallas/slotted.py"
 REPLACES = {"swe_edge_flux": _SLOTTED + ":2463",
             "swe_cell_stage": _SLOTTED + ":2463",
@@ -178,7 +220,8 @@ REPLACES = {"swe_edge_flux": _SLOTTED + ":2463",
             "swe_raster_muscl_faces":
                 "rdycore_tpu/ops/pallas/structured_step.py:341",
             "swe_raster_muscl_update":
-                "rdycore_tpu/ops/pallas/structured_step.py:341"}
+                "rdycore_tpu/ops/pallas/structured_step.py:341",
+            "swe_eta_vertex": "rdycore_tpu/ops/pallas/routed.py:264"}
 
 
 def log(*args):
@@ -240,15 +283,18 @@ def device_events(prof):
 def device_time(fn, reps=20):
     """(mean device milliseconds per call of fn(), the timer that gave
     them): the device time of every kernel and copy it launches, from
-    torch.profiler ("profiler"). Where the profiler records no device time
-    (it has missed a whole session on that card, once in four runs), a
-    second session is tried, then the time between CUDA events ("cuda
-    events"), which counts the host's launch time where that is longer."""
+    torch.profiler ("profiler"), the larger of two sessions: a session on
+    that card has missed a whole run's events (once in four runs) and,
+    more often, part of them (a time below the kernel's bytes bound).
+    Where neither session records device time, the time between CUDA
+    events ("cuda events"), which counts the host's launch time where
+    that is longer."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    totals = []
     for _ in range(2):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(reps):
@@ -256,7 +302,9 @@ def device_time(fn, reps=20):
             torch.cuda.synchronize()
         events = device_events(prof)
         if events:
-            return sum(e[0] for e in events) / 1e3 / reps, "profiler"
+            totals.append(sum(e[0] for e in events) / 1e3 / reps)
+    if totals:
+        return max(totals), "profiler"
     log("  torch.profiler recorded no device time twice: timing between "
         "CUDA events instead")
     return cuda_ms(fn, reps), "cuda events"
@@ -311,7 +359,9 @@ def ptxas_summary(report):
             k = re.search(r"\d+([a-z_]+_kernel|argmax_partial|argmax_final)"
                           r"(I\w+?EE|E)", entry)
             counts = re.findall(r"Li(\d+)E", entry)
-            lims = counts[1:] if "edge_flux" in entry else []
+            lims, wb = [], []
+            if "edge_flux" in entry:
+                counts, lims, wb = counts[:1], counts[1:2], counts[2:3]
             if "raster_muscl" in entry:
                 counts, lims = [], counts
             if k and (not counts or int(counts[0]) in (0, NT)):
@@ -319,7 +369,10 @@ def ptxas_summary(report):
                 what = ["f64" if args.startswith("Id") else "f32"]
                 what += [f"nt {c}" for c in counts[:1]]
                 what += [f"limiter {c}" for c in lims if c != "0"]
-                what += ["upwind"] if "Lb1" in args else []
+                what += [{"1": "hr", "2": "bs2002"}[c] for c in wb
+                         if c != "0"]
+                if "Lb1" in args:
+                    what += ["hr" if "cell_stage" in entry else "upwind"]
                 spills = re.findall(r"(\d+) bytes spill", spill)
                 out.append(f"{k.group(1)}<{', '.join(what)}>: {m.group(1)} "
                            f"regs, {sum(map(int, spills))} B spilled")
@@ -548,6 +601,7 @@ def plain_operator(op):
     from rdycore_tpu_torch.ops.kernels.edge_flux import swe_edge_flux_plain
     from rdycore_tpu_torch.ops.kernels.muscl import (
         positivity_drain_plain, positivity_scale_plain)
+    from rdycore_tpu_torch.ops.swe.bs2002 import eta_vertices
     from rdycore_tpu_torch.ops.swe.muscl import ls_gradients
 
     class PlainSWEOperator(SWEOperator):
@@ -556,11 +610,15 @@ def plain_operator(op):
         def muscl_grad(self, q):
             return ls_gradients(self.arrays, q)
 
-        def edge_flux(self, q, bv, grad=None):
+        def eta_vertices(self, h):
+            return eta_vertices(self.arrays.bs2002, h, self.tiny_h)
+
+        def edge_flux(self, q, bv, grad=None, eta_v=None):
             return swe_edge_flux_plain(self.arrays, q, bv, self.tiny_h,
                                        self.h_anuga,
                                        self.riemann == "upwind_roe", grad,
-                                       self.limiter)
+                                       self.limiter, self.well_balancing_hr,
+                                       self.arrays.bs2002, eta_v)
 
         def limit_positivity(self, flux, h, dt):
             s = positivity_drain_plain(self.arrays, flux, h, dt)
@@ -575,7 +633,8 @@ def plain_operator(op):
                 self.arrays, flux, q, dt, ext_src, tiny_h=self.tiny_h,
                 h_anuga=self.h_anuga, xq2018_threshold=self.xq2018_threshold,
                 source_method=self.source_method,
-                num_sediment=self.num_sediment, **mode)
+                num_sediment=self.num_sediment,
+                hr=self.well_balancing_hr, **mode)
 
     return PlainSWEOperator(**{f.name: getattr(op, f.name)
                                for f in dataclasses.fields(op)})
@@ -668,12 +727,12 @@ def check_launches(path, launches, expected):
         raise SystemExit(f"{path}: launches {launches}, expected {expected}")
 
 
-def check_state_and_budget(sim, q0, area):
-    """h finite and >= 0, and the volume lost (from the initial state q0)
-    equal to the outflow through the accumulated boundary fluxes, to 1e-4
-    of the initial volume."""
+def check_state_and_budget(sim, q0, area, min_h=0.0):
+    """h finite and >= min_h, and the volume lost (from the initial state
+    q0) equal to the outflow through the accumulated boundary fluxes, to
+    1e-4 of the initial volume."""
     h = sim.get_height()
-    if not (np.all(np.isfinite(sim.get_solution())) and h.min() >= 0.0):
+    if not (np.all(np.isfinite(sim.get_solution())) and h.min() >= min_h):
         raise SystemExit(f"bad state: finite={np.isfinite(h).all()}, "
                          f"min h {h.min()}")
     v0 = float(np.sum(q0[0] * area))
@@ -1763,6 +1822,442 @@ def phase_muscl(steps, errs, dev, mesh):
     return rows
 
 
+# ------------------------------------------------------------------ phase 7
+def wb_bed(x, y):
+    """The bumpy bed of phase 7 at the vertices: 0 to 0.07 m, bumps 0.25 m
+    across."""
+    return 0.035 * (1.0 + np.sin(4 * np.pi * x) * np.sin(4 * np.pi * y))
+
+
+def eta_pairs(bs):
+    """The (vertex, cell) pairs K5 gathers: the non-padding entries of
+    vertex_cells."""
+    return int((bs.vertex_cells < bs.z1.shape[0]).sum())
+
+
+def wb_bytes(op, q_bytes, s):
+    """Bytes the well-balanced kernels must move at the operator's shapes
+    (each input read once, each output written once): K1a's plus the cell
+    beds (HR) or the endpoint ids and beds and the vertex eta (BS2002);
+    K1b's in stage mode less the bed slopes plus the interior edges' ids
+    and normals, the boundary normals and the cell beds (HR); K5's ids,
+    counts, sorted beds, depths and output."""
+    C, Ei, Eb = op.num_cells, op.num_internal_edges, op.num_boundary_edges
+    E = Ei + Eb
+    base = kernel_bytes(op, q_bytes, s)
+    out = dict(base)
+    if op.well_balancing_hr:
+        out["swe_edge_flux"] = base["swe_edge_flux"] + C * s
+        out["swe_cell_stage"] = (base["swe_cell_stage"] - 2 * C * s
+                                 + Ei * (8 + 2 * s) + Eb * 2 * s + C * s)
+    if op.well_balancing_bs2002:
+        NV, K = op.arrays.bs2002.vertex_cells.shape
+        extra = E * (8 + 2 * s) + NV * s
+        out["swe_edge_flux"] = base["swe_edge_flux"] + extra
+        out["swe_eta_vertex"] = NV * K * 4 + 2 * NV * s + 4 * C * s
+        if op.second_order:
+            m = muscl_bytes(op, q_bytes, s)
+            out.update({k: m[k] for k in m})
+            out["swe_edge_flux"] = m["swe_edge_flux"] + extra
+    return out
+
+
+def wb_ops(op, eta_pairs_n=0):
+    """Operations of the well-balanced kernels, counted from the CUDA
+    sources (see OPS_PER_*)."""
+    C, Ei, E = op.num_cells, op.num_internal_edges, op.num_edges
+    K = op.arrays.cell_edges.shape[1]
+    out = {"swe_edge_flux": OPS_PER_EDGE * E,
+           "swe_cell_stage": OPS_PER_CELL * C,
+           "courant_argmax": OPS_PER_VALUE * E}
+    if op.well_balancing_hr:
+        out["swe_edge_flux"] += OPS_PER_HR_EDGE * Ei
+        out["swe_cell_stage"] += OPS_PER_HR_SLOT * K * C
+    if op.well_balancing_bs2002:
+        out["swe_eta_vertex"] = OPS_PER_ETA_PAIR * eta_pairs_n
+        out["swe_edge_flux"] += OPS_PER_BS_EDGE * E
+        if op.second_order:
+            out["swe_edge_flux"] += (OPS_PER_MUSCL_EDGE - OPS_PER_EDGE) * Ei
+            out["swe_muscl_grad"] = OPS_PER_GRAD_CELL * C
+            out["swe_positivity_drain"] = OPS_PER_DRAIN_CELL * C
+            out["swe_positivity_scale"] = OPS_PER_SCALE_EDGE * E
+    return out
+
+
+def phase_wb_kernels(seed, errs, dev):
+    """K1a in HR mode (NT = 0 and 3, Roe and upwind-Roe), K1a's BS2002
+    correction (first order and each limiter), K1b in HR mode (each ssprk3
+    stage and rhs mode, each source method; NT = 0 and 3) and K5 on quad and
+    triangle meshes over the bumpy bed of phase 7, in f32 and f64 with
+    every BC code, against their plain versions at 256x176. The BS2002
+    checks take h_anuga = 1e-3, for the MUSCL faces' sake (phase 6a)."""
+    from rdycore_tpu_torch.mesh import structured_quad, structured_tri
+    from rdycore_tpu_torch.operator import build_operator
+    from rdycore_tpu_torch.ops.kernels.cell_stage import (
+        swe_cell_stage, swe_cell_stage_plain)
+    from rdycore_tpu_torch.ops.kernels.edge_flux import (
+        swe_edge_flux, swe_edge_flux_plain)
+    from rdycore_tpu_torch.ops.kernels.eta_vertex import swe_eta_vertex
+    from rdycore_tpu_torch.ops.swe.bs2002 import eta_vertices
+    from rdycore_tpu_torch.ops.swe.muscl import ls_gradients
+    from rdycore_tpu_torch.timestepping import _FUSED_STEP_STAGES
+
+    log("== phase 7a: the well-balancing kernels against their plain "
+        "versions")
+    rng = np.random.default_rng(seed + 7)
+    meshes = {
+        "quad 256x176": structured_quad(256, 176, 0.0, 0.512, 0.0, 0.352,
+                                        z_fn=wb_bed),
+        "tri 128x88": structured_tri(128, 88, 0.0, 0.512, 0.0, 0.352,
+                                     z_fn=wb_bed),
+    }
+    bc = {"left": 0, "right": 2, "top": 1, "bottom": 0}  # all three codes
+    failures = []
+
+    def check(kernel, what, got, want, dtype, key):
+        r, a = rel_err(got, want), abs_err(got, want)
+        errs[key] = max(errs.get(key, 0.0), a)
+        ok = r <= TOL[dtype] and got.shape == want.shape
+        log(f"  {kernel:15s} {what:52s} rel {r:.3e} abs {a:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{kernel} {what}")
+
+    for mname, mesh in meshes.items():
+        for dtype in (torch.float32, torch.float64):
+            tag = f"{mname} {str(dtype)[6:]}"
+            n = rng.uniform(0.01, 0.05, mesh.num_cells)
+            for nt, riemann in ((0, "roe"), (NT, "roe"), (NT, "upwind_roe")):
+                op = build_operator(mesh, bc_types=bc, mannings_n=n,
+                                    num_tracers=nt,
+                                    num_sediment=min(nt, NUM_SEDIMENT),
+                                    riemann=riemann, well_balancing_hr=True,
+                                    dtype=dtype, device=dev)
+                a = op.arrays
+                q, bv, ext = random_state(op, rng, dtype, dev)
+                if nt:
+                    q, bv, ext = tracer_rows(q, bv, ext, rng)
+                up = riemann == "upwind_roe"
+                t = f"{tag} nt {nt} {riemann}"
+                fk, ck = swe_edge_flux(a, q, bv, op.tiny_h, op.h_anuga, up,
+                                       hr=True)
+                fp, cp = swe_edge_flux_plain(a, q, bv, op.tiny_h, op.h_anuga,
+                                             up, hr=True)
+                check("swe_edge_flux", f"{t} hr flux", fk, fp, dtype,
+                      "swe_edge_flux hr")
+                check("swe_edge_flux", f"{t} hr courant", ck, cp, dtype,
+                      "swe_edge_flux hr")
+                if up:
+                    continue
+                dt = torch.tensor(0.002, dtype=dtype, device=dev)
+                qA = random_state(op, rng, dtype, dev)[0]
+                if nt:
+                    qA = tracer_rows(qA, bv, ext, rng)[0]
+                for method in ((0, 1, 2) if nt == 0 else (0, 2)):
+                    kw = dict(tiny_h=op.tiny_h, h_anuga=op.h_anuga,
+                              xq2018_threshold=op.xq2018_threshold,
+                              source_method=method,
+                              num_sediment=op.num_sediment, hr=True)
+                    modes = [("rhs", dict(emit_prim=True))] + [
+                        (f"stage {i + 1}", dict(stage=s, qA=qA if i else None,
+                                                emit_prim=True))
+                        for i, s in enumerate(_FUSED_STEP_STAGES["ssprk3"])]
+                    for mode, extra in modes:
+                        g = swe_cell_stage(a, fp, q, dt, ext, **kw, **extra)
+                        w = swe_cell_stage_plain(a, fp, q, dt, ext, **kw,
+                                                 **extra)
+                        for field in ("q_out", "flux_div", "rhs", "prim"):
+                            if getattr(w, field) is not None:
+                                check("swe_cell_stage",
+                                      f"{t} hr src{method} {mode} {field}",
+                                      getattr(g, field), getattr(w, field),
+                                      dtype, "swe_cell_stage hr")
+            op = build_operator(mesh, bc_types=bc, mannings_n=n,
+                                h_anuga=1e-3, second_order=True,
+                                well_balancing_bs2002=True, dtype=dtype,
+                                device=dev)
+            a = op.arrays
+            q, bv, _ = random_state(op, rng, dtype, dev)
+            ev = eta_vertices(a.bs2002, q[0], op.tiny_h)
+            check("swe_eta_vertex", f"{tag} eta_v",
+                  swe_eta_vertex(a.bs2002, q[0], op.tiny_h), ev, dtype,
+                  "swe_eta_vertex")
+            gp = ls_gradients(a, q)
+            for lim in (None,) + LIMITERS:
+                grad = None if lim is None else gp
+                kw = dict(grad=grad, limiter=lim or "minmod", bs=a.bs2002,
+                          eta_v=ev)
+                fk, ck = swe_edge_flux(a, q, bv, op.tiny_h, op.h_anuga, **kw)
+                fp, cp = swe_edge_flux_plain(a, q, bv, op.tiny_h, op.h_anuga,
+                                             **kw)
+                key = "swe_edge_flux bs2002" + (" muscl" if lim else "")
+                mode = f"muscl {lim}" if lim else "first order"
+                check("swe_edge_flux", f"{tag} bs2002 {mode} flux", fk, fp,
+                      dtype, key)
+                check("swe_edge_flux", f"{tag} bs2002 {mode} courant", ck,
+                      cp, dtype, key)
+    torch.cuda.synchronize()
+    if failures:
+        raise SystemExit(f"well-balancing kernel checks failed: {failures}")
+
+
+def wb_mesh():
+    """The triangle mesh of phase 7 over the dam break's 4 m x 2.75 m, its
+    vertices on the bumpy bed, one region of every cell."""
+    from rdycore_tpu_torch.mesh import structured_tri
+
+    t0 = time.perf_counter()
+    mesh = structured_tri(WB_NX, WB_NY, 0.0, 2048 * DX, 0.0, 1408 * DX,
+                          z_fn=wb_bed)
+    mesh.regions["__id_1"] = np.arange(mesh.num_cells, dtype=np.int32)
+    log(f"== mesh: structured_tri({WB_NX}, {WB_NY}) over a bumpy bed of "
+        f"{mesh.cell_z.min():.4f}-{mesh.cell_z.max():.4f} m (cell beds), "
+        f"{mesh.num_cells} cells, {mesh.num_edges} edges, "
+        f"{mesh.num_vertices} vertices in {time.perf_counter() - t0:.2f} s")
+    return mesh
+
+
+def wb_config(steps, wb, dt, scheme="euler", second_order=False,
+              outflow=True):
+    """The phase-7 deck: one region, still water set by `wb_simulation`,
+    Manning 0.018, critical outflow on the right (or reflecting walls
+    only), reflecting walls elsewhere, boundary-flux accumulators on,
+    f32."""
+    from rdycore_tpu_torch.config.yaml_input import config_from_dict
+
+    d = dam_break_dict(steps, "xla", scheme)
+    d["physics"]["flow"]["well_balancing"] = wb
+    d["numerics"].update(second_order=second_order, limiter="minmod")
+    d["time"].update(time_step=dt, stop=steps * dt,
+                     coupling_interval=WB_INTERVAL_STEPS * dt)
+    d["regions"] = [{"name": "domain", "grid_region_id": 1}]
+    d["surface_composition"] = [{"region": "domain", "material": "smooth"}]
+    d["initial_conditions"] = [{"region": "domain", "flow": "still"}]
+    d["flow_conditions"] = [
+        {"name": "still", "type": "dirichlet", "height": 0.0,
+         "x_momentum": 0, "y_momentum": 0},
+        {"name": "outflow", "type": "critical-outflow"}]
+    if not outflow:
+        d["boundaries"], d["boundary_conditions"] = [], []
+    return config_from_dict(d).validate()
+
+
+def wb_simulation(steps, dev, mesh, eta, plain=False, **deck):
+    """A phase-7 deck whose depths are set, as a coupler sets them, to
+    max(eta(x) - cell_z, 0); its kernels replaced by their plain versions
+    when `plain`."""
+    from rdycore_tpu_torch import Simulation
+
+    sim = Simulation(wb_config(steps, **deck), mesh=mesh, device=dev)
+    sim.set_height(np.maximum(eta(mesh.cell_centroid[:, 0]) - mesh.cell_z,
+                              0.0))
+    if plain:
+        sim.operator = plain_operator(sim.operator)
+    return sim
+
+
+def dam_eta(floodplain):
+    """The dam break's free surface as a function of x: 0.25 m for x < 2 m,
+    `floodplain` beyond."""
+    return lambda x: np.where(x < 1024 * DX, H_RESERVOIR, floodplain)
+
+
+def phase_wb(steps, errs, dev, mesh):
+    """The well-balanced main paths at full size (`run_main_path`): HR
+    euler, BS2002 euler, and BS2002 with MUSCL and the positivity limiter
+    under ssprk2; each kernel of the path held against its plain version
+    and timed at the path's shapes; then a lake at rest on the same
+    mesh."""
+    from rdycore_tpu_torch.ops.kernels import muscl as mk
+    from rdycore_tpu_torch.ops.kernels.cell_stage import swe_cell_stage_plain
+    from rdycore_tpu_torch.ops.kernels.courant import courant_argmax_plain
+    from rdycore_tpu_torch.ops.kernels.edge_flux import swe_edge_flux_plain
+    from rdycore_tpu_torch.ops.swe.bs2002 import eta_vertices
+    from rdycore_tpu_torch.ops.swe.muscl import ls_gradients
+
+    card = nvidia_smi_line()
+    area = mesh.cell_area
+    rows = []
+    # HR floods a floodplain whose bump tops are dry; BS2002 one whose bumps
+    # are submerged: over dry bump tops BS2002 diverges in both packages
+    # (ROADMAP fault 19)
+    runs = (
+        ("unstructured+hr", dict(wb="hydrostatic_reconstruction", dt=DT_WB),
+         H_FLOODPLAIN,
+         {"swe_edge_flux": 1, "swe_cell_stage": 1, "courant_argmax": 1}),
+        ("unstructured+bs2002", dict(wb="bs2002", dt=DT_WB), H_WB_SUBMERGED,
+         {"swe_eta_vertex": 1, "swe_edge_flux": 1, "swe_cell_stage": 1,
+          "courant_argmax": 1}),
+        ("unstructured+bs2002+muscl",
+         dict(wb="bs2002", dt=DT_WB, scheme="ssprk2", second_order=True),
+         H_WB_SUBMERGED,
+         dict({k: 2 for k in ("swe_eta_vertex", "swe_muscl_grad",
+                              "swe_edge_flux", "swe_positivity_drain",
+                              "swe_positivity_scale", "swe_cell_stage")},
+              courant_argmax=1)),
+    )
+    for path, deck, floodplain, per_step in runs:
+        muscl = deck.get("second_order", False)
+        log(f"== phase 7: {path} main path, the dam break over a bumpy bed "
+            f"({deck['wb']}, {deck.get('scheme', 'euler')}, dt "
+            f"{deck['dt']} s, floodplain eta {floodplain} m), "
+            f"{mesh.num_cells:,} cells, f32")
+
+        def check(sim, q0, muscl=muscl):
+            check_state_and_budget(sim, q0, area, -1e-7 if muscl else 0.0)
+
+        sim, launches = run_main_path(
+            path, lambda n, plain=False: wb_simulation(
+                n, dev, mesh, dam_eta(floodplain), plain, **deck),
+            steps, per_step, check)
+
+        # each kernel of the path at its shapes: held against its plain
+        # version on the final state, then timed
+        op, q, bv = sim.operator, sim.q, sim.boundary_values
+        a, s = op.arrays, q.element_size()
+        dt = torch.tensor(deck["dt"], dtype=q.dtype, device=dev)
+        run = (torch.zeros((), dtype=q.dtype, device=dev),
+               torch.zeros((), dtype=torch.int32, device=dev))
+        stage = dict(stage=(0.0, 1.0, 1.0), emit_prim=True)
+        kw = dict(tiny_h=op.tiny_h, h_anuga=op.h_anuga,
+                  xq2018_threshold=op.xq2018_threshold,
+                  source_method=op.source_method, hr=op.well_balancing_hr)
+        wb_kw = dict(hr=op.well_balancing_hr, bs=a.bs2002)
+        pairs, calls = {}, {}
+        eta_v = grad = None
+        if op.well_balancing_bs2002:
+            eta_v = op.eta_vertices(q[0])
+            ev = eta_vertices(a.bs2002, q[0], op.tiny_h)
+            pairs["swe_eta_vertex"] = [(eta_v, ev)]
+            calls["swe_eta_vertex"] = (
+                lambda: op.eta_vertices(q[0]),
+                lambda: eta_vertices(a.bs2002, q[0], op.tiny_h), None)
+            wb_kw["eta_v"] = ev
+        if muscl:
+            grad = op.muscl_grad(q)
+            gp = ls_gradients(a, q)
+            pairs["swe_muscl_grad"] = [(grad, gp)]
+            calls["swe_muscl_grad"] = (lambda: op.muscl_grad(q),
+                                       lambda: ls_gradients(a, q), None)
+            wb_kw.update(grad=gp, limiter=op.limiter)
+        flux, courant = op.edge_flux(q, bv, wb_kw.get("grad"),
+                                     wb_kw.get("eta_v"))
+        fp, cp = swe_edge_flux_plain(a, q, bv, op.tiny_h, op.h_anuga,
+                                     **wb_kw)
+        pairs["swe_edge_flux"] = [(flux, fp), (courant, cp)]
+        calls["swe_edge_flux"] = (
+            lambda: op.edge_flux(q, bv, grad, eta_v),
+            lambda: swe_edge_flux_plain(a, q, bv, op.tiny_h, op.h_anuga,
+                                        **dict(wb_kw, eta_v=eta_v,
+                                               grad=grad)),
+            None)
+        if muscl:
+            sk = mk.swe_positivity_drain(a, fp, q[0], dt)
+            sp = mk.positivity_drain_plain(a, fp, q[0], dt)
+            pairs["swe_positivity_drain"] = [(sk, sp)]
+            pairs["swe_positivity_scale"] = [(
+                mk.swe_positivity_scale(a, fp.clone(), sp),
+                mk.positivity_scale_plain(a, fp.clone(), sp))]
+            calls["swe_positivity_drain"] = (
+                lambda: mk.swe_positivity_drain(a, flux, q[0], dt),
+                lambda: mk.positivity_drain_plain(a, flux, q[0], dt), None)
+            calls["swe_positivity_scale"] = (
+                lambda: mk.swe_positivity_scale(a, flux, sk),
+                lambda: mk.positivity_scale_plain(a, flux, sk), None)
+        ok_ = op.cell_stage(fp, q, dt, None, **stage)
+        op_ = swe_cell_stage_plain(a, fp, q, dt, None, **kw, **stage)
+        pairs["swe_cell_stage"] = [(ok_.q_out, op_.q_out),
+                                   (ok_.prim, op_.prim)]
+        calls["swe_cell_stage"] = (
+            lambda: op.cell_stage(flux, q, dt, None, **stage),
+            lambda: swe_cell_stage_plain(a, flux, q, dt, None, **kw,
+                                         **stage), None)
+        mk_, ik = op.courant_max(cp, dt, *run)
+        mp, ip = courant_argmax_plain(cp)
+        calls["courant_argmax"] = (
+            lambda: op.courant_max(courant, dt, *run),
+            lambda: courant_argmax_plain(courant, dt, *run),
+            lambda: torch.max(courant, 0))
+        rel = {k: max(rel_err(g, w) for g, w in v) for k, v in pairs.items()}
+        err = {k: max(abs_err(g, w) for g, w in v) for k, v in pairs.items()}
+        rel["courant_argmax"] = abs(float(mk_) - float(mp)) / float(mp)
+        err["courant_argmax"] = abs(float(mk_) - float(mp))
+        log(f"  full-size kernels vs plain on the {path} path (relative): "
+            f"{rel}; courant idx {int(ik)} (plain {int(ip)})")
+        if not (all(v <= TOL[q.dtype] for v in rel.values())
+                and int(ik) == int(ip)):
+            raise SystemExit(f"full-size {path} kernel check failed")
+        n_pairs = eta_pairs(a.bs2002) if a.bs2002 is not None else 0
+        nbytes = wb_bytes(op, q.numel() * s, s)
+        nops = wb_ops(op, n_pairs)
+        mode = ("hr" if op.well_balancing_hr else
+                "bs2002 muscl" if muscl else "bs2002")
+        keys = {"swe_edge_flux": f"swe_edge_flux {mode}",
+                "swe_cell_stage": ("swe_cell_stage hr"
+                                   if op.well_balancing_hr
+                                   else "swe_cell_stage")}
+        replaces = dict(
+            REPLACES, swe_edge_flux=_SLOTTED + (":3180" if muscl else ":1254"),
+            swe_cell_stage=_SLOTTED + ":1441")
+        path_rows = [kernel_row(
+            card, name, path, fns, launches[name],
+            max(err[name], errs.get(keys.get(name, name), 0.0)),
+            nbytes[name], nops[name], q.dtype, replaces)
+            for name, fns in calls.items()]
+        rows += path_rows
+        # SWEOperator.apply (the rk4 rhs, the TPU's fused rhs kernel with
+        # its well-balancing branch): the edge phase, K1c and K1b rhs
+        pop = plain_operator(op)
+        apply_ms = device_ms(lambda: op.apply(q, dt, bv, None))
+        apply_plain = device_ms(lambda: pop.apply(q, dt, bv, None), reps=5)
+        log(f"  [{card}] SWEOperator.apply on the {path} path: device "
+            f"{apply_ms:.4f} ms, plain {apply_plain:.4f} ms, sum of its "
+            f"kernels' stage-mode bounds "
+            f"{sum(r['bound_ms'] for r in path_rows):.4f} ms")
+        del sim
+    lake_at_rest(dev, mesh)
+    return rows
+
+
+def lake_at_rest(dev, mesh):
+    """A lake at rest on the phase-7 mesh, all walls reflecting: HR at eta
+    0.05 m (partly dry), BS2002 at eta 0.1 m (submerged). The momentum rows
+    of `apply` and, after 100 steps, max |hu|, |hv| beside the same state
+    under no well-balancing. HR must keep the rows below 1e-4 (the bound
+    of the JAX package's f32 test, tests/test_pallas.py:424-441); BS2002
+    keeps no lake at rest, in either package (ROADMAP fault 19): its
+    numbers are printed beside those of no well-balancing."""
+    card = nvidia_smi_line()
+    lake_steps = 100
+    for wb, level in (("hydrostatic_reconstruction", H_FLOODPLAIN),
+                      ("bs2002", H_WB_SUBMERGED)):
+        out = {}
+        for mode in (wb, "none"):
+            sim = wb_simulation(lake_steps, dev, mesh,
+                                lambda x: np.full_like(x, level),
+                                wb=mode, dt=DT_WB, outflow=False)
+            dry = float(np.mean(sim.get_height() == 0.0))
+            r = sim.operator.apply(
+                sim.q, torch.tensor(DT_WB, dtype=sim.q.dtype, device=dev),
+                sim.boundary_values, None)
+            rhs = float(r.rhs[1:3].abs().max())
+            sim.run()
+            torch.cuda.synchronize()
+            hu = float(np.abs(sim.get_x_momentum()).max())
+            hv = float(np.abs(sim.get_y_momentum()).max())
+            out[mode] = (rhs, hu, hv)
+            log(f"  [{card}] lake at rest at eta {level} m ({dry:.3f} of "
+                f"the cells dry), {mode}: momentum rhs of apply "
+                f"{rhs:.4e}; after {sim.step} steps max |hu| {hu:.4e}, "
+                f"max |hv| {hv:.4e}")
+            del sim
+        if wb == "hydrostatic_reconstruction" and not out[wb][0] < 1e-4:
+            raise SystemExit(f"HR lake at rest: momentum rhs {out[wb][0]} "
+                             ">= 1e-4")
+        if not all(np.isfinite(v) for v in out[wb]):
+            raise SystemExit(f"{wb} lake at rest is not finite: {out[wb]}")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -1786,6 +2281,9 @@ def main():
     rows += phase_tracers(args.steps, errs, dev, mesh)
     phase_muscl_kernels(args.seed, errs, dev)
     rows += phase_muscl(args.steps, errs, dev, mesh)
+    del mesh
+    phase_wb_kernels(args.seed, errs, dev)
+    rows += phase_wb(args.steps, errs, dev, wb_mesh())
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi_line())
     print(json.dumps({"kernels": rows}))

@@ -29,11 +29,13 @@ def operator_arrays_from_numpy(
 ) -> OperatorArrays:
     """This package's OperatorArrays from the fields of `d` on `device`
     ("cpu" or CUDA) in `dtype`: the first-order flow fields and, when `d`
-    has them, the six MUSCL arrays (cell_ls_cx/cy, int_dxl/dyl/dxr/dyr);
-    the fields this package does not use (the Pallas plan, BS2002 and HR
-    arrays) and None values are ignored."""
+    has them, the six MUSCL arrays (cell_ls_cx/cy, int_dxl/dyl/dxr/dyr) and
+    `bs2002`, the JAX `BS2002Arrays` given as `{k: np.asarray(v)}` of its
+    `_asdict()`. The fields this package does not use (the Pallas plan,
+    the HR per-slot tables hr_nbr_cell/hr_cn/hr_sn, which K1b derives from
+    the edge ids) and None values are ignored."""
     flow = {k: v for k, v in d.items()
-            if k in ARRAY_FIELDS and v is not None}
+            if k in ARRAY_FIELDS + ("bs2002",) and v is not None}
     return arrays_from_numpy(flow, resolve_device(device), dtype)
 
 

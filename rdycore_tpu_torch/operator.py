@@ -1,12 +1,11 @@
 """The SWE spatial operator F(q, t) -> dq/dt.
 
-The counterpart of rdycore_tpu/operator.py without well-balancing, at
-first order or (flow only) second order, for the flow equations (3
-unknowns) and for the coupled
+The counterpart of rdycore_tpu/operator.py, at first order or (flow only)
+second order, for the flow equations (3 unknowns) and for the coupled
 flow + tracer system (3 + num_tracers unknowns: sediment classes with
 Hairsine-Rose sources, then salinity and heat; the JAX package's
-`_apply_tracer`/`_finish_tracer`). The JAX package's XLA gather form
-carries over:
+`_apply_tracer`/`_finish_tracer`), with or without well-balancing. The
+JAX package's XLA gather form carries over:
 
 1. gather left/right cell states onto edges
 2. ghost states for boundary edges from their BC
@@ -31,6 +30,20 @@ fluxes are those the accumulators read. A step with dt <= 0 takes 1 for
 dt in that factor, as the raster kernel does: the JAX package's XLA path
 divides by zero there and hides the NaN behind its loop's guard.
 
+Well-balancing (the JAX package's `well_balancing_hr` and
+`well_balancing_bs2002`):
+- hydrostatic reconstruction (first order, with or without tracers): K1a
+  reconstructs the interior edges' depths on `cell_z`, and K1b drops the
+  bed-slope source and adds the hydrostatic pressure correction
+  (operator.py:417-460, :1117-1151);
+- BS2002 (flow only, first order or MUSCL): K5 (`ops/kernels/
+  eta_vertex.py`) forms the vertex eta of the stage's raw depths, and K1a
+  adds the momentum correction of every edge from it (operator.py:436-447,
+  :1060-1070); at second order K3b then scales the corrected fluxes.
+BS2002 with tracers is refused (ValueError): the JAX package's coupled
+operator drops its correction without a word (ROADMAP fault 18). HR with
+second order is refused as the JAX package refuses it.
+
 Boundary edges carry a BC code each (`bnd_code`), so one launch covers all
 edges whatever the segments; the JAX XLA path loops over segments instead.
 """
@@ -49,12 +62,18 @@ from .mesh.core import Mesh, named_boundary_sets
 from .ops.kernels.cell_stage import CellStageOut, swe_cell_stage
 from .ops.kernels.courant import courant_argmax
 from .ops.kernels.edge_flux import boundary_flux_plain, swe_edge_flux
+from .ops.kernels.eta_vertex import swe_eta_vertex
 from .ops.kernels.muscl import (
     swe_muscl_grad,
     swe_positivity_drain,
     swe_positivity_scale,
 )
 from .ops.swe import boundary as bc_mod
+from .ops.swe.bs2002 import (
+    BS2002Arrays,
+    bs2002_arrays_from_numpy,
+    build_bs2002_host,
+)
 from .ops.swe.muscl import LIMITERS, precompute_ls_coefficients
 from .ops.swe.sources import SOURCE_IMPLICIT_XQ2018, SOURCE_SEMI_IMPLICIT
 
@@ -104,14 +123,19 @@ class OperatorArrays:
     int_dyl: Optional[torch.Tensor] = None
     int_dxr: Optional[torch.Tensor] = None
     int_dyr: Optional[torch.Tensor] = None
+    # BS2002 well-balancing (None unless enabled): sorted cell beds, the
+    # vertex -> cells lists and the edges' endpoint vertices and beds
+    bs2002: Optional[BS2002Arrays] = None
 
     def numpy(self) -> Dict[str, np.ndarray]:
-        """Every field that is set as a host numpy array."""
+        """Every tensor field that is set as a host numpy array."""
         return {k: getattr(self, k).cpu().numpy() for k in ARRAY_FIELDS
                 if getattr(self, k) is not None}
 
 
-ARRAY_FIELDS = tuple(f.name for f in dataclasses.fields(OperatorArrays))
+# the tensor fields (bs2002 is a namedtuple of tensors)
+ARRAY_FIELDS = tuple(f.name for f in dataclasses.fields(OperatorArrays)
+                     if f.name != "bs2002")
 MUSCL_FIELDS = ("cell_ls_cx", "cell_ls_cy", "int_dxl", "int_dyl", "int_dxr",
                 "int_dyr")
 INDEX_FIELDS = {
@@ -126,17 +150,24 @@ def arrays_from_numpy(
 ) -> OperatorArrays:
     """OperatorArrays from host arrays: index fields as int32 (bnd_code
     int8), the rest as `dtype`, all on `device`. The MUSCL fields are
-    optional, all six or none."""
+    optional, all six or none; so is "bs2002", a dict of the BS2002Arrays
+    fields."""
     missing = [k for k in ARRAY_FIELDS if k not in d and k not in MUSCL_FIELDS]
     muscl = [k for k in MUSCL_FIELDS if d.get(k) is not None]
     if missing or muscl and len(muscl) != len(MUSCL_FIELDS):
         raise KeyError(f"operator arrays lack {missing or muscl}")
-    return OperatorArrays(**{
-        k: torch.as_tensor(
-            np.array(d[k]), dtype=INDEX_FIELDS.get(k, dtype), device=device
-        )
-        for k in ARRAY_FIELDS if d.get(k) is not None
-    })
+    bs = d.get("bs2002")
+    return OperatorArrays(
+        **{
+            k: torch.as_tensor(
+                np.array(d[k]), dtype=INDEX_FIELDS.get(k, dtype),
+                device=device,
+            )
+            for k in ARRAY_FIELDS if d.get(k) is not None
+        },
+        bs2002=None if bs is None else bs2002_arrays_from_numpy(
+            bs, device, dtype),
+    )
 
 
 class RHSResult(NamedTuple):
@@ -173,6 +204,10 @@ class SWEOperator:
     second_order: bool = False
     limiter: str = "minmod"
     positivity_limit: bool = True
+    # well-balancing: hydrostatic reconstruction, or Bradford & Sanders
+    # (2002) on the vertex eta
+    well_balancing_hr: bool = False
+    well_balancing_bs2002: bool = False
 
     def __post_init__(self):
         if self.riemann not in ("roe", "upwind_roe"):
@@ -192,6 +227,24 @@ class SWEOperator:
             raise ValueError(
                 "the implicit_xq2018 source method has no tracer form"
             )
+        if self.well_balancing_hr and self.well_balancing_bs2002:
+            raise ValueError("well_balancing: hydrostatic reconstruction "
+                             "and BS2002 exclude each other")
+        if self.well_balancing_hr and self.second_order:
+            # the reference errors likewise (operator.c:388-390)
+            raise ValueError(
+                "second_order cannot be used with well_balancing = "
+                "hydrostatic_reconstruction"
+            )
+        if self.well_balancing_bs2002 and self.num_tracers:
+            # the JAX package's coupled operator drops the correction
+            # (ROADMAP fault 18)
+            raise ValueError(
+                "BS2002 well balancing has no form for the coupled flow + "
+                "tracer system (sediment, salinity, heat)"
+            )
+        if self.well_balancing_bs2002 and self.arrays.bs2002 is None:
+            raise ValueError("a BS2002 operator needs the BS2002 arrays")
 
     @property
     def num_edges(self) -> int:
@@ -213,16 +266,23 @@ class SWEOperator:
         """K3a: the LS gradients [6, C] of the flow rows of q."""
         return swe_muscl_grad(self.arrays, q)
 
+    def eta_vertices(self, h: torch.Tensor) -> torch.Tensor:
+        """K5: the BS2002 vertex eta [NV] of the depths h [C]."""
+        return swe_eta_vertex(self.arrays.bs2002, h, self.tiny_h)
+
     def edge_flux(
         self, q: torch.Tensor, boundary_values: torch.Tensor,
         grad: Optional[torch.Tensor] = None,
+        eta_v: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """K1a: (flux [ndof, E + 1] with column E zero, courant [E]); with
-        grad, MUSCL faces on the interior edges."""
+        grad, MUSCL faces on the interior edges; with eta_v, the BS2002
+        correction; on an HR operator, hydrostatic reconstruction."""
         return swe_edge_flux(
             self.arrays, q, boundary_values, self.tiny_h, self.h_anuga,
             upwind=self.riemann == "upwind_roe", grad=grad,
-            limiter=self.limiter,
+            limiter=self.limiter, hr=self.well_balancing_hr,
+            bs=self.arrays.bs2002, eta_v=eta_v,
         )
 
     def limit_positivity(self, flux: torch.Tensor, h: torch.Tensor,
@@ -237,13 +297,15 @@ class SWEOperator:
         dt: torch.Tensor,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The edge phase: K1a at first order; at second order K3a, K1a in
-        MUSCL mode and, with positivity_limit, K3b over dt. Returns (flux
-        [ndof, E + 1], courant [E]); courant is taken before the positivity
-        scaling."""
+        MUSCL mode and, with positivity_limit, K3b over dt; under BS2002,
+        K5 on the raw depths of q first. Returns (flux [ndof, E + 1],
+        courant [E]); courant is taken before the positivity scaling."""
+        eta_v = (self.eta_vertices(q[0]) if self.well_balancing_bs2002
+                 else None)
         if not self.second_order:
-            return self.edge_flux(q, boundary_values)
+            return self.edge_flux(q, boundary_values, eta_v=eta_v)
         flux, courant = self.edge_flux(q, boundary_values,
-                                       self.muscl_grad(q))
+                                       self.muscl_grad(q), eta_v)
         if self.positivity_limit and self.num_edges:
             self.limit_positivity(flux, q[0], dt)
         return flux, courant
@@ -262,12 +324,14 @@ class SWEOperator:
         ext_src: Optional[torch.Tensor], **mode,
     ) -> CellStageOut:
         """K1b in stage mode (stage=(alpha, beta, gamma), qA=...) or rhs
-        mode (no stage); emit_prim=True adds the primitives of q."""
+        mode (no stage); emit_prim=True adds the primitives of q. An HR
+        operator runs it in its HR mode."""
         return swe_cell_stage(
             self.arrays, flux, q, dt, ext_src, tiny_h=self.tiny_h,
             h_anuga=self.h_anuga, xq2018_threshold=self.xq2018_threshold,
             source_method=self.source_method,
-            num_sediment=self.num_sediment, **mode,
+            num_sediment=self.num_sediment, hr=self.well_balancing_hr,
+            **mode,
         )
 
     # ------------------------------------------------------------ apply
@@ -299,11 +363,16 @@ class SWEOperator:
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Roe fluxes + masked max wave speeds on the boundary edges
         (fb [ndof, Eb], amax_b [Eb]) in plain PyTorch (the JAX package's
-        `boundary_fluxes`, and `boundary_fluxes_nd` with tracers). The step
-        loop takes fb from the edge kernel's output instead."""
+        `boundary_fluxes`, and `boundary_fluxes_nd` with tracers), with the
+        BS2002 correction from the vertex eta of q's depths on a BS2002
+        operator. The step loop takes fb from the edge kernel's output
+        instead."""
+        a = self.arrays
+        eta_v = (self.eta_vertices(q[0]) if self.well_balancing_bs2002
+                 else None)
         return boundary_flux_plain(
-            self.arrays, q, boundary_values, self.tiny_h, self.h_anuga,
-            upwind=self.riemann == "upwind_roe",
+            a, q, boundary_values, self.tiny_h, self.h_anuga,
+            upwind=self.riemann == "upwind_roe", bs=a.bs2002, eta_v=eta_v,
         )
 
 
@@ -331,6 +400,8 @@ def build_operator(
     second_order: bool = False,
     limiter: str = "minmod",
     positivity_limit: bool = True,
+    well_balancing_hr: bool = False,
+    well_balancing_bs2002: bool = False,
     dtype: torch.dtype = torch.float64,
     device: DeviceLike = None,
 ) -> SWEOperator:
@@ -339,7 +410,10 @@ def build_operator(
     bc_types maps boundary name -> BC_* code; unlisted boundaries get the
     reflecting wall BC, like the reference's auto-assignment
     (rdysetup.c:706-777). second_order adds the MUSCL arrays, built on the
-    host in float64 (`precompute_ls_coefficients`).
+    host in float64 (`precompute_ls_coefficients`). well_balancing_hr runs
+    hydrostatic reconstruction on the mesh's `cell_z` (which
+    `Mesh.set_cell_elevations` replaces); well_balancing_bs2002 adds the
+    BS2002 arrays, from the vertex beds `points[:, 2]`.
     """
     device = resolve_device(device)
     bc_types = dict(bc_types or {})
@@ -403,6 +477,9 @@ def build_operator(
         muscl = dict(zip(MUSCL_FIELDS,
                          precompute_ls_coefficients(mesh, edge_perm, Ei)))
 
+    bs2002 = (build_bs2002_host(mesh, edge_perm, Ei)
+              if well_balancing_bs2002 else None)
+
     arrays = arrays_from_numpy(
         dict(
             area=area,
@@ -422,6 +499,7 @@ def build_operator(
             cell_edge_coef=coef,
             edge_courant_coef=ccoef,
             bnd_len=lengths[Ei:],
+            bs2002=bs2002,
             **muscl,
         ),
         device, dtype,
@@ -442,4 +520,6 @@ def build_operator(
         second_order=second_order,
         limiter=limiter,
         positivity_limit=positivity_limit,
+        well_balancing_hr=well_balancing_hr,
+        well_balancing_bs2002=well_balancing_bs2002,
     )

@@ -27,7 +27,7 @@ _BUILD_DIR = os.path.join(
 )
 SOURCES = ("swe_edge_flux", "swe_cell_stage", "courant_argmax",
            "swe_raster_step", "swe_muscl_grad", "swe_positivity",
-           "swe_raster_muscl")
+           "swe_raster_muscl", "swe_eta_vertex")
 # the tracer rows a kernel takes beyond (h, hu, hv): kMaxTracers of
 # csrc/swe_physics.cuh, MAX_NUM_SEDIMENT_CLASSES plus salinity and heat
 MAX_TRACERS = 7

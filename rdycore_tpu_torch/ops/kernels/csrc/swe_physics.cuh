@@ -31,6 +31,11 @@ constexpr int kLimMinmod = 1;
 constexpr int kLimVanLeer = 2;
 constexpr int kLimNone = 3;
 
+// well-balancing modes of the edge kernel (ops/kernels/edge_flux.py WB_*)
+constexpr int kWbNone = 0;
+constexpr int kWbHR = 1;
+constexpr int kWbBS2002 = 2;
+
 // most tracers a state carries: MAX_NUM_SEDIMENT_CLASSES (5), salinity and
 // heat. Each kernel is instantiated for every count 0..kMaxTracers, so the
 // tracer arrays of a thread live in registers; count 0 is the flow-only
@@ -341,6 +346,64 @@ __device__ __forceinline__ void tracer_sources(
     if (num_sediment < NT) ed = ed * (j < num_sediment ? T(1) : T(0));
     st[j] = ed + e[j];
   }
+}
+
+// Hydrostatic reconstruction of the depth h of a cell with bed z against
+// an edge whose higher bed is zmax: max(0, h + z - zmax), the XLA form of
+// the JAX package's operator.py:424-427 (its TPU kernel forms h - dz).
+template <typename T>
+__device__ __forceinline__ T hr_depth(T h, T z, T zmax) {
+  return clamp_min0(h + z - zmax);
+}
+
+template <typename T>
+__device__ __forceinline__ T max_(T a, T b) {
+  return a > b ? a : b;
+}
+
+// The hydrostatic pressure correction of one side of an edge
+// (operator.py _hr_pressure_correction :1117-1151): 0.5*g*(h^2 - h*^2)
+// with h* = hr_depth(h, z, max(z, z_nbr)), zero where both h and h_nbr
+// are below tiny_h. The caller multiplies it by coef*(cn, sn).
+template <typename T>
+__device__ __forceinline__ T hr_pressure(T h, T z, T h_nbr, T z_nbr,
+                                         T tiny_h) {
+  const T h_rec = hr_depth(h, z, max_(z, z_nbr));
+  const T corr = T(0.5) * T(kGravity) * (h * h - h_rec * h_rec);
+  return (h < tiny_h && h_nbr < tiny_h) ? T(0) : corr;
+}
+
+// BS2002 partial-wetting free-surface elevation of a cell with sorted
+// vertex beds z1 <= z2 <= z3 and depth h (ops/swe/bs2002.py eta_cells,
+// swe_well_balancing.h:30-85): dry, all, one or two vertices submerged.
+template <typename T>
+__device__ __forceinline__ T eta_cell(T z1, T z2, T z3, T h, T tiny_h) {
+  if (h <= tiny_h) return z1;
+  const T mean = (z1 + z2 + z3) / T(3);
+  const T h3 = z3 - mean;
+  if (h >= h3) return mean + h;
+  const T dz31 = z3 - z1;
+  const T dz31_safe = dz31 != T(0) ? dz31 : T(1);
+  const T h2 = z2 < z3 ? (z2 - z1) * (z2 - z1) / (T(3) * dz31_safe) : h3;
+  if (h > T(0) && h <= h2)
+    return z1 + cbrt(clamp_min0(T(3) * h * (z2 - z1) * dz31));
+  const T b = z3 - T(3) * z1;
+  const T c = z1 * z2 + z1 * z1 - z3 * z2 - T(3) * h * dz31;
+  return T(0.5) * (-b + sqrt(clamp_min0(b * b - T(4) * c)));
+}
+
+// BS2002 momentum flux correction of an edge (bs2002.py dhv_correction,
+// swe_roe_flux_ceed.h:117-119): with the vertex eta and bed at its begin
+// and end vertex, dhv = max(eta_e - z_e, 0) - max(eta_b - z_b, 0), and
+// f1, f2 gain g*dhv^2/24*(cn, sn), formed as the XLA path forms it.
+template <typename T>
+__device__ __forceinline__ void bs2002_correction(T eta_b, T eta_e, T z_b,
+                                                  T z_e, T cn, T sn, T& f1,
+                                                  T& f2) {
+  const T dhv = clamp_min0(eta_e - z_e) - clamp_min0(eta_b - z_b);
+  const T corr = T(kGravity) * dhv * dhv / T(24);
+  f1 = f1 + corr * cn;
+  f2 = f2 + corr * sn;
 }
 
 }  // namespace rdy

@@ -9,7 +9,9 @@ reference source operators:
   swe_sources_ceed.h:69-105
 - none: bed slope + external sources only.
 Each returns the source part of the RHS and the primitive variables
-(h, u, v) for time-averaged output. The CUDA cell kernel
+(h, u, v) for time-averaged output. include_bed_slope=False drops the
+bed-slope term, as hydrostatic reconstruction does (its pressure
+correction takes its place). The CUDA cell kernel
 (ops/kernels/csrc/swe_physics.cuh) repeats this arithmetic.
 
 dt is a tensor (0-dim, possibly on the device) or a Python float; tiny_h,
@@ -43,9 +45,11 @@ def _primitives(h, hu, hv, tiny_h, h_anuga):
     return u, v
 
 
-def _bed(q, dz_dx, dz_dy):
-    g = torch.tensor(GRAVITY, dtype=q.dtype)
+def _bed(q, dz_dx, dz_dy, include_bed_slope=True):
     h = q[0]
+    if not include_bed_slope:
+        return torch.zeros_like(h), torch.zeros_like(h)
+    g = torch.tensor(GRAVITY, dtype=q.dtype)
     return dz_dx * g * h, dz_dy * g * h
 
 
@@ -59,20 +63,22 @@ def _result(q, bedx, bedy, tbx, tby, ext_src, tiny_h, h_anuga):
 
 
 def apply_source_none(
-    q, flux_div, ext_src, mannings_n, dz_dx, dz_dy, dt, tiny_h, h_anuga
+    q, flux_div, ext_src, mannings_n, dz_dx, dz_dy, dt, tiny_h, h_anuga,
+    include_bed_slope=True,
 ) -> SourceResult:
     """Bed slope + external sources, no friction."""
-    bedx, bedy = _bed(q, dz_dx, dz_dy)
+    bedx, bedy = _bed(q, dz_dx, dz_dy, include_bed_slope)
     return _result(q, bedx, bedy, 0.0, 0.0, ext_src, tiny_h, h_anuga)
 
 
 def apply_source_semi_implicit(
-    q, flux_div, ext_src, mannings_n, dz_dx, dz_dy, dt, tiny_h, h_anuga
+    q, flux_div, ext_src, mannings_n, dz_dx, dz_dy, dt, tiny_h, h_anuga,
+    include_bed_slope=True,
 ) -> SourceResult:
     """Semi-implicit bed-slope + friction source."""
     g = torch.tensor(GRAVITY, dtype=q.dtype)
     h, hu, hv = q[0], q[1], q[2]
-    bedx, bedy = _bed(q, dz_dx, dz_dy)
+    bedx, bedy = _bed(q, dz_dx, dz_dy, include_bed_slope)
 
     wet = h >= tiny_h
     h_safe = torch.where(wet, h, 1.0)
@@ -90,13 +96,13 @@ def apply_source_semi_implicit(
 
 def apply_source_xq2018(
     q, flux_div, ext_src, mannings_n, dz_dx, dz_dy, dt, tiny_h, h_anuga,
-    xq2018_threshold,
+    xq2018_threshold, include_bed_slope=True,
 ) -> SourceResult:
     """Implicit friction via the Xia & Liang (2018) closed form
     (eqs 21-37)."""
     g = torch.tensor(GRAVITY, dtype=q.dtype)
     h, hu, hv = q[0], q[1], q[2]
-    bedx, bedy = _bed(q, dz_dx, dz_dy)
+    bedx, bedy = _bed(q, dz_dx, dz_dy, include_bed_slope)
 
     wet = h >= tiny_h
     h_safe = torch.where(wet, h, 1.0)
@@ -128,15 +134,16 @@ def apply_source_xq2018(
 
 
 def apply_source(method, q, flux_div, ext_src, mannings_n, dz_dx, dz_dy, dt,
-                 tiny_h, h_anuga, xq2018_threshold) -> SourceResult:
+                 tiny_h, h_anuga, xq2018_threshold,
+                 include_bed_slope=True) -> SourceResult:
     """Dispatch on the SOURCE_* code."""
     if method == SOURCE_IMPLICIT_XQ2018:
         return apply_source_xq2018(
             q, flux_div, ext_src, mannings_n, dz_dx, dz_dy, dt, tiny_h,
-            h_anuga, xq2018_threshold,
+            h_anuga, xq2018_threshold, include_bed_slope,
         )
     fn = apply_source_none if method == SOURCE_NONE else (
         apply_source_semi_implicit
     )
     return fn(q, flux_div, ext_src, mannings_n, dz_dx, dz_dy, dt, tiny_h,
-              h_anuga)
+              h_anuga, include_bed_slope)

@@ -54,17 +54,23 @@ def tracer_source_terms(
     num_sediment: int,
     params: SedimentParams = SedimentParams(),
     include_friction: bool = True,
+    include_bed_slope: bool = True,
 ):
     """(rhs_src [3+nt, C], prim [3+nt, C]); rhs_src excludes the flux
     divergence, as the flow sources do. include_friction=False drops the
-    Manning term (the source method `none`, ARK-IMEX's explicit part)."""
+    Manning term (the source method `none`, ARK-IMEX's explicit part);
+    include_bed_slope=False the bed-slope term (hydrostatic
+    reconstruction)."""
     g = torch.tensor(GRAVITY, dtype=q.dtype)
     h, hu, hv = q[0], q[1], q[2]
     hci = q[3:]
     nt = hci.shape[0]
 
-    bedx = dz_dx * g * h
-    bedy = dz_dy * g * h
+    if include_bed_slope:
+        bedx = dz_dx * g * h
+        bedy = dz_dy * g * h
+    else:
+        bedx = bedy = torch.zeros_like(h)
 
     wet = h > tiny_h
     h_safe = torch.where(wet, h, 1.0)

@@ -3,7 +3,8 @@
 The counterpart of rdycore_tpu/simulation.py for the single-device paths,
 first order, flow only or with tracers (sediment with Hairsine-Rose
 sources, salinity, heat), or second order (MUSCL with the positivity
-limiter, flow only): unstructured, and the uniform raster
+limiter, flow only): unstructured, with or without well-balancing
+(hydrostatic reconstruction, or BS2002 flow only), and the uniform raster
 (`edge_flux_backend: structured`, first order and flow only, or
 `fused_structured`)
 (the reference's RDy object, src/rdycore.c, src/rdysetup.c,
@@ -114,6 +115,15 @@ def check_slice(config: Config) -> None:
             "flow + tracer system (sediment, salinity, heat); use "
             "semi_implicit"
         )
+    if num_tracers(config) and p.flow.well_balancing == "bs2002":
+        # the schema refuses sediment with BS2002; the JAX package runs
+        # salinity and heat decks without the correction (ROADMAP fault 18)
+        raise ConfigError(
+            "well_balancing: bs2002 has no form for the coupled flow + "
+            "tracer system (salinity, heat): the JAX package drops its "
+            "correction there (ROADMAP fault 18); use "
+            "hydrostatic_reconstruction"
+        )
     if n.cell_ordering != "file":
         _not_ported(f"cell_ordering: {n.cell_ordering}",
                     "queue 1 item 5c (mesh readers and RCM ordering)")
@@ -137,8 +147,6 @@ _PATH_REFUSALS = (
      {"structured": _CONFIG_ERROR}),
     ("well_balancing",
      lambda c: c.physics.flow.well_balancing not in (None, "", "none"), {
-         "unstructured": ("well_balancing", "queue 1 item 11 and queue 2 "
-                          "K4/K5"),
          "fused_structured": _CONFIG_ERROR, "structured": _CONFIG_ERROR}),
     ("parallel.n_devices > 1", lambda c: c.parallel.n_devices > 1, {
         "unstructured": ("parallel.n_devices > 1", "queue 1 item 16"),
@@ -323,6 +331,10 @@ class Simulation:
             riemann=config.numerics.riemann,
             second_order=config.numerics.second_order,
             limiter=config.numerics.limiter,
+            well_balancing_hr=(config.physics.flow.well_balancing
+                               == "hydrostatic_reconstruction"),
+            well_balancing_bs2002=(config.physics.flow.well_balancing
+                                   == "bs2002"),
             tiny_h=config.physics.flow.tiny_h,
             h_anuga=config.physics.flow.h_anuga_reg_parameter,
             source_method=_SOURCE_CODES[config.physics.flow.source.method],

@@ -21,6 +21,10 @@ positivity kernels behind it. The JAX package runs such an operator
 through `_rk_step` and `apply` instead (its fused step takes first order
 only, timestepping.py:285-296); both give every stage's positivity limiter
 the step's full dt_i, rk4's half-steps included (timestepping.py:333-334).
+A well-balanced operator keeps stage mode too: its edge phase puts K5 in
+front of every K1a launch under BS2002 (once per stage), and K1a and K1b
+run in their HR modes under hydrostatic reconstruction; the JAX package
+keeps such operators off its fused step (timestepping.py:294-295).
 
 The state has ndof = 3 + num_tracers rows, and so do the boundary-flux
 accumulator and the stage kernels' outputs: unlike the JAX package, whose

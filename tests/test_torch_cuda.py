@@ -18,7 +18,11 @@ on the card to the CPU run on both paths. So are the second-order kernels
 (K3a, K1a in MUSCL mode and K3b on the unstructured mesh for each limiter,
 f32 and f64; K2 MUSCL's faces and update launches on the raster), and a
 second-order deck on the card to the CPU run on both paths (1e-10 in f64
-on the unstructured path, 1e-5 in f32 on the raster).
+on the unstructured path, 1e-5 in f32 on the raster). So are the
+well-balancing modes over a bumpy bed (K1a and K1b with hydrostatic
+reconstruction at NT = 0 and 3, K1a's BS2002 correction at first order
+and for each limiter, and K5), and a well-balanced deck on the card to
+the CPU run (1e-10 in f64).
 """
 
 import numpy as np
@@ -33,6 +37,7 @@ from rdycore_tpu_torch.ops import kernels
 from rdycore_tpu_torch.ops.kernels.cell_stage import swe_cell_stage_plain
 from rdycore_tpu_torch.ops.kernels.courant import courant_argmax_plain
 from rdycore_tpu_torch.ops.kernels.edge_flux import swe_edge_flux_plain
+from rdycore_tpu_torch.ops.swe.bs2002 import eta_vertices
 from rdycore_tpu_torch.ops.kernels.muscl import (
     positivity_drain_plain,
     positivity_scale_plain,
@@ -66,8 +71,9 @@ def rel(got, want):
         float(want.abs().max()), 1e-30)
 
 
-def setup(mesh_fn, dtype, dev, seed=0, nt=0, riemann="roe", **muscl):
-    mesh = mesh_fn()
+def setup(mesh_fn, dtype, dev, seed=0, nt=0, riemann="roe", z_fn=None,
+          **muscl):
+    mesh = mesh_fn() if z_fn is None else mesh_fn(z_fn=z_fn)
     rng = np.random.default_rng(seed)
     op = build_operator(mesh, bc_types={"left": 0, "right": 2, "top": 1},
                         mannings_n=rng.uniform(0.01, 0.05, mesh.num_cells),
@@ -91,12 +97,17 @@ def setup(mesh_fn, dtype, dev, seed=0, nt=0, riemann="roe", **muscl):
 def launches():
     """The launch count of each kernel, in the order of kernels.KERNELS:
     K1a, K1b, K1c, K2, K3a, K3b drain, K3b scale, K2 MUSCL faces and
-    update."""
+    update, K5."""
     return [k.launches for k in kernels.KERNELS]
 
 
-MESHES = [lambda: structured_quad(48, 32, 0.0, 2.0, 0.0, 1.0),
-          lambda: structured_tri(24, 16, 0.0, 2.0, 0.0, 1.0)]
+MESHES = [lambda **kw: structured_quad(48, 32, 0.0, 2.0, 0.0, 1.0, **kw),
+          lambda **kw: structured_tri(24, 16, 0.0, 2.0, 0.0, 1.0, **kw)]
+
+
+def bed(x, y):
+    """A bumpy bed of 0 to 0.4 m, partly above the random depths."""
+    return 0.2 * (1.0 + np.sin(4 * np.pi * x) * np.sin(4 * np.pi * y))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -123,7 +134,7 @@ def test_kernels_match_plain_versions(dev, mesh, dtype):
     m, i = op.courant_max(cp)
     mp, ip = courant_argmax_plain(cp)
     assert float(m) == float(mp) and int(i) == int(ip)
-    assert launches() == [1, 6, 1, 0, 0, 0, 0, 0, 0]
+    assert launches() == [1, 6, 1, 0, 0, 0, 0, 0, 0, 0]
 
 
 @pytest.mark.parametrize("riemann", ["roe", "upwind_roe"])
@@ -152,7 +163,7 @@ def test_tracer_kernels_match_plain_versions(dev, mesh, dtype, riemann):
                 if w is not None:
                     assert g.shape == (6, op.num_cells)
                     assert rel(g, w) <= TOL[dtype]
-    assert launches() == [1, 4, 0, 0, 0, 0, 0, 0, 0]
+    assert launches() == [1, 4, 0, 0, 0, 0, 0, 0, 0, 0]
 
 
 def test_simulation_on_the_card_matches_the_cpu(dev):
@@ -283,8 +294,8 @@ def test_tracer_simulation_on_the_card_matches_the_cpu(dev, backend):
                    torch.as_tensor(cpu.get_solution()[k])) <= 1e-5
         assert rel(torch.as_tensor(gpu.bflux_accum[k]),
                    torch.as_tensor(cpu.bflux_accum[k])) <= 1e-5
-    expected = ([20, 20, 20, 0, 0, 0, 0, 0, 0] if backend == "xla"
-                else [20, 0, 20, 20, 0, 0, 0, 0, 0])
+    expected = ([20, 20, 20, 0, 0, 0, 0, 0, 0, 0] if backend == "xla"
+                else [20, 0, 20, 20, 0, 0, 0, 0, 0, 0])
     assert launches() == expected
 
 
@@ -319,7 +330,7 @@ def test_raster_simulation_on_the_card_matches_the_cpu(dev):
                torch.as_tensor(cpu.get_solution())) <= 1e-5
     assert rel(torch.as_tensor(gpu.bflux_accum),
                torch.as_tensor(cpu.bflux_accum)) <= 1e-5
-    assert launches() == [20, 0, 20, 60, 0, 0, 0, 0, 0]
+    assert launches() == [20, 0, 20, 60, 0, 0, 0, 0, 0, 0]
 
 
 def test_structured_kind_on_the_card_matches_the_cpu(dev):
@@ -378,7 +389,7 @@ def test_muscl_kernels_match_plain_versions(dev, mesh, dtype, limiter):
     assert bool(torch.isfinite(s0).all())
     assert rel(s0, positivity_drain_plain(a, fp, q[0],
                                           torch.zeros_like(dt))) <= tol
-    assert launches() == [1, 0, 0, 0, 1, 2, 1, 0, 0]
+    assert launches() == [1, 0, 0, 0, 1, 2, 1, 0, 0, 0]
 
 
 @pytest.mark.parametrize("limiter", ["minmod", "van_leer", "none"])
@@ -417,7 +428,7 @@ def test_raster_muscl_matches_plain_version(dev, rain, limiter):
                                         src=src, **mode)
         for g, w in zip(out, ref):
             assert rel(g, w) <= TOL[torch.float32]
-    assert launches() == [0, 0, 0, 0, 0, 0, 0, 1, len(modes)]
+    assert launches() == [0, 0, 0, 0, 0, 0, 0, 1, len(modes), 0]
 
 
 @pytest.mark.parametrize("backend", ["xla", "fused_structured"])
@@ -456,5 +467,100 @@ def test_muscl_simulation_on_the_card_matches_the_cpu(dev, backend):
                torch.as_tensor(cpu.bflux_accum)) <= tol
     # ssprk2: two stages a step, the Courant fold and (raster) the
     # boundary fluxes once a step
-    assert launches() == ([20, 0, 20, 0, 0, 0, 0, 40, 40] if raster
-                          else [40, 40, 20, 0, 40, 40, 40, 0, 0])
+    assert launches() == ([20, 0, 20, 0, 0, 0, 0, 40, 40, 0] if raster
+                          else [40, 40, 20, 0, 40, 40, 40, 0, 0, 0])
+
+
+@pytest.mark.parametrize("nt, riemann", [(0, "roe"), (3, "roe"),
+                                         (3, "upwind_roe")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mesh", [0, 1])
+def test_hr_kernels_match_plain_versions(dev, mesh, dtype, nt, riemann):
+    op, q, bv, ext = setup(MESHES[mesh], dtype, dev, nt=nt, riemann=riemann,
+                           z_fn=bed, well_balancing_hr=True)
+    a = op.arrays
+    upwind = riemann == "upwind_roe"
+    kernels.reset_launch_counts()
+    flux, courant = op.edge_flux(q, bv)
+    fp, cp = swe_edge_flux_plain(a, q, bv, op.tiny_h, op.h_anuga, upwind,
+                                 hr=True)
+    assert rel(flux, fp) <= TOL[dtype] and rel(courant, cp) <= TOL[dtype]
+    dt = torch.tensor(0.002, dtype=dtype, device=dev)
+    methods = (0, 1, 2) if nt == 0 else (0, 2)
+    for method in methods:
+        kw = dict(tiny_h=op.tiny_h, h_anuga=op.h_anuga,
+                  xq2018_threshold=op.xq2018_threshold, source_method=method,
+                  num_sediment=min(nt, 2), hr=True)
+        for mode in (dict(), dict(stage=(0.75, 0.25, 0.25), qA=q.flip(1))):
+            got = kernels.swe_cell_stage(a, fp, q, dt, ext, emit_prim=True,
+                                         **kw, **mode)
+            want = swe_cell_stage_plain(a, fp, q, dt, ext, emit_prim=True,
+                                        **kw, **mode)
+            for g, w in zip(got, want):
+                if w is not None:
+                    assert rel(g, w) <= TOL[dtype]
+    assert launches() == [1, 2 * len(methods), 0, 0, 0, 0, 0, 0, 0, 0]
+
+
+@pytest.mark.parametrize("limiter", [None, "minmod", "van_leer", "none"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mesh", [0, 1])
+def test_bs2002_kernels_match_plain_versions(dev, mesh, dtype, limiter):
+    op, q, bv, _ = setup(MESHES[mesh], dtype, dev, z_fn=bed, h_anuga=1e-3,
+                         second_order=True, well_balancing_bs2002=True)
+    a = op.arrays
+    kernels.reset_launch_counts()
+    eta_v = op.eta_vertices(q[0])
+    ep = eta_vertices(a.bs2002, q[0], op.tiny_h)
+    assert eta_v.shape == (a.bs2002.vertex_cells.shape[0],)
+    assert rel(eta_v, ep) <= TOL[dtype]
+    grad = None if limiter is None else ls_gradients(a, q)
+    lim = limiter or "minmod"
+    flux, courant = kernels.swe_edge_flux(a, q, bv, op.tiny_h, op.h_anuga,
+                                          grad=grad, limiter=lim, bs=a.bs2002,
+                                          eta_v=ep)
+    fp, cp = swe_edge_flux_plain(a, q, bv, op.tiny_h, op.h_anuga, grad=grad,
+                                 limiter=lim, bs=a.bs2002, eta_v=ep)
+    assert rel(flux, fp) <= TOL[dtype] and rel(courant, cp) <= TOL[dtype]
+    # the correction is there: without it the momentum fluxes differ
+    f0, _ = swe_edge_flux_plain(a, q, bv, op.tiny_h, op.h_anuga, grad=grad,
+                                limiter=lim)
+    assert rel(f0[1:], fp[1:]) > 1e-3
+    assert launches() == [1, 0, 0, 0, 0, 0, 0, 0, 0, 1]
+
+
+@pytest.mark.parametrize("wb", ["hydrostatic_reconstruction", "bs2002"])
+def test_wb_simulation_on_the_card_matches_the_cpu(dev, wb):
+    cfg = {
+        "physics": {"flow": {"well_balancing": wb}},
+        "numerics": {"temporal": "ssprk2"},
+        "time": {"stop": 0.02, "time_step": 0.001},
+        "logging": {"level": "none"},
+        "output": {"time_series": {"boundary_fluxes": 10}},
+        "regions": [{"name": "all", "grid_region_id": 1}],
+        "initial_conditions": [{"region": "all", "flow": "bump"}],
+        "boundaries": [{"name": "right", "grid_boundary_id": 2}],
+        "boundary_conditions": [{"boundaries": ["right"], "flow": "out"}],
+        "flow_conditions": [
+            {"name": "bump", "type": "dirichlet",
+             "height": "0.1 + 0.05*exp(-20*((x-1)^2+(y-0.25)^2))",
+             "x_momentum": 0, "y_momentum": 0},
+            {"name": "out", "type": "critical-outflow"}],
+    }
+    mesh = structured_tri(64, 16, 0.0, 2.0, 0.0, 0.5, z_fn=lambda x, y:
+                          0.05 * np.sin(3 * x) * np.cos(5 * y))
+    mesh.regions["__id_1"] = np.arange(mesh.num_cells, dtype=np.int32)
+    sims = [Simulation(config_from_dict(cfg).validate(), mesh=mesh, device=d)
+            for d in (dev, "cpu")]
+    kernels.reset_launch_counts()
+    for sim in sims:
+        sim.run()
+    gpu, cpu = sims
+    assert gpu.step == cpu.step == 20
+    for name in ("q", "bflux_accum"):
+        got = getattr(gpu, name) if name != "q" else gpu.get_solution()
+        want = getattr(cpu, name) if name != "q" else cpu.get_solution()
+        assert rel(torch.as_tensor(got), torch.as_tensor(want)) <= 1e-10
+    # ssprk2: two stages a step, the Courant fold once; K5 before each K1a
+    k5 = 40 if wb == "bs2002" else 0
+    assert launches() == [40, 40, 20, 0, 0, 0, 0, 0, 0, k5]
