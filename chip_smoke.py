@@ -116,11 +116,29 @@ Phases, each printing as it goes; any failure exits non-zero:
    (fault 19), so its rows and its max |hu|, |hv| after 100 steps are
    printed beside those without well-balancing.
 
+8. Row strips (the raster in parallel.n_devices = 4 strips of 352 rows,
+   all on the one card through an explicit device list; halo rows copied
+   between stages). The phase-4 deck in strips through `run_main_path`: 10
+   steps on the kernels against the plain strip versions (1e-4, every
+   row); then --steps euler steps with the launch counts set to 0 just
+   before (K2, K1c and boundary-only K1a once per strip and step), the
+   state and volume checks, and the end state bit for bit phase 4's
+   single strip (q, t, Courant number, boundary-flux accumulator); wall
+   ms/step beside phase 4's. Then phase 5's NT = 3 deck (euler) and phase
+   6's second-order deck (ssprk2) for 24 steps each in strips, bit for
+   bit their single strips, with exact launches (K2 MUSCL faces and
+   update 2 per strip and step). Each strip kernel (K2 or K2 MUSCL in
+   strip mode, K1c, K1a) launched on an inner strip of the final state is
+   held against its plain version (2e-5; the Courant fold exact) and
+   timed beside its bound, and the halo exchange is timed per stage.
+
 Before the last line it prints the card's name and power limit and a JSON
 line {"kernels": [...]} with one row per kernel and path ("path":
 "unstructured", "raster", "unstructured+tracers", "raster+tracers" (these
 two with "nt": 3), "unstructured+muscl", "raster+muscl",
-"unstructured+hr", "unstructured+bs2002" or "unstructured+bs2002+muscl"),
+"unstructured+hr", "unstructured+bs2002", "unstructured+bs2002+muscl",
+"raster+strips4", "raster+strips4+tracers" or "raster+strips4+muscl"; a
+strip row names its strip [row0, rows, halo_lo, halo_hi]),
 each with that path's own launches, times and bound, and "timers" naming
 the timer of each time ("profiler", or "cuda events" where torch.profiler
 recorded no device time); the last line is
@@ -210,6 +228,8 @@ SOURCES = {"swe_edge_flux": _CSRC + "swe_edge_flux.cu",
            "swe_raster_muscl_update": _CSRC + "swe_raster_muscl.cu",
            "swe_eta_vertex": _CSRC + "swe_eta_vertex.cu"}
 _SLOTTED = "rdycore_tpu/ops/pallas/slotted.py"
+# the per-shard kernel call of the row-strip sharded raster stepper
+_SHARDED = "rdycore_tpu/ops/pallas/structured_step.py:1211"
 REPLACES = {"swe_edge_flux": _SLOTTED + ":2463",
             "swe_cell_stage": _SLOTTED + ":2463",
             "courant_argmax": _SLOTTED + ":2463",
@@ -224,8 +244,27 @@ REPLACES = {"swe_edge_flux": _SLOTTED + ":2463",
             "swe_eta_vertex": "rdycore_tpu/ops/pallas/routed.py:264"}
 
 
+# steady-state (ms/step, cell-updates/s) of each path `run_main_path` drove,
+# and the final state of phase 4's raster run, which phase 8 must reproduce
+STEADY = {}
+REFERENCE = {}
+STRIPS = 4  # phase 8: row strips on the one card
+
+
 def log(*args):
     print(*args, flush=True)
+
+
+def final_state(sim):
+    """(q, t, Courant number, boundary-flux accumulator) of a run."""
+    return (sim.get_solution(), sim.t, sim.prev_max_courant,
+            sim.bflux_accum.copy())
+
+
+def same_state(a, b):
+    """Whether two `final_state`s are equal bit for bit."""
+    return (np.array_equal(a[0], b[0]) and a[1] == b[1] and a[2] == b[2]
+            and np.array_equal(a[3], b[3]))
 
 
 def nvidia_smi_line() -> str:
@@ -371,7 +410,13 @@ def ptxas_summary(report):
                 what += [f"limiter {c}" for c in lims if c != "0"]
                 what += [{"1": "hr", "2": "bs2002"}[c] for c in wb
                          if c != "0"]
-                if "Lb1" in args:
+                flags = re.findall(r"Lb(\d)", args)
+                if "raster" in entry:
+                    # raster_step<nt, upwind, strip>, raster_muscl<.., strip>
+                    what += [w for w, f in zip(
+                        (["upwind"] if "raster_step" in entry else [])
+                        + ["strip"], flags) if f == "1"]
+                elif "1" in flags:
                     what += ["hr" if "cell_stage" in entry else "upwind"]
                 spills = re.findall(r"(\d+) bytes spill", spill)
                 out.append(f"{k.group(1)}<{', '.join(what)}>: {m.group(1)} "
@@ -757,8 +802,12 @@ def rows_rel_err(a, b):
 
 
 def path_operator(sim):
-    """The operator whose kernels the simulation's steps launch."""
-    return sim._structured["op"] if sim._structured else sim.operator
+    """The operator whose kernels the simulation's steps launch (the first
+    strip's, on a strip deck)."""
+    if not sim._structured:
+        return sim.operator
+    op = sim._structured["op"]
+    return op[0] if isinstance(op, list) else op
 
 
 def run_main_path(path, make_sim, steps, per_step, check):
@@ -821,6 +870,7 @@ def run_main_path(path, make_sim, steps, per_step, check):
                    {k: n * steps for k, n in per_step.items()})
     check(sim, q0)
     rate = n_steady * sim.q.shape[1] / t_steady
+    STEADY[path] = (1e3 * t_steady / n_steady, rate)
     log(f"  [{card}] setup {t_setup:.2f} s; first interval {t_first:.3f} s "
         f"({s_first} steps); steady state {t_steady:.3f} s for {n_steady} "
         f"steps = {1e3 * t_steady / n_steady:.4f} ms/step, {rate:.4e} "
@@ -947,17 +997,18 @@ def plain_raster_operator(op):
         def step(self, q, dt, src=None, bc_vals=None, **mode):
             if self.second_order:
                 fx, fy, cmax = raster_muscl_faces_plain(
-                    self.plan, q, bc_vals, self.limiter)
-                s = donor_factors(self.plan, q, fx, fy, dt)
+                    self.plan, q, bc_vals, self.limiter, self.strip)
+                s = donor_factors(self.plan, q, fx, fy, dt, self.strip)
                 self.donor_counts.append(int((s < 1.0).sum()))
                 out, prim = raster_muscl_update_plain(
                     self.plan, q, fx, fy, self.dz_dx, self.dz_dy,
-                    self.mannings_n, dt, src=src, **mode)
+                    self.mannings_n, dt, src=src, strip=self.strip, **mode)
                 return RasterStepOut(out, prim, cmax)
             return swe_raster_step_plain(
                 self.plan, q, self.dz_dx, self.dz_dy, self.mannings_n, dt,
                 src=src, bc_vals=bc_vals, num_sediment=self.num_sediment,
-                upwind=self.riemann == "upwind_roe", **mode)
+                upwind=self.riemann == "upwind_roe", strip=self.strip,
+                **mode)
 
         def courant_max(self, cmax_blocks, dt, run_max, run_idx):
             return courant_argmax_plain(cmax_blocks, dt, run_max, run_idx)
@@ -1004,6 +1055,9 @@ def phase_raster(steps, errs, dev, mesh):
         lambda n, plain=False: raster_simulation(n, dev, mesh, plain=plain),
         steps, {"swe_edge_flux": 1, "courant_argmax": 1, "swe_raster_step": 1},
         lambda sim, q0: check_state_and_budget(sim, q0, area))
+    # phase 8 runs the same steps in row strips and must end here bit for
+    # bit
+    REFERENCE["raster"] = final_state(sim)
 
     # ssprk3 (stage mode with qA) and rk4 (rhs mode) at full size
     for scheme, per_step in (("ssprk3", 3), ("rk4", 4)):
@@ -1430,15 +1484,21 @@ def muscl_bytes(op, q_bytes, s):
     }
 
 
-def raster_muscl_bytes(nx, ny, blocks, s):
-    """Bytes K2 MUSCL must move: faces reads q and writes the six face
-    planes and the block maxima; update (an euler stage with the
-    primitives) reads q, the faces, three geometry planes and dt and writes
-    out and prim."""
-    C, faces = nx * ny, 3 * (ny * (nx + 1) + (ny + 1) * nx)
-    return {"swe_raster_muscl_faces": s * (3 * C + faces + blocks),
-            "swe_raster_muscl_update": s * (3 * C + faces + 3 * C + 1
-                                            + 6 * C)}
+def raster_muscl_bytes(nx, ny, blocks, s, strip=None):
+    """Bytes K2 MUSCL must move over ny rows: faces reads q and writes
+    the six face planes and the block maxima; update (an euler stage with
+    the primitives) reads q, the faces, three geometry planes and dt and
+    writes out and prim. On a strip of ny owned rows, faces also reads the
+    halo rows and writes the faces of its halo face rows, and update reads
+    the h of those rows' cells."""
+    halo = 0 if strip is None else strip.halo_lo + strip.halo_hi
+    nf = ny + (0 if strip is None else
+               int(strip.halo_lo > 0) + int(strip.halo_hi > 0))
+    C, faces = nx * ny, 3 * (nf * (nx + 1) + (nf + 1) * nx)
+    return {"swe_raster_muscl_faces": s * (3 * (ny + halo) * nx + faces
+                                           + blocks),
+            "swe_raster_muscl_update": s * (3 * C + (nf - ny) * nx + faces
+                                            + 3 * C + 1 + 6 * C)}
 
 
 def phase_muscl_kernels(seed, errs, dev):
@@ -2258,6 +2318,218 @@ def lake_at_rest(dev, mesh):
             raise SystemExit(f"{wb} lake at rest is not finite: {out[wb]}")
 
 
+# ------------------------------------------------------------------ phase 8
+def strip_simulation(steps, dev, mesh, scheme="euler", plain=False,
+                     config=dam_break_config):
+    """`config`'s dam break on fused_structured in STRIPS row strips, all
+    on the one card (parallel.n_devices with an explicit device list), its
+    kernels replaced by their plain versions when `plain`."""
+    from rdycore_tpu_torch import Simulation
+    from rdycore_tpu_torch.ops.structured import make_fused_structured_stepper
+
+    cfg = config(steps, "fused_structured", scheme)
+    cfg.parallel.n_devices = STRIPS
+    sim = Simulation(cfg, mesh=mesh, device=dev,
+                     strip_devices=[dev] * STRIPS)
+    st = sim._structured
+    if not st.get("strips") or len(st["op"]) != STRIPS:
+        raise SystemExit("the strip deck did not take the row-strip path")
+    if plain:
+        st["op"] = [plain_raster_operator(o) for o in st["op"]]
+        st["adv"] = make_fused_structured_stepper(
+            st["op"], st["scheme"], accumulate=st["accumulate"])
+    return sim
+
+
+def strip_kernel_rows(card, sim, path, launches, dev, dt, nt=0):
+    """The kernels of a strip run, each launched on an inner strip (halo
+    rows on both sides) of the run's final state, held against its plain
+    version there and timed beside its bound: the {"kernels": ...} rows of
+    `path`; and the halo exchange of all strips, timed per stage."""
+    from rdycore_tpu_torch.ops.kernels import raster_muscl as rm
+    from rdycore_tpu_torch.ops.kernels.courant import courant_argmax_plain
+    from rdycore_tpu_torch.ops.kernels.edge_flux import swe_edge_flux_plain
+    from rdycore_tpu_torch.ops.kernels.raster_step import swe_raster_step_plain
+    from rdycore_tpu_torch.ops.strips import exchange, split_rows
+
+    f32 = torch.float32
+    ops = sim._structured["op"]
+    strips = [o.strip for o in ops]
+    plan = ops[0].plan
+    nx = plan.nx
+    bufs = split_rows(sim.q.to(f32), strips, [dev] * STRIPS, nx)
+    op, b, st = ops[1], bufs[1], strips[1]
+    geo = (op.dz_dx, op.dz_dy, op.mannings_n)
+    bv = sim.boundary_values.to(f32)[:, op.bnd_idx]
+    dt_t = torch.tensor(dt, dtype=f32, device=dev)
+    stage = dict(stage=(0.0, 1.0, 1.0), emit_prim=True)
+    sz, C = 4, st.rows * nx
+    if op.second_order:
+        fk = rm.swe_raster_muscl_faces(plan, b, None, op.limiter, st)
+        fp = rm.raster_muscl_faces_plain(plan, b, None, op.limiter, st)
+        uk = rm.swe_raster_muscl_update(plan, b, *fp[:2], *geo, dt_t,
+                                        strip=st, **stage)
+        up = rm.raster_muscl_update_plain(plan, b, *fp[:2], *geo, dt_t,
+                                          strip=st, **stage)
+        pairs = {"swe_raster_muscl_faces": list(zip(fk, fp)),
+                 "swe_raster_muscl_update": [
+                     (st.owned(uk[0]), st.owned(up[0])),
+                     (uk[1], up[1])]}
+        blocks = fk[2]
+        calls = {
+            "swe_raster_muscl_faces": (
+                lambda: rm.swe_raster_muscl_faces(plan, b, None, op.limiter,
+                                                  st),
+                lambda: rm.raster_muscl_faces_plain(plan, b, None,
+                                                    op.limiter, st), None),
+            "swe_raster_muscl_update": (
+                lambda: rm.swe_raster_muscl_update(plan, b, *fk[:2], *geo,
+                                                   dt_t, strip=st, **stage),
+                lambda: rm.raster_muscl_update_plain(
+                    plan, b, *fk[:2], *geo, dt_t, strip=st, **stage), None)}
+        nbytes = raster_muscl_bytes(nx, st.rows, blocks.numel(), sz, st)
+        n_face = fk[0].shape[1] * nx
+        nops = {"swe_raster_muscl_faces": OPS_PER_MUSCL_FACES_CELL * n_face,
+                "swe_raster_muscl_update": OPS_PER_MUSCL_UPDATE_CELL * C}
+        kernel_names = ("swe_raster_muscl_faces", "swe_raster_muscl_update")
+    else:
+        got = op.step(b, dt_t, **stage)
+        want = swe_raster_step_plain(plan, b, *geo, dt_t,
+                                     num_sediment=op.num_sediment, strip=st,
+                                     **stage)
+        pairs = {"swe_raster_step": [
+            (st.owned(got.out), st.owned(want.out)),
+            (got.prim, want.prim), (got.cmax, want.cmax)]}
+        blocks = got.cmax
+        calls = {"swe_raster_step": (
+            lambda: op.step(b, dt_t, **stage),
+            lambda: swe_raster_step_plain(
+                plan, b, *geo, dt_t, num_sediment=op.num_sediment, strip=st,
+                **stage), None)}
+        # K2's bytes over the owned rows, and the halo rows it reads
+        nbytes = {"swe_raster_step": raster_step_bytes(
+            C, 3 + nt, blocks.numel(), sz)
+            + sz * (3 + nt) * (st.halo_lo + st.halo_hi) * nx}
+        nops = {"swe_raster_step": (
+            OPS_PER_RASTER_CELL + nt * OPS_PER_TRACER["swe_raster_step"]) * C}
+        kernel_names = ("swe_raster_step",)
+    # K1c on the strip's block maxima, K1a on its boundary edges
+    run = (torch.zeros((), dtype=f32, device=dev),
+           torch.zeros((), dtype=torch.int32, device=dev))
+    mk, ik = op.courant_max(blocks, dt_t, *run)
+    mp, ip = courant_argmax_plain(blocks)
+    th, ta = plan.tiny_h, plan.h_anuga
+    fbk = op.boundary_fluxes(b[:3], bv[:3])
+    fbp = swe_edge_flux_plain(op.bnd, b[:3], bv[:3], th, ta)[0][:, :-1]
+    pairs["swe_edge_flux"] = [(fbk[r], fbp[r]) for r in range(3)]
+    rel = {k: max(rel_err(g, w) for g, w in v) for k, v in pairs.items()}
+    err = {k: max(abs_err(g, w) for g, w in v) for k, v in pairs.items()}
+    exact = float(mk) == float(mp) and int(ik) == int(ip)
+    err["courant_argmax"] = abs(float(mk) - float(mp))
+    log(f"  strip {list(st)} kernels vs plain on the {path} path "
+        f"(relative): {rel}; Courant fold {'exact' if exact else 'DIFFERS'}")
+    if not (exact and all(v <= TOL[f32] for v in rel.values())):
+        raise SystemExit(f"{path} strip kernel check failed")
+    Eb = op.bnd.bnd_left.shape[0]
+    calls["courant_argmax"] = (lambda: op.courant_max(blocks, dt_t, *run),
+                               lambda: courant_argmax_plain(blocks, dt_t,
+                                                            *run),
+                               lambda: torch.max(blocks, 0))
+    calls["swe_edge_flux"] = (
+        lambda: op.boundary_fluxes(b[:3], bv[:3]),
+        lambda: swe_edge_flux_plain(op.bnd, b[:3], bv[:3], th, ta), None)
+    nbytes["courant_argmax"] = courant_bytes(blocks.numel(), sz)
+    nbytes["swe_edge_flux"] = edge_flux_bytes(
+        0, Eb, 3 * sz * int(torch.unique(op.bnd.bnd_left).numel()), sz)
+    nops["courant_argmax"] = OPS_PER_VALUE * blocks.numel()
+    nops["swe_edge_flux"] = OPS_PER_EDGE * Eb
+    replaces = dict(REPLACES, courant_argmax=_SHARDED,
+                    swe_edge_flux=_SLOTTED + ":1254",
+                    **{k: _SHARDED for k in kernel_names})
+    extra = dict(strip=list(st), strips=STRIPS, **({"nt": nt} if nt else {}))
+    # the strip modes run only here: their own errors
+    rows = [kernel_row(card, name, path, fns, launches[name], err[name],
+                       nbytes[name], nops[name], f32, replaces, **extra)
+            for name, fns in calls.items()]
+    ex_ms, timer = device_time(lambda: exchange(bufs, strips, nx))
+    ex_bytes = sum(2 * sz * b.shape[0] * (s.halo_lo + s.halo_hi) * nx
+                   for b, s in zip(bufs, strips))
+    log(f"  [{card}] halo exchange on the {path} path ({2 * (STRIPS - 1)} "
+        f"copies of {st.halo_lo} rows of {b.shape[0]} state rows): device "
+        f"{ex_ms:.4f} ms per stage ({timer}), {ex_bytes / 1e6:.3f} MB "
+        f"moved, bound {1e3 * ex_bytes / HBM_BYTES_PER_S:.4f} ms")
+    return rows
+
+
+def phase_strips(steps, dev, mesh):
+    """Phase 8: the raster main path in STRIPS row strips on the one card,
+    bit for bit phase 4's single strip, then the tracer and second-order
+    decks in strips against their single strips, and each strip kernel
+    held against its plain version and timed at a strip's shapes."""
+    from rdycore_tpu_torch.ops import kernels
+
+    card = nvidia_smi_line()
+    area = mesh.cell_area
+    path = f"raster+strips{STRIPS}"
+    log(f"== phase 8: raster main path in {STRIPS} row strips on one card "
+        f"(fused_structured, parallel.n_devices: {STRIPS}, an explicit "
+        f"device list), dam break on {mesh.num_cells:,} cells, f32")
+
+    def check(sim, q0):
+        check_state_and_budget(sim, q0, area)
+        same = same_state(final_state(sim), REFERENCE["raster"])
+        log(f"  {STRIPS} strips against phase 4's single strip after "
+            f"{sim.step} steps (q, t, Courant number, boundary-flux "
+            f"accumulator): {'bit for bit' if same else 'DIFFERENT'}")
+        if not same:
+            raise SystemExit(f"{path} differs from the single strip")
+
+    main = f"raster main path in {STRIPS} strips"
+    sim, launches = run_main_path(
+        main, lambda n, plain=False: strip_simulation(n, dev, mesh,
+                                                      plain=plain),
+        steps, {"swe_raster_step": STRIPS, "courant_argmax": STRIPS,
+                "swe_edge_flux": STRIPS}, check)
+    (one_ms, one_rate), (ms, rate) = STEADY["raster main path"], STEADY[main]
+    log(f"  [{card}] steady state: {STRIPS} strips {ms:.4f} ms/step, "
+        f"{rate:.4e} cell-updates/s; phase 4's single strip {one_ms:.4f} "
+        f"ms/step, {one_rate:.4e} cell-updates/s")
+    rows = strip_kernel_rows(card, sim, path, launches, dev, DT)
+    del sim
+    # the tracer and second-order decks, a few dozen steps each
+    n = 24
+    for tag, config, scheme, dt, per_step in (
+            ("tracers", tracer_dam_break_config, "euler", DT,
+             {"swe_raster_step": 1, "courant_argmax": 1,
+              "swe_edge_flux": 1}),
+            ("muscl", muscl_dam_break_config, "ssprk2", DT_MUSCL,
+             {"swe_raster_muscl_faces": 2, "swe_raster_muscl_update": 2,
+              "courant_argmax": 1, "swe_edge_flux": 1})):
+        one = raster_simulation(n, dev, mesh, scheme, config=config)
+        one.run()
+        four = strip_simulation(n, dev, mesh, scheme, config=config)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        four.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in kernels.KERNELS}
+        check_launches(f"{path}+{tag} run of {n} steps", launches,
+                       {k: STRIPS * v * n for k, v in per_step.items()})
+        same = same_state(final_state(four), final_state(one))
+        finite = bool(np.isfinite(four.get_solution()).all())
+        log(f"  [{card}] {path}+{tag} ({scheme}): {n} steps in {wall:.3f} s "
+            f"(first interval included); against the single strip (q, t, "
+            f"Courant number, boundary-flux accumulator): "
+            f"{'bit for bit' if same else 'DIFFERENT'}; finite {finite}")
+        if not (same and finite and four.step == n):
+            raise SystemExit(f"{path}+{tag} differs from the single strip")
+        rows += strip_kernel_rows(card, four, f"{path}+{tag}", launches,
+                                  dev, dt, nt=NT if tag == "tracers" else 0)
+        del one, four
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -2281,9 +2553,10 @@ def main():
     rows += phase_tracers(args.steps, errs, dev, mesh)
     phase_muscl_kernels(args.seed, errs, dev)
     rows += phase_muscl(args.steps, errs, dev, mesh)
-    del mesh
     phase_wb_kernels(args.seed, errs, dev)
     rows += phase_wb(args.steps, errs, dev, wb_mesh())
+    rows += phase_strips(args.steps, dev, mesh)
+    del mesh
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi_line())
     print(json.dumps({"kernels": rows}))

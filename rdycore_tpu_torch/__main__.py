@@ -6,7 +6,11 @@ Usage:
                                 [--f32|--f64] [--output-dir DIR]
 
 It runs on the CUDA device, or with --cpu on the CPU (the kernels' plain
-PyTorch versions). Without a CUDA device and without --cpu it fails.
+PyTorch versions). Without a CUDA device and without --cpu it fails. A
+fused_structured deck with parallel.n_devices = P > 1 runs in P row
+strips on cuda:0..P-1 (a ConfigError with fewer cards), or on the CPU
+with --cpu. Several strips on one card are asked for through the
+library: Simulation(cfg, strip_devices=["cuda:0"] * P).
 """
 
 from __future__ import annotations

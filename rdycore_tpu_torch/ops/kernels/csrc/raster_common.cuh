@@ -59,10 +59,10 @@ __device__ __forceinline__ float nanmax(float a, float b) {
   return (a > b || a != a) ? a : b;
 }
 
-// The flow RHS of cell c with state s from its flux divergence (dh, dhu,
+// The flow RHS of the cell with state s from its flux divergence (dh, dhu,
 // dhv): bed slope and semi-implicit Manning friction (wet at h >= tiny_h)
 // and the rain rate src[c] (src may be NULL) on the h row (_kernel
-// :579-599). cd, uu and vv are kept for the tracer sources. The planes are
+// :579-599); c indexes the owned rows' planes dzx, dzy, mann and src. cd, uu and vv are kept for the tracer sources. The planes are
 // read here, where each value is first needed, as K2 always read them.
 struct FlowRhs {
   float rh, rhu, rhv, cd, uu, vv;
@@ -147,6 +147,20 @@ inline bool raster_launch_ok(int64_t nx, int64_t ny, int bx, int by) {
   const int64_t gx = (nx + bx - 1) / bx, gy = (ny + by - 1) / by;
   return bx * by <= kRasterThreads && (bx * by) % 32 == 0 && nx >= 1 &&
          ny >= 1 && gy <= 65535 && gx <= 2147483647;
+}
+
+// Row strips. A launch owns the rows [row0, row0 + rows) of a raster of ny
+// rows, held in a strip buffer of halo_lo + rows + halo_hi rows: halo_lo
+// rows below the owned ones, copies of the strip beneath, and halo_hi rows
+// above. A strip's bottom (top) is the raster's wall exactly where it has
+// no halo rows there; elsewhere a kernel that reads `depth` rows beyond its
+// own needs that many halo rows. The whole raster is the strip (0, ny, 0,
+// 0), whose buffer is the raster itself.
+inline bool strip_ok(int64_t ny, int64_t row0, int64_t rows, int halo_lo,
+                     int halo_hi, int depth) {
+  return row0 >= 0 && rows >= 1 && row0 + rows <= ny &&
+         (row0 == 0 ? halo_lo == 0 : halo_lo >= depth) &&
+         (row0 + rows == ny ? halo_hi == 0 : halo_hi >= depth);
 }
 
 }  // namespace rdy

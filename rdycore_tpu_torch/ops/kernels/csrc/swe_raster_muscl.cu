@@ -36,6 +36,21 @@
 // Each face is solved once. Max is exact and order-free, no sum uses
 // atomics: the result does not depend on the launch configuration.
 //
+// Strip mode: one launch pair per row strip replaces the same kernel run
+// per shard by make_sharded_fused_structured_stepper(second_order=True)
+// (:1019, pallas_call :1211). The strip buffer carries 3 halo rows where
+// its bottom or top is not the raster's wall (the TPU stepper's HR = 3,
+// :1144-1148): faces also solves the faces of one halo row below and
+// above, since the donor factor of a halo cell scales the face it shares
+// with an owned cell, and that factor needs all four of the halo cell's
+// faces; its south (north) face needs the gradient of the next halo row,
+// which reads the third. The gradients' one-sidedness, the wall faces and
+// the donors' presence test the cell's global row (the TPU kernel's masks
+// on global rows, :250-261, :354-393, :465-473, :527-531), and the
+// y face between two halo rows goes through the same y_face as the
+// north face of that row on the whole raster, so strips reproduce the
+// single launch bit for bit.
+//
 // Bound: device memory. faces reads the 3 state planes and writes 6 face
 // planes (plus the block maxima), update reads the 3 state planes, the 6
 // face planes, 3 geometry planes (and the rain plane and qA when given)
@@ -119,22 +134,59 @@ __device__ __forceinline__ void store3(float* __restrict__ p, int64_t plane,
   p[2 * plane + at] = f[2];
 }
 
+// the MUSCL face between the cell s at c (raster row g) and the cell
+// above it, neither on the raster's top row: the normal gradients of both
+// from their rows below and above (where the raster has them), then the
+// limited face (the north face of row g, the south face of row g + 1)
 template <int kLim>
+__device__ __forceinline__ void y_face(const float* __restrict__ q,
+                                       int64_t C, int64_t c, int64_t g,
+                                       const Cell& s, int64_t nx, int64_t ny,
+                                       float inv_dy, float hdy, float tiny_h,
+                                       float h_anuga, float f[3], float& a) {
+  const Cell so = g > 0 ? load_cell(q, C, c - nx) : s;
+  const Cell n = load_cell(q, C, c + nx);
+  const Cell n2 = g + 2 < ny ? load_cell(q, C, c + 2 * nx) : n;
+  float gc[3], gn[3], el[3], er[3];
+  gradient(so, s, n, g > 0, true, inv_dy, gc);
+  gradient(s, n, n2, true, g + 2 < ny, inv_dy, gn);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    el[k] = gc[k] * hdy;
+    er[k] = -gn[k] * hdy;
+  }
+  muscl_face<kLim>(s, n, el, er, 1.0f, 0.0f, tiny_h, h_anuga, f, a);
+}
+
+// one thread per cell of the face rows: the owned rows, and one halo row
+// below (above) where the strip has halo rows there, whose faces the
+// update kernel needs for the halo cells' donor factors
+template <int kLim, bool kStrip>
 __global__ void __launch_bounds__(kRasterThreads)
     swe_raster_muscl_faces_kernel(
     const float* __restrict__ q, int bc_l, int bc_r, int bc_b, int bc_t,
     const float* __restrict__ bv_l, const float* __restrict__ bv_r,
     const float* __restrict__ bv_b, const float* __restrict__ bv_t,
-    int64_t nx, int64_t ny, float tiny_h, float h_anuga, float inv_dx,
-    float inv_dy, float* __restrict__ fx, float* __restrict__ fy,
-    float* __restrict__ cmax) {
+    int64_t nx, int64_t ny, int64_t row0, int64_t rows, int64_t halo_lo,
+    int64_t x_lo, int64_t face_rows, int64_t buf_rows, float tiny_h,
+    float h_anuga, float inv_dx, float inv_dy, float* __restrict__ fx,
+    float* __restrict__ fy, float* __restrict__ cmax) {
   const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   const int64_t j = blockIdx.y * (int64_t)blockDim.y + threadIdx.y;
   float cm = 0.0f;
-  if (i < nx && j < ny) {
-    const int64_t C = nx * ny;
-    const int64_t c = j * nx + i;
-    const int64_t px = ny * (nx + 1), py = (ny + 1) * nx;
+  if (i < nx && j < face_rows) {
+    // j: the face row; r the strip's row (-1 and rows are halo rows), jb
+    // its row in the buffer, g on the raster (the whole raster, !kStrip:
+    // all four are j, and the buffer and face rows the raster's rows)
+    const int64_t r = kStrip ? j - x_lo : j;
+    const int64_t jb = kStrip ? r + halo_lo : j;
+    const int64_t g = kStrip ? row0 + r : j;
+    const bool owned = !kStrip || (r >= 0 && r < rows);
+    const int64_t nb = kStrip ? buf_rows : rows;
+    const int64_t nf = kStrip ? face_rows : rows;
+    const int64_t C = nx * nb;
+    const int64_t c = jb * nx + i;
+    const int64_t px = nf * (nx + 1), py = (nf + 1) * nx;
     const float hdx = 0.5f / inv_dx, hdy = 0.5f / inv_dy;
     const float zero[3] = {0.0f, 0.0f, 0.0f};
     const Cell s = load_cell(q, C, c);
@@ -142,9 +194,9 @@ __global__ void __launch_bounds__(kRasterThreads)
     // east face: the right wall's first-order ghost face, or MUSCL
     // between this cell and its east neighbour
     if (i == nx - 1) {
-      const Cell g = wall_ghost(bc_r, s, 0.0f, 1.0f, bv_r, j, ny, tiny_h,
-                                h_anuga);
-      muscl_face<kLim>(s, g, zero, zero, 0.0f, 1.0f, tiny_h, h_anuga, f, a);
+      const Cell gh = wall_ghost(bc_r, s, 0.0f, 1.0f, bv_r, jb, nb, tiny_h,
+                                 h_anuga);
+      muscl_face<kLim>(s, gh, zero, zero, 0.0f, 1.0f, tiny_h, h_anuga, f, a);
     } else {
       const Cell w = i > 0 ? load_cell(q, C, c - 1) : s;
       const Cell e = load_cell(q, C, c + 1);
@@ -160,42 +212,41 @@ __global__ void __launch_bounds__(kRasterThreads)
       muscl_face<kLim>(s, e, el, er, 0.0f, 1.0f, tiny_h, h_anuga, f, a);
     }
     store3(fx, px, j * (nx + 1) + i + 1, f);
-    cm = a * inv_dx;
+    // the Courant maximum of the owned cells' faces alone
+    if (owned) cm = a * inv_dx;
     // north face
-    if (j == ny - 1) {
-      const Cell g = wall_ghost(bc_t, s, 1.0f, 0.0f, bv_t, i, nx, tiny_h,
-                                h_anuga);
-      muscl_face<kLim>(s, g, zero, zero, 1.0f, 0.0f, tiny_h, h_anuga, f, a);
+    if (g == ny - 1) {
+      const Cell gh = wall_ghost(bc_t, s, 1.0f, 0.0f, bv_t, i, nx, tiny_h,
+                                 h_anuga);
+      muscl_face<kLim>(s, gh, zero, zero, 1.0f, 0.0f, tiny_h, h_anuga, f, a);
     } else {
-      const Cell so = j > 0 ? load_cell(q, C, c - nx) : s;
-      const Cell n = load_cell(q, C, c + nx);
-      const Cell n2 = j + 2 < ny ? load_cell(q, C, c + 2 * nx) : n;
-      float gc[3], gn[3];
-      gradient(so, s, n, j > 0, true, inv_dy, gc);
-      gradient(s, n, n2, true, j + 2 < ny, inv_dy, gn);
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        el[k] = gc[k] * hdy;
-        er[k] = -gn[k] * hdy;
-      }
-      muscl_face<kLim>(s, n, el, er, 1.0f, 0.0f, tiny_h, h_anuga, f, a);
+      y_face<kLim>(q, C, c, g, s, nx, ny, inv_dy, hdy, tiny_h, h_anuga, f,
+                   a);
     }
     store3(fy, py, (j + 1) * nx + i, f);
-    cm = nanmax(cm, a * inv_dy);
-    // the wall faces west of column 0 and south of row 0
+    if (owned) cm = nanmax(cm, a * inv_dy);
+    // the wall face west of column 0, and the south face of the first face
+    // row: the raster's bottom wall, or below the strip's lowest halo face
+    // row the face between two halo rows
     if (i == 0) {
-      const Cell g = wall_ghost(bc_l, s, 0.0f, -1.0f, bv_l, j, ny, tiny_h,
-                                h_anuga);
-      muscl_face<kLim>(g, s, zero, zero, 0.0f, 1.0f, tiny_h, h_anuga, f, a);
+      const Cell gh = wall_ghost(bc_l, s, 0.0f, -1.0f, bv_l, jb, nb, tiny_h,
+                                 h_anuga);
+      muscl_face<kLim>(gh, s, zero, zero, 0.0f, 1.0f, tiny_h, h_anuga, f, a);
       store3(fx, px, j * (nx + 1), f);
-      cm = nanmax(cm, a * inv_dx);
+      if (owned) cm = nanmax(cm, a * inv_dx);
     }
     if (j == 0) {
-      const Cell g = wall_ghost(bc_b, s, -1.0f, 0.0f, bv_b, i, nx, tiny_h,
-                                h_anuga);
-      muscl_face<kLim>(g, s, zero, zero, 1.0f, 0.0f, tiny_h, h_anuga, f, a);
+      if (!kStrip || g == 0) {
+        const Cell gh = wall_ghost(bc_b, s, -1.0f, 0.0f, bv_b, i, nx, tiny_h,
+                                   h_anuga);
+        muscl_face<kLim>(gh, s, zero, zero, 1.0f, 0.0f, tiny_h, h_anuga, f,
+                         a);
+        cm = nanmax(cm, a * inv_dy);
+      } else {
+        y_face<kLim>(q, C, c - nx, g - 1, load_cell(q, C, c - nx), nx, ny,
+                     inv_dy, hdy, tiny_h, h_anuga, f, a);
+      }
       store3(fy, py, i, f);
-      cm = nanmax(cm, a * inv_dy);
     }
   }
   rdy::store_block_max(cm, cmax);
@@ -203,54 +254,65 @@ __global__ void __launch_bounds__(kRasterThreads)
 
 __device__ __forceinline__ float relu(float x) { return x > 0.0f ? x : 0.0f; }
 
-// the donor factor of cell (i, j) of depth h (K3b's, on the raster): its
-// drain is the outgoing h-flux rate of its four faces
+// the donor factor of the cell in column i of face row jf and buffer row
+// jb (K3b's, on the raster): its drain is the outgoing h-flux rate of its
+// four faces
 __device__ __forceinline__ float donor_factor(
     const float* __restrict__ fxh, const float* __restrict__ fyh,
-    const float* __restrict__ q, int64_t nx, int64_t i, int64_t j,
-    float inv_dx, float inv_dy, float dt_s) {
-  const float fe = fxh[j * (nx + 1) + i + 1], fw = fxh[j * (nx + 1) + i];
-  const float fn = fyh[(j + 1) * nx + i], fs = fyh[j * nx + i];
+    const float* __restrict__ q, int64_t nx, int64_t i, int64_t jf,
+    int64_t jb, float inv_dx, float inv_dy, float dt_s) {
+  const float fe = fxh[jf * (nx + 1) + i + 1], fw = fxh[jf * (nx + 1) + i];
+  const float fn = fyh[(jf + 1) * nx + i], fs = fyh[jf * nx + i];
   const float drain =
       (relu(fe) + relu(-fw)) * inv_dx + (relu(fn) + relu(-fs)) * inv_dy;
   if (!(drain > 0.0f)) return 1.0f;
-  const float sc = q[j * nx + i] / (dt_s * drain);
+  const float sc = q[jb * nx + i] / (dt_s * drain);
   return sc < 0.0f ? 0.0f : (sc > 1.0f ? 1.0f : sc);
 }
 
+template <bool kStrip>
 __global__ void __launch_bounds__(kRasterThreads)
     swe_raster_muscl_update_kernel(
     const float* __restrict__ q, const float* __restrict__ qA,
     const float* __restrict__ fx, const float* __restrict__ fy,
     const float* __restrict__ dzx, const float* __restrict__ dzy,
     const float* __restrict__ mann, const float* __restrict__ src,
-    int64_t nx, int64_t ny, float tiny_h, float h_anuga, float inv_dx,
-    float inv_dy, int rhs_mode, float alpha, float beta,
-    const float* __restrict__ dt_ptr, float* __restrict__ out,
+    int64_t nx, int64_t ny, int64_t row0, int64_t rows, int64_t halo_lo,
+    int64_t x_lo, int64_t face_rows, int64_t buf_rows, float tiny_h,
+    float h_anuga, float inv_dx, float inv_dy, int rhs_mode, float alpha,
+    float beta, const float* __restrict__ dt_ptr, float* __restrict__ out,
     float* __restrict__ prim) {
   const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   const int64_t j = blockIdx.y * (int64_t)blockDim.y + threadIdx.y;
-  if (i >= nx || j >= ny) return;
-  const int64_t C = nx * ny;
-  const int64_t c = j * nx + i;
-  const int64_t px = ny * (nx + 1), py = (ny + 1) * nx;
+  if (i >= nx || j >= rows) return;
+  // j: the owned row; jf its face row, jb its buffer row, g on the raster
+  // (the whole raster, !kStrip: all four are j)
+  const int64_t jf = kStrip ? j + x_lo : j;
+  const int64_t jb = kStrip ? j + halo_lo : j;
+  const int64_t g = kStrip ? row0 + j : j;
+  const int64_t C = nx * (kStrip ? buf_rows : rows);
+  const int64_t c = jb * nx + i;
+  const int64_t nf = kStrip ? face_rows : rows;
+  const int64_t px = nf * (nx + 1), py = (nf + 1) * nx;
   const float dt = *dt_ptr;
   const float dt_s = dt > 0.0f ? dt : 1.0f;
-  const int64_t iw = j * (nx + 1) + i, ie = iw + 1;
-  const int64_t is = j * nx + i, in = is + nx;
-  const float sc = donor_factor(fx, fy, q, nx, i, j, inv_dx, inv_dy, dt_s);
+  const int64_t iw = jf * (nx + 1) + i, ie = iw + 1;
+  const int64_t is = jf * nx + i, in = is + nx;
+  const float sc =
+      donor_factor(fx, fy, q, nx, i, jf, jb, inv_dx, inv_dy, dt_s);
   // each face's donor: this cell where the flux leaves it, else the
-  // neighbour across it (a ghost beyond a wall keeps s = 1)
-  auto donor = [&](bool out_of_cell, bool has_nbr, int64_t ni, int64_t nj) {
+  // neighbour across it, a halo cell beyond the strip's bottom or top (a
+  // ghost beyond a wall keeps s = 1)
+  auto donor = [&](bool out_of_cell, bool has_nbr, int64_t ni, int64_t dj) {
     if (out_of_cell) return sc;
-    return has_nbr ? donor_factor(fx, fy, q, nx, ni, nj, inv_dx, inv_dy,
-                                  dt_s)
+    return has_nbr ? donor_factor(fx, fy, q, nx, ni, jf + dj, jb + dj,
+                                  inv_dx, inv_dy, dt_s)
                    : 1.0f;
   };
-  const float se = donor(fx[ie] > 0.0f, i + 1 < nx, i + 1, j);
-  const float sw = donor(!(fx[iw] > 0.0f), i > 0, i - 1, j);
-  const float sn = donor(fy[in] > 0.0f, j + 1 < ny, i, j + 1);
-  const float ss = donor(!(fy[is] > 0.0f), j > 0, i, j - 1);
+  const float se = donor(fx[ie] > 0.0f, i + 1 < nx, i + 1, 0);
+  const float sw = donor(!(fx[iw] > 0.0f), i > 0, i - 1, 0);
+  const float sn = donor(fy[in] > 0.0f, g + 1 < ny, i, 1);
+  const float ss = donor(!(fy[is] > 0.0f), g > 0, i, -1);
   float d[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
@@ -259,54 +321,88 @@ __global__ void __launch_bounds__(kRasterThreads)
     d[k] = -((fe - fw) * inv_dx + (fn - fs) * inv_dy);
   }
   const Cell s = load_cell(q, C, c);
+  // the geometry, rain and primitive planes hold the owned rows alone
+  const int64_t Co = nx * rows, co = j * nx + i;
   const rdy::FlowRhs fr = rdy::flow_rhs(s, d[0], d[1], d[2], dzx, dzy, mann,
-                                        src, c, dt, tiny_h);
+                                        src, co, dt, tiny_h);
   rdy::store_flow(out, qA, C, c, rhs_mode, alpha, beta, s, dt, fr);
   if (prim) {
     float u, v;
     rdy::regularized_velocity(s.h, s.hu, s.hv, tiny_h, h_anuga, u, v);
-    prim[c] = s.h;
-    prim[C + c] = u;
-    prim[2 * C + c] = v;
+    prim[co] = s.h;
+    prim[Co + co] = u;
+    prim[2 * Co + co] = v;
   }
 }
 
 }  // namespace
 
-// faces: fx[3, ny, nx + 1], fy[3, ny + 1, nx] and cmax (ceil(nx/bx) *
-// ceil(ny/by) floats, row-major by block) of the flow state q[3, ny*nx]
-// with the wall codes and Dirichlet walls' values (bv_*: [3, n], n = ny
-// for left/right, nx for bottom/top), limiter = kLimMinmod, kLimVanLeer or
-// kLimNone. update: out (rhs_mode != 0: the RHS; else alpha*qA + beta*(q +
-// dt*rhs), qA may be NULL) and prim (may be NULL) from q and those faces.
+// Both launch over the owned rows [row0, row0 + rows) of the [ny, nx]
+// raster (strip_ok of raster_common.cuh, depth 3: a halo cell's donor
+// factor needs its south face, whose lower cell's gradient reads a third
+// row; the whole raster: 0, ny, 0, 0). q and qA are strip buffers [3,
+// (halo_lo + rows + halo_hi) * nx]. The face rows are the owned rows and
+// one halo row below (x_lo = 1) and above (x_hi = 1) where the strip has
+// halo rows there: face_rows = x_lo + rows + x_hi.
+// faces: fx[3, face_rows, nx + 1], fy[3, face_rows + 1, nx] and cmax
+// (ceil(nx/bx) * ceil(face_rows/by) floats, row-major by block, over the
+// owned cells' faces) of the flow state q with the wall codes and the
+// Dirichlet walls' values (bv_l, bv_r: [3, halo_lo + rows + halo_hi] by
+// buffer row; bv_b, bv_t: [3, nx], read only by a strip that holds that
+// wall), limiter = kLimMinmod, kLimVanLeer or kLimNone. update: the owned
+// rows of out (rhs_mode != 0: the RHS; else alpha*qA + beta*(q + dt*rhs),
+// qA may be NULL), a strip buffer like q, and prim [3, rows * nx] (may be
+// NULL) from q and those faces, with dzx, dzy, mann and src [rows, nx].
 // Blocks of bx x by threads (bx * by a multiple of 32, at most 256). Both
 // return cudaGetLastError().
+namespace {
+
+struct StripRows {
+  int64_t x_lo, face_rows, buf_rows;
+};
+
+StripRows strip_rows(int64_t rows, int halo_lo, int halo_hi) {
+  const int64_t x_lo = halo_lo > 0, x_hi = halo_hi > 0;
+  return StripRows{x_lo, x_lo + rows + x_hi, halo_lo + rows + halo_hi};
+}
+
+}  // namespace
+
 extern "C" int rdy_swe_raster_muscl_faces_f32(
     const void* q, int bc_l, int bc_r, int bc_b, int bc_t, const void* bv_l,
     const void* bv_r, const void* bv_b, const void* bv_t, int64_t nx,
-    int64_t ny, float tiny_h, float h_anuga, float inv_dx, float inv_dy,
-    int limiter, void* fx, void* fy, void* cmax, int bx, int by,
-    void* stream) {
-  if (!rdy::raster_launch_ok(nx, ny, bx, by))
+    int64_t ny, int64_t row0, int64_t rows, int halo_lo, int halo_hi,
+    float tiny_h, float h_anuga, float inv_dx, float inv_dy, int limiter,
+    void* fx, void* fy, void* cmax, int bx, int by, void* stream) {
+  const StripRows sr = strip_rows(rows, halo_lo, halo_hi);
+  if (!rdy::raster_launch_ok(nx, sr.face_rows, bx, by) ||
+      !rdy::strip_ok(ny, row0, rows, halo_lo, halo_hi, 3))
     return (int)cudaErrorInvalidValue;
   const dim3 block(bx, by);
   const dim3 grid((unsigned)((nx + bx - 1) / bx),
-                  (unsigned)((ny + by - 1) / by));
+                  (unsigned)((sr.face_rows + by - 1) / by));
   auto run = [&](auto kernel) {
     kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
         (const float*)q, bc_l, bc_r, bc_b, bc_t, (const float*)bv_l,
         (const float*)bv_r, (const float*)bv_b, (const float*)bv_t, nx, ny,
+        row0, rows, (int64_t)halo_lo, sr.x_lo, sr.face_rows, sr.buf_rows,
         tiny_h, h_anuga, inv_dx, inv_dy, (float*)fx, (float*)fy,
         (float*)cmax);
     return (int)cudaGetLastError();
   };
+  // the whole raster takes the instances without strip arithmetic
+  const bool strip = halo_lo > 0 || halo_hi > 0;
   switch (limiter) {
     case rdy::kLimMinmod:
-      return run(swe_raster_muscl_faces_kernel<rdy::kLimMinmod>);
+      return strip ? run(swe_raster_muscl_faces_kernel<rdy::kLimMinmod, true>)
+                   : run(swe_raster_muscl_faces_kernel<rdy::kLimMinmod, false>);
     case rdy::kLimVanLeer:
-      return run(swe_raster_muscl_faces_kernel<rdy::kLimVanLeer>);
+      return strip
+                 ? run(swe_raster_muscl_faces_kernel<rdy::kLimVanLeer, true>)
+                 : run(swe_raster_muscl_faces_kernel<rdy::kLimVanLeer, false>);
     case rdy::kLimNone:
-      return run(swe_raster_muscl_faces_kernel<rdy::kLimNone>);
+      return strip ? run(swe_raster_muscl_faces_kernel<rdy::kLimNone, true>)
+                   : run(swe_raster_muscl_faces_kernel<rdy::kLimNone, false>);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -315,18 +411,25 @@ extern "C" int rdy_swe_raster_muscl_faces_f32(
 extern "C" int rdy_swe_raster_muscl_update_f32(
     const void* q, const void* qA, const void* fx, const void* fy,
     const void* dzx, const void* dzy, const void* mann, const void* src,
-    int64_t nx, int64_t ny, float tiny_h, float h_anuga, float inv_dx,
-    float inv_dy, int rhs_mode, float alpha, float beta, const void* dt,
-    void* out, void* prim, int bx, int by, void* stream) {
-  if (!rdy::raster_launch_ok(nx, ny, bx, by))
+    int64_t nx, int64_t ny, int64_t row0, int64_t rows, int halo_lo,
+    int halo_hi, float tiny_h, float h_anuga, float inv_dx, float inv_dy,
+    int rhs_mode, float alpha, float beta, const void* dt, void* out,
+    void* prim, int bx, int by, void* stream) {
+  const StripRows sr = strip_rows(rows, halo_lo, halo_hi);
+  if (!rdy::raster_launch_ok(nx, rows, bx, by) ||
+      !rdy::strip_ok(ny, row0, rows, halo_lo, halo_hi, 3))
     return (int)cudaErrorInvalidValue;
   const dim3 block(bx, by);
   const dim3 grid((unsigned)((nx + bx - 1) / bx),
-                  (unsigned)((ny + by - 1) / by));
-  swe_raster_muscl_update_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+                  (unsigned)((rows + by - 1) / by));
+  auto kernel = halo_lo > 0 || halo_hi > 0
+                    ? swe_raster_muscl_update_kernel<true>
+                    : swe_raster_muscl_update_kernel<false>;
+  kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)qA, (const float*)fx, (const float*)fy,
       (const float*)dzx, (const float*)dzy, (const float*)mann,
-      (const float*)src, nx, ny, tiny_h, h_anuga, inv_dx, inv_dy, rhs_mode,
+      (const float*)src, nx, ny, row0, rows, (int64_t)halo_lo, sr.x_lo,
+      sr.face_rows, sr.buf_rows, tiny_h, h_anuga, inv_dx, inv_dy, rhs_mode,
       alpha, beta, (const float*)dt, (float*)out, (float*)prim);
   return (int)cudaGetLastError();
 }

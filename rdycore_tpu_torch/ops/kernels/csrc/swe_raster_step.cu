@@ -9,6 +9,18 @@
 // source, Hairsine-Rose sediment sources, and the stage update, plus the
 // Courant maximum per block.
 //
+// Strip mode: one launch per row strip replaces the same kernel run per
+// shard by make_sharded_fused_structured_stepper (:1019, pallas_call
+// :1211), first order. A launch owns the rows [row0, row0 + rows) of the
+// raster, held in a strip buffer with halo rows below and above (one row
+// each at first order, copies of the neighbour strips' rows made between
+// launches); the tests for a neighbour take the raster's global row, so a
+// strip's bottom or top reads its halo row where it is not the raster's
+// wall, and only the raster's walls take ghosts. Each cell does the same
+// arithmetic on the same values as on the whole raster, so P strips give
+// the single launch's result bit for bit. The whole raster is the strip
+// at row 0 with no halo rows.
+//
 // One thread per cell (i = column, j = row); threads along x take
 // neighbouring addresses, so every plane is read and written coalesced. A
 // thread loads its cell and its four neighbours, forms the ghost state of a
@@ -152,7 +164,7 @@ __device__ __forceinline__ void face(const Prep& l, const Prep& r,
   for (int j = 0; j < NT; ++j) ft.m[j] *= m;
 }
 
-template <int NT, bool kUpwind>
+template <int NT, bool kUpwind, bool kStrip>
 __global__ void __launch_bounds__(kRasterThreads) swe_raster_step_kernel(
     const float* __restrict__ q, const float* __restrict__ qA,
     const float* __restrict__ dzx, const float* __restrict__ dzy,
@@ -160,27 +172,34 @@ __global__ void __launch_bounds__(kRasterThreads) swe_raster_step_kernel(
     const float* __restrict__ dt_ptr, int bc_l, int bc_r, int bc_b, int bc_t,
     const float* __restrict__ bv_l, const float* __restrict__ bv_r,
     const float* __restrict__ bv_b, const float* __restrict__ bv_t,
-    int64_t nx, int64_t ny, float tiny_h, float h_anuga, float inv_dx,
+    int64_t nx, int64_t ny, int64_t row0, int64_t rows, int64_t halo_lo,
+    int64_t buf_rows, float tiny_h, float h_anuga, float inv_dx,
     float inv_dy, int rhs_mode, float alpha, float beta, int num_sediment,
     rdy::SedimentParams<float> sp, float* __restrict__ out,
     float* __restrict__ prim, float* __restrict__ cmax) {
   const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   const int64_t j = blockIdx.y * (int64_t)blockDim.y + threadIdx.y;
   float cm = 0.0f;
-  if (i < nx && j < ny) {
-    const int64_t C = nx * ny;
-    const int64_t c = j * nx + i;
+  if (i < nx && j < rows) {
+    // j: the owned row; jb its row in the strip buffer, g on the raster
+    // (the whole raster, !kStrip: all three are j, and the buffer the
+    // raster itself)
+    const int64_t nb = kStrip ? buf_rows : rows;  // rows of the buffer
+    const int64_t C = nx * nb;
+    const int64_t jb = kStrip ? j + halo_lo : j;
+    const int64_t g = kStrip ? row0 + j : j;
+    const int64_t c = jb * nx + i;
     const Cell s = load_cell(q, C, c);
     const Cell w = i > 0 ? load_cell(q, C, c - 1)
-                         : wall_ghost(bc_l, s, 0.0f, -1.0f, bv_l, j, ny,
+                         : wall_ghost(bc_l, s, 0.0f, -1.0f, bv_l, jb, nb,
                                       tiny_h, h_anuga);
     const Cell e = i < nx - 1 ? load_cell(q, C, c + 1)
-                              : wall_ghost(bc_r, s, 0.0f, 1.0f, bv_r, j, ny,
+                              : wall_ghost(bc_r, s, 0.0f, 1.0f, bv_r, jb, nb,
                                            tiny_h, h_anuga);
-    const Cell so = j > 0 ? load_cell(q, C, c - nx)
+    const Cell so = g > 0 ? load_cell(q, C, c - nx)
                           : wall_ghost(bc_b, s, -1.0f, 0.0f, bv_b, i, nx,
                                        tiny_h, h_anuga);
-    const Cell no = j < ny - 1 ? load_cell(q, C, c + nx)
+    const Cell no = g < ny - 1 ? load_cell(q, C, c + nx)
                                : wall_ghost(bc_t, s, 1.0f, 0.0f, bv_t, i, nx,
                                             tiny_h, h_anuga);
     // tracer masses of the cell and its neighbours, then concentrations
@@ -190,21 +209,21 @@ __global__ void __launch_bounds__(kRasterThreads) swe_raster_step_kernel(
       cc = conc<NT>(s.h, mc, tiny_h);
       cw = conc<NT>(w.h,
                     i > 0 ? load_hc<NT>(q, C, c - 1)
-                          : ghost_hc<NT>(bc_l, s.h, mc, w.h, bv_l, j, ny,
+                          : ghost_hc<NT>(bc_l, s.h, mc, w.h, bv_l, jb, nb,
                                          tiny_h),
                     tiny_h);
       ce = conc<NT>(e.h,
                     i < nx - 1 ? load_hc<NT>(q, C, c + 1)
-                               : ghost_hc<NT>(bc_r, s.h, mc, e.h, bv_r, j,
-                                              ny, tiny_h),
+                               : ghost_hc<NT>(bc_r, s.h, mc, e.h, bv_r, jb,
+                                              nb, tiny_h),
                     tiny_h);
       cs = conc<NT>(so.h,
-                    j > 0 ? load_hc<NT>(q, C, c - nx)
+                    g > 0 ? load_hc<NT>(q, C, c - nx)
                           : ghost_hc<NT>(bc_b, s.h, mc, so.h, bv_b, i, nx,
                                          tiny_h),
                     tiny_h);
       cnn = conc<NT>(no.h,
-                     j < ny - 1 ? load_hc<NT>(q, C, c + nx)
+                     g < ny - 1 ? load_hc<NT>(q, C, c + nx)
                                 : ghost_hc<NT>(bc_t, s.h, mc, no.h, bv_t, i,
                                                nx, tiny_h),
                      tiny_h);
@@ -227,15 +246,18 @@ __global__ void __launch_bounds__(kRasterThreads) swe_raster_step_kernel(
     const float dhu = -((fe[1] - fw[1]) * inv_dx + (fn[1] - fs[1]) * inv_dy);
     const float dhv = -((fe[2] - fw[2]) * inv_dx + (fn[2] - fs[2]) * inv_dy);
 
-    // semi-implicit bed slope and Manning friction (_kernel :579-599)
+    // semi-implicit bed slope and Manning friction (_kernel :579-599);
+    // the geometry, rain and primitive planes hold the owned rows alone
     const float dt = *dt_ptr;
+    const int64_t Co = nx * rows;
+    const int64_t co = j * nx + i;
     const rdy::FlowRhs fr =
-        rdy::flow_rhs(s, dh, dhu, dhv, dzx, dzy, mann, src, c, dt, tiny_h);
+        rdy::flow_rhs(s, dh, dhu, dhv, dzx, dzy, mann, src, co, dt, tiny_h);
     rdy::store_flow(out, qA, C, c, rhs_mode, alpha, beta, s, dt, fr);
     if (prim) {
-      prim[c] = s.h;
-      prim[C + c] = pc.u;
-      prim[2 * C + c] = pc.v;
+      prim[co] = s.h;
+      prim[Co + co] = pc.u;
+      prim[2 * Co + co] = pc.v;
     }
     if constexpr (NT > 0) {
       // tracer rows (_kernel :601-641): the divergence, Hairsine-Rose
@@ -264,7 +286,7 @@ __global__ void __launch_bounds__(kRasterThreads) swe_raster_step_kernel(
           if (qA) o = alpha * qA[r] + o;
           out[r] = o;
         }
-        if (prim) prim[r] = ck;
+        if (prim) prim[(3 + k) * Co + co] = ck;
       }
     }
   }
@@ -274,39 +296,54 @@ __global__ void __launch_bounds__(kRasterThreads) swe_raster_step_kernel(
 
 }  // namespace
 
-// One launch over the [ny, nx] raster with blocks of bx x by threads
-// (bx * by a multiple of 32, at most 256); cmax holds ceil(nx/bx) *
-// ceil(ny/by) floats, row-major by block. rhs_mode != 0 writes the RHS to
-// out, else the stage alpha*qA + beta*(q + dt*rhs). nt: tracer rows of q,
-// qA, the Dirichlet walls' values, out and prim beyond (h, hu, hv), the
-// first num_sediment of them sediment classes with the Hairsine-Rose
-// parameters kp, ws, tau_ce, tau_cd, rhow; upwind != 0 takes upwind-Roe
-// tracer fluxes. Returns cudaGetLastError().
+// One launch over the owned rows [row0, row0 + rows) of the [ny, nx]
+// raster (strip_ok of raster_common.cuh, depth 1; the whole raster: 0, ny,
+// 0, 0) with blocks of bx x by threads (bx * by a multiple of 32, at most
+// 256); cmax holds ceil(nx/bx) * ceil(rows/by) floats, row-major by block.
+// q, qA and out are strip buffers [ndof, (halo_lo + rows + halo_hi) * nx],
+// of which out's owned rows are written; dzx, dzy, mann, src [rows, nx]
+// and prim [ndof, rows * nx] hold the owned rows; the Dirichlet values
+// bv_l, bv_r [ndof, halo_lo + rows + halo_hi] follow the buffer's rows,
+// bv_b and bv_t [ndof, nx] are read only by a strip that holds that wall.
+// A neighbour row beyond the strip is its halo row, the wall ghost only on
+// the raster's bottom and top. rhs_mode != 0 writes the RHS to out, else
+// the stage alpha*qA + beta*(q + dt*rhs). nt: tracer rows of q, qA, the
+// Dirichlet walls' values, out and prim beyond (h, hu, hv), the first
+// num_sediment of them sediment classes with the Hairsine-Rose parameters
+// kp, ws, tau_ce, tau_cd, rhow; upwind != 0 takes upwind-Roe tracer
+// fluxes. Returns cudaGetLastError().
 extern "C" int rdy_swe_raster_step_f32(
     const void* q, const void* qA, const void* dzx, const void* dzy,
     const void* mann, const void* src, const void* dt, int bc_l, int bc_r,
     int bc_b, int bc_t, const void* bv_l, const void* bv_r, const void* bv_b,
-    const void* bv_t, int64_t nx, int64_t ny, float tiny_h, float h_anuga,
-    float inv_dx, float inv_dy, int rhs_mode, float alpha, float beta,
-    int nt, int upwind, int num_sediment, float kp, float ws, float tau_ce,
-    float tau_cd, float rhow, void* out, void* prim, void* cmax, int bx,
-    int by, void* stream) {
-  if (!rdy::raster_launch_ok(nx, ny, bx, by))
+    const void* bv_t, int64_t nx, int64_t ny, int64_t row0, int64_t rows,
+    int halo_lo, int halo_hi, float tiny_h, float h_anuga, float inv_dx,
+    float inv_dy, int rhs_mode, float alpha, float beta, int nt, int upwind,
+    int num_sediment, float kp, float ws, float tau_ce, float tau_cd,
+    float rhow, void* out, void* prim, void* cmax, int bx, int by,
+    void* stream) {
+  if (!rdy::raster_launch_ok(nx, rows, bx, by) ||
+      !rdy::strip_ok(ny, row0, rows, halo_lo, halo_hi, 1))
     return (int)cudaErrorInvalidValue;
-  const int64_t gx = (nx + bx - 1) / bx, gy = (ny + by - 1) / by;
+  const int64_t gx = (nx + bx - 1) / bx, gy = (rows + by - 1) / by;
+  const int64_t buf_rows = halo_lo + rows + halo_hi;
   const dim3 block(bx, by);
   const dim3 grid((unsigned)gx, (unsigned)gy);
   const rdy::SedimentParams<float> sp{kp, ws, tau_ce, tau_cd, rhow};
+  // the whole raster takes the instance without strip arithmetic
+  const bool strip = halo_lo > 0 || halo_hi > 0;
   return rdy::dispatch_nt(nt, upwind != 0, [&](auto tag) {
     using Tag = decltype(tag);
-    swe_raster_step_kernel<Tag::nt, Tag::upwind>
-        <<<grid, block, 0, (cudaStream_t)stream>>>(
-            (const float*)q, (const float*)qA, (const float*)dzx,
-            (const float*)dzy, (const float*)mann, (const float*)src,
-            (const float*)dt, bc_l, bc_r, bc_b, bc_t, (const float*)bv_l,
-            (const float*)bv_r, (const float*)bv_b, (const float*)bv_t, nx,
-            ny, tiny_h, h_anuga, inv_dx, inv_dy, rhs_mode, alpha, beta,
-            num_sediment, sp, (float*)out, (float*)prim, (float*)cmax);
+    auto kernel = strip ? swe_raster_step_kernel<Tag::nt, Tag::upwind, true>
+                        : swe_raster_step_kernel<Tag::nt, Tag::upwind, false>;
+    kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+        (const float*)q, (const float*)qA, (const float*)dzx,
+        (const float*)dzy, (const float*)mann, (const float*)src,
+        (const float*)dt, bc_l, bc_r, bc_b, bc_t, (const float*)bv_l,
+        (const float*)bv_r, (const float*)bv_b, (const float*)bv_t, nx,
+        ny, row0, rows, (int64_t)halo_lo, buf_rows, tiny_h, h_anuga,
+        inv_dx, inv_dy, rhs_mode, alpha, beta,
+        num_sediment, sp, (float*)out, (float*)prim, (float*)cmax);
     return (int)cudaGetLastError();
   });
 }

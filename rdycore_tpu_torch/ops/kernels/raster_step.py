@@ -27,6 +27,18 @@ normal +y, walls included, 1/c_hat by rsqrt, and the pure-flow dry mask
 (both sides below tiny_h) or, with tracers, the coupled system's (either
 side above tiny_h). The sediment classes get Hairsine-Rose sources.
 
+Strips (`strip`, a `Strip`): a launch may own the rows [row0, row0 + rows)
+of the raster alone, its state held in a strip buffer [ndof, (halo_lo +
+rows + halo_hi) * nx] whose halo rows below and above copy the
+neighbouring strips' rows (ops/strips.py makes them). Where the strip's
+bottom or top is not the raster's wall, the faces there read the halo row
+instead of a ghost. The geometry and rain planes and the primitives hold
+the owned rows; `out` is a strip buffer of which the owned rows are
+written. This is the per-shard kernel of the JAX package's row-strip
+sharded stepper (`make_sharded_fused_structured_stepper`,
+structured_step.py:1019, its `pallas_call` :1211); None is the whole
+raster, whose buffer is the state itself.
+
 Modes, as K1b's:
 - stage (`stage=(alpha, beta, gamma)`, gamma = beta, optional `qA`):
   out = alpha*qA + beta*(q + dt*rhs); (0, 1, 1) without qA is the euler
@@ -58,7 +70,8 @@ _P, _I64, _INT, _F = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                       ctypes.c_float)
 _FUNCTIONS = {
     "rdy_swe_raster_step_f32": [_P] * 7 + [_INT] * 4 + [_P] * 4
-    + [_I64, _I64, _F, _F, _F, _F, _INT, _F, _F, _INT, _INT, _INT]
+    + [_I64] * 4 + [_INT, _INT]
+    + [_F, _F, _F, _F, _INT, _F, _F, _INT, _INT, _INT]
     + [_F] * 5 + [_P, _P, _P, _INT, _INT, _P],
 }
 
@@ -78,6 +91,56 @@ class StructuredPlan(NamedTuple):
     bc_right: int
     bc_bottom: int
     bc_top: int
+
+
+class Strip(NamedTuple):
+    """The rows [row0, row0 + rows) of a raster, held in a strip buffer of
+    halo_lo + rows + halo_hi rows: halo_lo rows below the owned ones, copies
+    of the strip beneath (0 where the strip's bottom is the raster's wall),
+    and halo_hi above (raster_common.cuh `strip_ok`)."""
+
+    row0: int
+    rows: int
+    halo_lo: int = 0
+    halo_hi: int = 0
+
+    @property
+    def buffer_rows(self) -> int:
+        return self.halo_lo + self.rows + self.halo_hi
+
+    def owned(self, x: torch.Tensor) -> torch.Tensor:
+        """The owned rows [n, rows, nx] of a strip buffer x [n, R * nx], a
+        view."""
+        return x.reshape(x.shape[0], self.buffer_rows, -1)[
+            :, self.halo_lo:self.halo_lo + self.rows]
+
+    def to_buffer(self, x: torch.Tensor) -> torch.Tensor:
+        """The owned rows x [n, rows * nx] in a strip buffer whose halo rows
+        are zero (x itself when the strip has no halo rows)."""
+        if not (self.halo_lo or self.halo_hi):
+            return x
+        n = x.shape[0]
+        buf = x.new_zeros((n, self.buffer_rows, x.shape[1] // self.rows))
+        buf[:, self.halo_lo:self.halo_lo + self.rows] = x.reshape(
+            n, self.rows, -1)
+        return buf.reshape(n, -1)
+
+
+def check_strip(plan: StructuredPlan, strip: Optional[Strip], depth: int,
+                what: str) -> Strip:
+    """`strip`, or the whole raster of `plan` when None; raises unless its
+    rows lie on the raster and it has at least `depth` halo rows wherever
+    its bottom or top is not the raster's wall, and none where it is."""
+    if strip is None:
+        return Strip(0, plan.ny)
+    r0, rows, lo, hi = strip
+    if not (r0 >= 0 and rows >= 1 and r0 + rows <= plan.ny
+            and (lo == 0 if r0 == 0 else lo >= depth)
+            and (hi == 0 if r0 + rows == plan.ny else hi >= depth)):
+        raise ValueError(f"{what}: strip {strip} on a raster of {plan.ny} "
+                         f"rows (halo rows >= {depth} off the walls, 0 on "
+                         "them)")
+    return strip
 
 
 # side -> (outward normal (sn, cn), its cells in [ny, nx], its ghost cells
@@ -135,18 +198,26 @@ def wall_ghost_hc(bc: int, h, hc, hg, tiny_h: float, dirichlet=None):
     return hg * torch.where(h > tiny_h, hc / hden, 0.0)
 
 
-def ghost_frame(plan: StructuredPlan, q, bc_vals=None):
-    """q [ndof, ny*nx] in a [ndof, ny + 2, nx + 2] frame whose border holds
-    the wall ghosts of `fill_ghost_frame` (structured_step.py:60-169; the
-    corners stay zero)."""
-    nx, ny, th, ta = plan.nx, plan.ny, plan.tiny_h, plan.h_anuga
+def ghost_frame(plan: StructuredPlan, q, bc_vals=None,
+                strip: Optional[Strip] = None):
+    """The strip buffer q [ndof, R*nx] (R rows; the whole raster when
+    strip is None) in a [ndof, R + 2, nx + 2] frame whose border holds the
+    wall ghosts of `fill_ghost_frame` (structured_step.py:60-169): left and
+    right of every buffer row (Dirichlet values [ndof, R] by buffer row),
+    below and above the buffer where the strip's bottom or top is the
+    raster's wall. The rest of the border stays zero."""
+    strip = strip or Strip(0, plan.ny)
+    nx, th, ta = plan.nx, plan.tiny_h, plan.h_anuga
     ndof = q.shape[0]
-    qn = q.reshape(ndof, ny, nx)
+    qn = q.reshape(ndof, strip.buffer_rows, nx)
     h, hu, hv = qn[:3]
     bc_vals = bc_vals or {}
-    frame = q.new_zeros((ndof, ny + 2, nx + 2))
+    frame = q.new_zeros((ndof, strip.buffer_rows + 2, nx + 2))
     frame[:, 1:-1, 1:-1] = qn
     for side, (sn, cn, cells, ghosts) in _SIDES.items():
+        if (side == "bottom" and strip.halo_lo
+                or side == "top" and strip.halo_hi):
+            continue
         bc = getattr(plan, f"bc_{side}")
         g = wall_ghost(bc, h[cells], hu[cells], hv[cells], sn, cn, th, ta,
                        bc_vals.get(side))
@@ -176,8 +247,9 @@ def cell_update(plan: StructuredPlan, q, div, dz_dx, dz_dy, mannings_n, dt,
     :579-656): the semi-implicit bed slope and Manning friction on the
     raw state q [ndof, ny*nx], the rain plane, Hairsine-Rose on the
     sediment classes, then the stage or rhs output and the primitives.
-    div [ndof, ny, nx] is the flux divergence."""
-    nx, ny, th = plan.nx, plan.ny, plan.tiny_h
+    div [ndof, ny, nx] is the flux divergence (ny: the rows it covers, all
+    or a strip's)."""
+    nx, ny, th = plan.nx, div.shape[1], plan.tiny_h
     ndof = q.shape[0]
     nt = ndof - 3
     qn = q.reshape(ndof, ny, nx)
@@ -236,15 +308,20 @@ def swe_raster_step_plain(
     bc_vals: Optional[Dict[str, torch.Tensor]] = None,
     stage: Optional[Tuple[float, float, float]] = None, qA=None,
     emit_prim: bool = False, num_sediment: int = 0, upwind: bool = False,
+    strip: Optional[Strip] = None,
 ) -> RasterStepOut:
     """Plain version of the kernel: the ghost frame of `fill_ghost_frame`
-    around the raster, then the TPU kernel's faces, divergence, sources and
-    update (structured_step.py:269-656) on whole planes. q with more than 3
-    rows carries tracers (the kernel's nt mode)."""
-    nx, ny, th, ta = plan.nx, plan.ny, plan.tiny_h, plan.h_anuga
+    around the raster (around the strip, with its halo rows beyond its
+    bottom and top off the walls), then the TPU kernel's faces, divergence,
+    sources and update (structured_step.py:269-656) on whole planes. q with
+    more than 3 rows carries tracers (the kernel's nt mode). The halo rows
+    of a strip's `out` are zero."""
+    strip = check_strip(plan, strip, 1, "swe_raster_step")
+    nx, ny, th, ta = plan.nx, strip.rows, plan.tiny_h, plan.h_anuga
     nt = q.shape[0] - 3
     inv_dx, inv_dy = f32(1.0 / plan.dx), f32(1.0 / plan.dy)
-    frame = ghost_frame(plan, q, bc_vals)
+    frame = ghost_frame(plan, q, bc_vals, strip)[
+        :, strip.halo_lo:strip.halo_lo + ny + 2]
     H, HU, HV = frame[:3]
     U, V = regularized_velocity(H, HU, HV, th, ta)
     if nt:
@@ -274,17 +351,25 @@ def swe_raster_step_plain(
     cx, cy = ax * inv_dx, ay * inv_dy
     cell = torch.maximum(torch.maximum(cx[:, :-1], cx[:, 1:]),
                          torch.maximum(cy[:-1], cy[1:]))
-    out, prim = cell_update(plan, q, div, dz_dx, dz_dy, mannings_n, dt,
-                            src=src, stage=stage, qA=qA, emit_prim=emit_prim,
-                            num_sediment=num_sediment)
-    return RasterStepOut(out, prim, block_max(cell, nx, ny))
+    n = q.shape[0]
+    out, prim = cell_update(plan, strip.owned(q).reshape(n, -1), div, dz_dx,
+                            dz_dy, mannings_n, dt, src=src, stage=stage,
+                            qA=None if qA is None
+                            else strip.owned(qA).reshape(n, -1),
+                            emit_prim=emit_prim, num_sediment=num_sediment)
+    return RasterStepOut(strip.to_buffer(out), prim, block_max(cell, nx, ny))
 
 
-def wall_args(plan: StructuredPlan, bc_vals, ndof: int, dev, what: str):
+def wall_args(plan: StructuredPlan, bc_vals, ndof: int, dev, what: str,
+              strip: Strip):
     """The four wall BC codes of `plan` (left, right, bottom, top) and the
-    Dirichlet walls' value planes [ndof, n] of `bc_vals` (None for the
-    other walls), checked as the raster kernels take them."""
+    Dirichlet walls' value planes of `bc_vals` ([ndof, R] by buffer row on
+    the left and right, [ndof, nx] below and above; None for the other
+    walls, and for a bottom or top that is not the strip's), checked as
+    the raster kernels take them."""
     bc_vals = bc_vals or {}
+    holds = {"left": True, "right": True, "bottom": strip.row0 == 0,
+             "top": strip.row0 + strip.rows == plan.ny}
     codes, walls = [], []
     for side in _SIDES:
         bc = getattr(plan, f"bc_{side}")
@@ -292,12 +377,12 @@ def wall_args(plan: StructuredPlan, bc_vals, ndof: int, dev, what: str):
                       bc_mod.BC_CRITICAL_OUTFLOW):
             raise ValueError(f"{what}: {side} wall BC code {bc}")
         wall = None
-        if bc == bc_mod.BC_DIRICHLET:
+        if bc == bc_mod.BC_DIRICHLET and holds[side]:
             wall = bc_vals.get(side)
             if wall is None:
                 raise ValueError(f"{what}: Dirichlet {side} wall without "
                                  "bc_vals")
-            n = plan.ny if side in ("left", "right") else plan.nx
+            n = strip.buffer_rows if side in ("left", "right") else plan.nx
             build.check(wall, f"bc_vals[{side!r}]", torch.float32,
                         (ndof, n), dev)
         codes.append(bc)
@@ -313,23 +398,27 @@ def swe_raster_step(
     stage: Optional[Tuple[float, float, float]] = None,
     qA: Optional[torch.Tensor] = None, emit_prim: bool = False,
     num_sediment: int = 0, upwind: bool = False,
+    strip: Optional[Strip] = None,
 ) -> RasterStepOut:
-    """One launch over the raster of `plan`. q [ndof, ny*nx] float32 (qA
-    the same; ndof = 3, or 3 + the tracers of which the first num_sediment
-    are sediment classes), dz_dx, dz_dy, mannings_n and the rain plane src
-    [ny, nx], dt a 0-dim tensor read on the device, bc_vals {side: [ndof,
-    n]} the prescribed (h, hu, hv and tracer masses) along each Dirichlet
-    wall (n = ny for left/right, nx for bottom/top). upwind: upwind-Roe
-    tracer fluxes."""
+    """One launch over the raster of `plan`, or over the owned rows of
+    `strip`. q [ndof, R*nx] float32, the strip buffer (R = ny on the whole
+    raster; qA the same; ndof = 3, or 3 + the tracers of which the first
+    num_sediment are sediment classes), dz_dx, dz_dy, mannings_n and the
+    rain plane src [rows, nx], dt a 0-dim tensor read on the device,
+    bc_vals {side: [ndof, n]} the prescribed (h, hu, hv and tracer masses)
+    along each Dirichlet wall (n = R for left/right, by buffer row, nx for
+    bottom/top). upwind: upwind-Roe tracer fluxes. `out` is a strip buffer
+    like q, of which the owned rows are written; prim [ndof, rows*nx]."""
     if q.device.type == "cpu":
         return swe_raster_step_plain(
             plan, q, dz_dx, dz_dy, mannings_n, dt, src=src, bc_vals=bc_vals,
             stage=stage, qA=qA, emit_prim=emit_prim,
-            num_sediment=num_sediment, upwind=upwind,
+            num_sediment=num_sediment, upwind=upwind, strip=strip,
         )
+    strip = check_strip(plan, strip, 1, "swe_raster_step")
     dev, f = q.device, torch.float32
-    nx, ny = plan.nx, plan.ny
-    C = nx * ny
+    nx, ny = plan.nx, strip.rows
+    C = nx * strip.buffer_rows
     ndof = q.shape[0]
     nt = ndof - 3
     if not 0 <= nt <= build.MAX_TRACERS:
@@ -347,11 +436,13 @@ def swe_raster_step(
         ck(src, "src", f, (ny, nx), dev)
     if qA is not None:
         ck(qA, "qA", f, (ndof, C), dev)
-    codes, walls = wall_args(plan, bc_vals, ndof, dev, "swe_raster_step")
+    codes, walls = wall_args(plan, bc_vals, ndof, dev, "swe_raster_step",
+                             strip)
     alpha, beta = _alpha_beta(stage) if stage is not None else (0.0, 0.0)
 
     out = torch.empty((ndof, C), dtype=f, device=dev)
-    prim = torch.empty((ndof, C), dtype=f, device=dev) if emit_prim else None
+    prim = (torch.empty((ndof, nx * ny), dtype=f, device=dev) if emit_prim
+            else None)
     cmax = torch.empty((num_blocks(nx, ny),), dtype=f, device=dev)
 
     def ptr(t):
@@ -362,7 +453,8 @@ def swe_raster_step(
         status = lib.rdy_swe_raster_step_f32(
             q.data_ptr(), ptr(qA), dz_dx.data_ptr(), dz_dy.data_ptr(),
             mannings_n.data_ptr(), ptr(src), dt.data_ptr(), *codes,
-            *(ptr(w) for w in walls), nx, ny, plan.tiny_h, plan.h_anuga,
+            *(ptr(w) for w in walls), nx, plan.ny, *strip, plan.tiny_h,
+            plan.h_anuga,
             f32(1.0 / plan.dx), f32(1.0 / plan.dy), int(stage is None),
             alpha, beta, nt, int(upwind), num_sediment, *SedimentParams(),
             out.data_ptr(), ptr(prim), cmax.data_ptr(),

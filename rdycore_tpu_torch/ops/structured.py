@@ -22,6 +22,16 @@ at first order, with tracers, or (flow only) at second order.
   `boundary_fluxes` (ROADMAP fault 16). Like the TPU
   stepper it runs in float32 with the time kept in float32, and nothing is
   read back to the host until the interval ends.
+- Over P row strips (`fused_strip_operators`, one operator per strip, each
+  on its own device or several on one card), the same stepper is the
+  counterpart of the JAX package's row-strip sharded stepper
+  (`make_sharded_fused_structured_stepper`, structured_step.py:1019): each
+  stage launches the raster kernels once per strip on its strip buffer
+  after the halo exchange (ops/strips.py), each strip folds its own
+  Courant maxima (K1c) and boundary fluxes (K1a on the boundary edges of
+  its owned cells), and the read-back gathers the strips in row order.
+  Every cell does the arithmetic of the single launch, so the strips give
+  its result bit for bit.
 
 State layout: q[3, ny, nx] for the operator, the package's [ndof, ny*nx]
 for the fused stepper; cell c sits at row c // nx, column c % nx.
@@ -42,14 +52,24 @@ from ..timestepping import IntervalResult
 from .kernels.courant import courant_argmax
 from .kernels.edge_flux import swe_edge_flux
 from .kernels.raster_muscl import (
+    MUSCL_HALO,
     swe_raster_muscl_faces,
     swe_raster_muscl_update,
 )
 from .kernels.raster_step import (
     RasterStepOut,
+    Strip,
     StructuredPlan,
     f32,
     swe_raster_step,
+)
+from .strips import (
+    exchange,
+    gather_rows,
+    split_rows,
+    strip_boundary_edges,
+    strip_layout,
+    strip_wall_values,
 )
 from .swe import boundary as bc_mod
 from .swe.riemann import regularized_velocity, roe_flux
@@ -286,15 +306,18 @@ def boundary_edge_arrays(a: OperatorArrays) -> OperatorArrays:
 
 @dataclasses.dataclass(eq=False)
 class FusedStructuredOperator:
-    """The kernels of the fused raster path on one raster: K2 for each step
-    or stage (K2 MUSCL with `second_order`, limited by `limiter`, flow
-    only), K1c for the Courant fold and, given `bnd` (the boundary edges
-    from `boundary_edge_arrays`), K1a for the boundary fluxes. num_tracers
-    rows follow (h, hu, hv) in the state, the first num_sediment of them
-    sediment classes; riemann "upwind_roe" upwinds their fluxes."""
+    """The kernels of the fused raster path on one raster, or on one row
+    strip of it (`strip`): K2 for each step or stage (K2 MUSCL with
+    `second_order`, limited by `limiter`, flow only), K1c for the Courant
+    fold and, given `bnd` (the boundary edges from `boundary_edge_arrays`,
+    on a strip those of its owned cells from `strip_boundary_edges`, whose
+    columns among the raster's are `bnd_idx`), K1a for the boundary fluxes.
+    num_tracers rows follow (h, hu, hv) in the state, the first
+    num_sediment of them sediment classes; riemann "upwind_roe" upwinds
+    their fluxes."""
 
     plan: StructuredPlan
-    dz_dx: torch.Tensor  # [ny, nx] float32
+    dz_dx: torch.Tensor  # [ny, nx] float32 (a strip's: [rows, nx])
     dz_dy: torch.Tensor
     mannings_n: torch.Tensor
     bnd: Optional[OperatorArrays] = None
@@ -303,29 +326,35 @@ class FusedStructuredOperator:
     riemann: str = "roe"
     second_order: bool = False
     limiter: str = "minmod"
+    strip: Optional[Strip] = None  # None: the whole raster
+    bnd_idx: Optional[torch.Tensor] = None  # None: all the raster's
 
     def __post_init__(self):
         if self.second_order and self.num_tracers:
             raise ValueError("fused raster MUSCL is flow-only")
+        if self.strip is None:
+            self.strip = Strip(0, self.plan.ny)
 
     @property
     def ndof(self) -> int:
         return 3 + self.num_tracers
 
     def step(self, q, dt, src=None, bc_vals=None, **mode):
-        """K2, or K2 MUSCL, on q [ndof, ny*nx] (mode: stage=, qA=,
+        """K2, or K2 MUSCL, on the strip buffer q [ndof, R*nx] (the state
+        [ndof, ny*nx] on the whole raster; mode: stage=, qA=,
         emit_prim=)."""
         if self.second_order:
             fx, fy, cmax = swe_raster_muscl_faces(self.plan, q, bc_vals,
-                                                  self.limiter)
+                                                  self.limiter, self.strip)
             out, prim = swe_raster_muscl_update(
                 self.plan, q, fx, fy, self.dz_dx, self.dz_dy,
-                self.mannings_n, dt, src=src, **mode)
+                self.mannings_n, dt, src=src, strip=self.strip, **mode)
             return RasterStepOut(out, prim, cmax)
         return swe_raster_step(self.plan, q, self.dz_dx, self.dz_dy,
                                self.mannings_n, dt, src=src, bc_vals=bc_vals,
                                num_sediment=self.num_sediment,
-                               upwind=self.riemann == "upwind_roe", **mode)
+                               upwind=self.riemann == "upwind_roe",
+                               strip=self.strip, **mode)
 
     def courant_max(self, cmax_blocks, dt, run_max, run_idx):
         """K1c: fold max(cmax_blocks) * dt into run_max in place."""
@@ -333,10 +362,34 @@ class FusedStructuredOperator:
 
     def boundary_fluxes(self, q, bv_edges):
         """K1a on the boundary edges: the flow-only Roe fluxes [3, Eb] of
-        the flow rows q [3, ny*nx] (bv_edges [3, >= Eb])."""
+        the flow rows q [3, R*nx] (bv_edges [3, >= Eb], the edges' own
+        columns)."""
         flux, _ = swe_edge_flux(self.bnd, q, bv_edges, self.plan.tiny_h,
                                 self.plan.h_anuga)
         return flux[:, :-1]
+
+
+def fused_strip_operators(
+    plan: StructuredPlan, dz_dx: torch.Tensor, dz_dy: torch.Tensor,
+    mannings_n: torch.Tensor, devices, bnd: Optional[OperatorArrays] = None,
+    **kw,
+):
+    """One FusedStructuredOperator per row strip of the raster, in row
+    order, strip p on devices[p] (a card may be named more than once): the
+    [ny, nx] planes cut to the strips' rows, the boundary edges `bnd` to
+    those of each strip's owned cells, the strips' halo rows as the
+    operator needs them (kw: FusedStructuredOperator's options)."""
+    halo = MUSCL_HALO if kw.get("second_order") else 1
+    ops = []
+    for s, d in zip(strip_layout(plan.ny, len(devices), halo), devices):
+        rows = slice(s.row0, s.row0 + s.rows)
+        sb, idx = (None, None) if bnd is None else strip_boundary_edges(
+            bnd, plan.nx, s, d)
+        ops.append(FusedStructuredOperator(
+            plan, *(x[rows].contiguous().to(d)
+                    for x in (dz_dx, dz_dy, mannings_n)),
+            sb, strip=s, bnd_idx=idx, **kw))
+    return ops
 
 
 _THIRD = f32(1.0 / 3.0)
@@ -353,14 +406,22 @@ FUSED_SCHEMES = tuple(FUSED_STAGES) + ("rk4",)
 
 
 def make_fused_structured_stepper(
-    op: FusedStructuredOperator, scheme: str = "euler",
-    accumulate: bool = False,
+    op, scheme: str = "euler", accumulate: bool = False,
 ) -> Callable[..., IntervalResult]:
     """advance(q [ndof, ny*nx] float32, t0, dt, n_steps, t_end, src=None,
     bc_vals=None, bv_edges=None) -> IntervalResult, all of it float32 on
     q's device. src: the rain plane [ny, nx] or None; bc_vals: {side:
     [ndof, n]} Dirichlet wall values; bv_edges: [ndof, >= Eb] boundary
     values for the boundary-flux accumulator.
+
+    `op` is a FusedStructuredOperator, or the sequence of one per row strip
+    from `fused_strip_operators`. Over strips, advance cuts q, src, bc_vals
+    and bv_edges to the strips (q into strip buffers on the strips'
+    devices), refreshes the halo rows before every stage, keeps a clock,
+    Courant maximum and accumulators per strip (the clock once per device,
+    each doing the same float32 arithmetic), and returns the strips'
+    owned rows and accumulators gathered in the raster's order on the first
+    strip's device, with the Courant number the maximum over the strips.
 
     dt_i = max(min(dt, t_end - t), 0) and t advance in float32; the Courant
     number max(cmax, cm*dt_i) takes cm from the first stage (from k1 for
@@ -379,57 +440,114 @@ def make_fused_structured_stepper(
     if scheme not in FUSED_SCHEMES:
         raise ValueError(f"fused_structured: unsupported scheme '{scheme}'")
     stages = FUSED_STAGES.get(scheme)
+    ops = list(op) if isinstance(op, (list, tuple)) else [op]
+    strips = [o.strip for o in ops]
+    devs = [o.dz_dx.device for o in ops]
+    uniq = list(dict.fromkeys(devs))  # the strips' devices, each once
+    slot = [uniq.index(d) for d in devs]  # strip -> its device's clock
+    nx, ny, ndof = ops[0].plan.nx, ops[0].plan.ny, ops[0].ndof
+    P = len(ops)
+    no_qA = [None] * P
 
     def advance(q, t0, dt, n_steps, t_end, src=None, bc_vals=None,
                 bv_edges=None):
         dev, f = q.device, torch.float32
 
-        def scalar(x):
-            return torch.as_tensor(x, dtype=f, device=dev)
+        def scalar(x, d):
+            return torch.as_tensor(x, dtype=f, device=d)
 
-        dt, t_end, tt = scalar(dt), scalar(t_end), scalar(t0)
-        cmax = scalar(0.0)
-        cidx = torch.zeros((), dtype=torch.int32, device=dev)
+        # one clock (dt, t_end, t) per device of the strips
+        clocks = [[scalar(dt, d), scalar(t_end, d), scalar(t0, d)]
+                  for d in uniq]
+        cmax = [scalar(0.0, d) for d in devs]
+        cidx = [torch.zeros((), dtype=torch.int32, device=d) for d in devs]
+        srcs = [None if src is None else
+                src[s.row0:s.row0 + s.rows].to(d)
+                for s, d in zip(strips, devs)]
+        bcs = [strip_wall_values(bc_vals, s, ny, d)
+               for s, d in zip(strips, devs)]
+        parts = list(zip(ops, slot, srcs, bcs))
+        qq = split_rows(q, strips, devs, nx)
+        bves = [None] * P
         bfa = asol = aprim = atime = None
         if accumulate:
-            if op.bnd is not None:
-                bfa = torch.zeros((op.ndof, bv_edges.shape[1]), dtype=f,
-                                  device=dev)
-            asol, aprim, atime = torch.zeros_like(q), torch.zeros_like(q), \
-                scalar(0.0)
+            bves = [None if o.bnd is None else
+                    (bv_edges if o.bnd_idx is None
+                     else bv_edges[:, o.bnd_idx.to(bv_edges.device)]).to(d)
+                    for o, d in zip(ops, devs)]
+            bfa = [None if o.bnd is None else
+                   torch.zeros((ndof, b.shape[1]), dtype=f, device=d)
+                   for o, b, d in zip(ops, bves, devs)]
+            # strip buffers: their halo rows add up copies, never read
+            asol = [torch.zeros_like(x) for x in qq]
+            aprim = [torch.zeros((ndof, s.rows * nx), dtype=f, device=d)
+                     for s, d in zip(strips, devs)]
+            atime = scalar(0.0, devs[0])
 
-        def step(qs, dt_i, **mode):
-            return op.step(qs, dt_i, src=src, bc_vals=bc_vals, **mode)
+        def step(states, dts, qA=None, **mode):
+            if P > 1:
+                exchange(states, strips, nx)
+            return [o.step(x, dts[k], src=sr, bc_vals=bc, qA=a, **mode)
+                    for (o, k, sr, bc), x, a in zip(parts, states,
+                                                    qA or no_qA)]
 
-        qq = q
+        def outs(res):
+            return [r.out for r in res]
+
+        def lin(a, b, w):  # a + b * w, strip by strip
+            return [x + y * w[k] for x, y, k in zip(a, b, slot)]
+
         for _ in range(int(n_steps)):
-            dt_i = torch.clamp_min(torch.minimum(dt, t_end - tt), 0.0)
+            dts = [torch.clamp_min(torch.minimum(c[0], c[1] - c[2]), 0.0)
+                   for c in clocks]
             if stages is not None:
-                first = step(qq, dt_i, stage=stages[0], emit_prim=accumulate)
-                qs = first.out
+                first = step(qq, dts, stage=stages[0], emit_prim=accumulate)
+                qs = outs(first)
                 for coeffs in stages[1:]:
-                    qs = step(qs, dt_i, stage=coeffs, qA=qq).out
+                    qs = outs(step(qs, dts, stage=coeffs, qA=qq))
             else:  # rk4 from rhs-mode launches
-                first = step(qq, dt_i, emit_prim=accumulate)
-                hdt = 0.5 * dt_i
-                k2 = step(qq + first.out * hdt, dt_i).out
-                k3 = step(qq + k2 * hdt, dt_i).out
-                k4 = step(qq + k3 * dt_i, dt_i).out
-                qs = qq + (dt_i / 6.0) * (first.out + 2 * k2 + 2 * k3 + k4)
-            op.courant_max(first.cmax, dt_i, cmax, cidx)
+                first = step(qq, dts, emit_prim=accumulate)
+                k1 = outs(first)
+                hdt = [0.5 * x for x in dts]
+                k2 = outs(step(lin(qq, k1, hdt), dts))
+                k3 = outs(step(lin(qq, k2, hdt), dts))
+                k4 = outs(step(lin(qq, k3, dts), dts))
+                qs = [x + (dts[k] / 6.0) * (a + 2 * b + 2 * c + e)
+                      for x, a, b, c, e, k in zip(qq, k1, k2, k3, k4, slot)]
+            for o, r, k, m, i in zip(ops, first, slot, cmax, cidx):
+                o.courant_max(r.cmax, dts[k], m, i)
             if accumulate:
-                if bfa is not None:
-                    bfa[:3] += dt_i * op.boundary_fluxes(qq[:3],
-                                                         bv_edges[:3])
-                asol += dt_i * qq
-                aprim += dt_i * first.prim
-                atime += dt_i
-            tt = tt + dt_i
+                for p, (o, k, _, _) in enumerate(parts):
+                    if bfa[p] is not None:
+                        bfa[p][:3] += dts[k] * o.boundary_fluxes(
+                            qq[p][:3], bves[p][:3])
+                    asol[p] += dts[k] * qq[p]
+                    aprim[p] += dts[k] * first[p].prim
+                atime += dts[0]
+            for c, x in zip(clocks, dts):
+                c[2] = c[2] + x
             qq = qs
+        if accumulate:
+            if all(b is None for b in bfa):
+                bfa = None
+            elif P == 1:
+                bfa = bfa[0]
+            else:  # each strip's edges into the raster's edge order
+                whole = torch.zeros((ndof, bv_edges.shape[1]), dtype=f,
+                                    device=dev)
+                for o, b in zip(ops, bfa):
+                    if b is not None:
+                        whole[:, o.bnd_idx.to(dev)] = b.to(dev)
+                bfa = whole
+            asol = gather_rows(asol, strips, nx, dev)
+            aprim = torch.cat([a.to(dev) for a in aprim], dim=1) if P > 1 \
+                else aprim[0].to(dev)
         return IntervalResult(
-            q=qq, t=tt, max_courant=cmax, courant_edge=None,
-            bflux_accum=bfa, accum_sol=asol, accum_prim=aprim,
-            accum_time=atime,
+            q=gather_rows(qq, strips, nx, dev), t=clocks[0][2].to(dev),
+            max_courant=(cmax[0] if P == 1 else torch.stack(
+                [m.to(dev) for m in cmax]).amax()),
+            courant_edge=None, bflux_accum=bfa, accum_sol=asol,
+            accum_prim=aprim, accum_time=atime,
         )
 
     return advance

@@ -1,4 +1,4 @@
-"""The Simulation object: the RDy lifecycle on one device.
+"""The Simulation object: the RDy lifecycle.
 
 The counterpart of rdycore_tpu/simulation.py for the single-device paths,
 first order, flow only or with tracers (sediment with Hairsine-Rose
@@ -6,7 +6,8 @@ sources, salinity, heat), or second order (MUSCL with the positivity
 limiter, flow only): unstructured, with or without well-balancing
 (hydrostatic reconstruction, or BS2002 flow only), and the uniform raster
 (`edge_flux_backend: structured`, first order and flow only, or
-`fused_structured`)
+`fused_structured`, also cut into `parallel.n_devices` row strips, each on
+its own device or several on one card)
 (the reference's RDy object, src/rdycore.c, src/rdysetup.c,
 src/rdyadvance.c):
 
@@ -49,6 +50,7 @@ from .ops.structured import (
     boundary_edge_arrays,
     build_structured_operator,
     detect_uniform_raster,
+    fused_strip_operators,
     make_fused_structured_stepper,
     make_structured_stepper,
 )
@@ -149,15 +151,17 @@ _PATH_REFUSALS = (
      lambda c: c.physics.flow.well_balancing not in (None, "", "none"), {
          "fused_structured": _CONFIG_ERROR, "structured": _CONFIG_ERROR}),
     ("parallel.n_devices > 1", lambda c: c.parallel.n_devices > 1, {
-        "unstructured": ("parallel.n_devices > 1", "queue 1 item 16"),
-        "fused_structured": ("parallel.n_devices > 1 on the raster",
-                             "queue 1 item 16 and queue 2 K2 row 13: the "
-                             "row-strip sharded raster kernel"),
+        "unstructured": ("parallel.n_devices > 1 on the unstructured path",
+                         "queue 1 item 16"),
         "structured": _CONFIG_ERROR}),
     ("temporal: beuler", lambda c: c.numerics.temporal == "beuler", {
-        "unstructured": ("temporal: beuler", "queue 1 item 13"),
-        "fused_structured": ("temporal: beuler on the raster",
-                             "queue 1 item 13")}),
+        "unstructured": ("temporal: beuler", "queue 1 item 13")}),
+    # row strips refuse beuler with the JAX package's ConfigError
+    # (Simulation._init_structured_backend)
+    ("temporal: beuler",
+     lambda c: c.numerics.temporal == "beuler" and c.parallel.n_devices <= 1,
+     {"fused_structured": ("temporal: beuler on the raster",
+                           "queue 1 item 13")}),
     ("temporal: ark_imex", lambda c: c.numerics.temporal == "ark_imex", {
         "unstructured": ("temporal: ark_imex", "queue 1 item 13")}),
     ("time_series.boundary_fluxes",
@@ -206,14 +210,23 @@ def load_mesh_file(path: str) -> Mesh:
 
 
 class Simulation:
-    """A configured simulation on one device."""
+    """A configured simulation: on `device` (CUDA unless "cpu"), and a
+    fused_structured deck with parallel.n_devices = P > 1 in P row strips
+    on cuda:0..P-1 (all on the CPU with device="cpu"), or on the devices
+    `strip_devices` names, one per strip, a card as often as wanted. The
+    state, sources and wall values live whole on `device` between
+    intervals (where the coupling API reads and writes them) and are cut
+    into the strips at the start of each interval and gathered at its end,
+    as the JAX package packs its shards each interval."""
 
     def __init__(
         self, config: Config, mesh: Optional[Mesh] = None,
         device: DeviceLike = None,
+        strip_devices: Optional[List[DeviceLike]] = None,
     ):
         check_slice(config)
         self.device = resolve_device(device)
+        self.strip_devices = strip_devices
         self.config = config
         self.log = Logger(config.logging.level, config.logging.file)
         self.dtype = config.dtype
@@ -349,6 +362,10 @@ class Simulation:
             "structured", "fused_structured"
         ):
             self._init_structured_backend()
+        if strip_devices is not None and not (
+                self._structured and self._structured.get("strips")):
+            raise ValueError("strip_devices: only a fused_structured deck "
+                             "with parallel.n_devices > 1 runs in strips")
 
         # ---- boundary geometry (edge centers, for BC expressions) ----
         self._bnd_centers = self._boundary_edge_centers()
@@ -685,8 +702,9 @@ class Simulation:
         mann = np.asarray(self.mannings_n).reshape(ny, nx)
         scheme = cfg.numerics.temporal
 
+        n_dev = cfg.parallel.n_devices
         if kind == "fused_structured":
-            if scheme not in FUSED_SCHEMES:
+            if scheme not in FUSED_SCHEMES + ("beuler",):
                 raise ConfigError(
                     "edge_flux_backend: fused_structured supports temporal: "
                     "euler|ssprk2|ssprk3|rk4|beuler"
@@ -696,9 +714,15 @@ class Simulation:
                     "edge_flux_backend: fused_structured supports the "
                     "semi_implicit source method only"
                 )
+            if n_dev > 1 and scheme == "beuler":
+                raise ConfigError(
+                    "edge_flux_backend: fused_structured with "
+                    "parallel.n_devices > 1 supports temporal: "
+                    "euler|ssprk2|ssprk3|rk4"
+                )
             # the TPU kernel's row tile; kept so that one deck takes the
             # same path in both packages (K2 itself needs no alignment)
-            ty = 16 if ny % 16 == 0 else 8
+            ty = 16 if ny % (16 * max(n_dev, 1)) == 0 else 8
             if nx % 128 or ny % ty:
                 self.log.warning(
                     f"fused_structured needs nx % 128 == 0 and ny % {ty} == "
@@ -706,7 +730,18 @@ class Simulation:
                     "path"
                 )
                 kind = "structured"
+                if n_dev > 1:
+                    raise ConfigError(
+                        "edge_flux_backend: structured does not support "
+                        "parallel.n_devices > 1"
+                    )
                 refuse_on_path(cfg, kind)
+            elif n_dev > 1 and ny % (n_dev * ty):
+                raise ConfigError(
+                    f"edge_flux_backend: fused_structured with "
+                    f"parallel.n_devices = {n_dev} needs ny divisible by "
+                    f"n_devices * {ty} (got ny = {ny})"
+                )
         if kind == "fused_structured":
             plan = StructuredPlan(
                 nx=nx, ny=ny, dx=dx, dy=dy,
@@ -740,31 +775,44 @@ class Simulation:
                     and self.operator.num_boundary_edges):
                 bnd = boundary_edge_arrays(a)
 
-            def plane(x):
-                return torch.as_tensor(x, dtype=torch.float32,
-                                       device=self.device)
-
-            op = FusedStructuredOperator(
-                plan, plane(dzx), plane(dzy), plane(mann), bnd,
+            options = dict(
                 num_tracers=self.num_tracers, num_sediment=self.num_sediment,
                 riemann=cfg.numerics.riemann,
                 second_order=cfg.numerics.second_order,
                 limiter=cfg.numerics.limiter)
+            if n_dev > 1:
+                # P row strips of ny / P rows (the JAX package's row-strip
+                # sharded stepper), each strip's planes on its device
+                devices = self._strip_device_list(n_dev)
+                op = fused_strip_operators(
+                    plan, *(torch.as_tensor(x, dtype=torch.float32)
+                            for x in (dzx, dzy, mann)),
+                    devices, bnd, **options)
+            else:
+                op = FusedStructuredOperator(
+                    plan, *(torch.as_tensor(x, dtype=torch.float32,
+                                            device=self.device)
+                            for x in (dzx, dzy, mann)), bnd, **options)
             # the rain plane goes to the kernel when the config declares
             # sources, or from the first interval a coupler sets one
             self._structured = dict(
                 kind="fused", nx=nx, ny=ny, op=op, scheme=scheme,
                 with_src=bool(cfg.sources), side_cols=side_cols,
-                accumulate=accum,
+                accumulate=accum, strips=n_dev > 1,
                 adv=make_fused_structured_stepper(op, scheme,
                                                   accumulate=accum),
             )
+            where = ("; its plain version on the CPU"
+                     if self.device.type == "cpu" else "")
+            if n_dev > 1:
+                where += (f"; {n_dev} row strips of {ny // n_dev} rows on "
+                          + ", ".join(map(str, devices)))
             self.log.info(
                 f"structured raster {nx}x{ny}: raster step kernel "
                 f"{'K2 MUSCL' if cfg.numerics.second_order else 'K2'} "
                 f"({scheme}{', +src' if cfg.sources else ''}"
                 f"{f', {self.num_tracers} tracers' if self.num_tracers else ''}"
-                f"{'; its plain version on the CPU' if self.device.type == 'cpu' else ''})"
+                f"{where})"
             )
         else:
             if scheme not in STRUCTURED_SCHEMES:
@@ -788,6 +836,32 @@ class Simulation:
             self.log.info(
                 f"structured raster {nx}x{ny}: zero-gather path ({scheme})"
             )
+
+    def _strip_device_list(self, n_dev: int) -> List[torch.device]:
+        """The devices of the n_dev row strips: `strip_devices` (all of
+        the simulation's device type), else cuda:0..n_dev-1, or the CPU
+        n_dev times on a CPU simulation."""
+        if self.strip_devices is not None:
+            if len(self.strip_devices) != n_dev:
+                raise ValueError(
+                    f"strip_devices names {len(self.strip_devices)} "
+                    f"devices for parallel.n_devices = {n_dev}")
+            devices = [torch.device(d) for d in self.strip_devices]
+            if any(d.type != self.device.type for d in devices):
+                raise ValueError(
+                    f"strip_devices {[str(d) for d in devices]}: every strip "
+                    f"must be on a {self.device.type} device, as the "
+                    f"simulation is on {self.device}")
+            return [resolve_device(d) for d in devices]
+        if self.device.type == "cpu":
+            return [self.device] * n_dev
+        count = torch.cuda.device_count()
+        if count < n_dev:
+            raise ConfigError(
+                f"parallel.n_devices = {n_dev} but only {count} devices are "
+                "available"
+            )
+        return [torch.device("cuda", k) for k in range(n_dev)]
 
     def _advance_structured(self, n_steps: int, t_end: float) -> float:
         """n_steps steps of the raster path; returns the chunk's max

@@ -22,7 +22,11 @@ on the unstructured path, 1e-5 in f32 on the raster). So are the
 well-balancing modes over a bumpy bed (K1a and K1b with hydrostatic
 reconstruction at NT = 0 and 3, K1a's BS2002 correction at first order
 and for each limiter, and K5), and a well-balanced deck on the card to
-the CPU run (1e-10 in f64).
+the CPU run (1e-10 in f64). The row-strip modes of K2 and K2 MUSCL (4
+strips of a 256x176 raster) are held to their plain versions the same way
+and to the whole raster's launch bit for bit, and 20 steps of 4 strips on
+one card (euler; rk4 with tracers; MUSCL ssprk2) to the single strip bit
+for bit.
 """
 
 import numpy as np
@@ -45,12 +49,19 @@ from rdycore_tpu_torch.ops.kernels.muscl import (
 from rdycore_tpu_torch.ops.kernels.raster_muscl import (
     raster_muscl_faces_plain,
     raster_muscl_update_plain,
+    swe_raster_muscl_faces,
+    swe_raster_muscl_update,
 )
 from rdycore_tpu_torch.ops.swe.muscl import ls_gradients
 from rdycore_tpu_torch.ops.kernels.raster_step import (
     StructuredPlan,
     swe_raster_step,
     swe_raster_step_plain,
+)
+from rdycore_tpu_torch.ops.strips import (
+    split_rows,
+    strip_layout,
+    strip_wall_values,
 )
 from rdycore_tpu_torch.ops.structured import FUSED_STAGES
 
@@ -564,3 +575,184 @@ def test_wb_simulation_on_the_card_matches_the_cpu(dev, wb):
     # ssprk2: two stages a step, the Courant fold once; K5 before each K1a
     k5 = 40 if wb == "bs2002" else 0
     assert launches() == [40, 40, 20, 0, 0, 0, 0, 0, 0, k5]
+
+
+# ------------------------------------------------------------- row strips
+def strip_case(dev, nt, second_order, n_strips=4):
+    """A 256x176 random wet/dry raster in `n_strips` row strips (halo 3 at
+    second order, else 1) with a Dirichlet left and top wall, critical
+    outflow on the right and a reflecting bottom, and the rain plane."""
+    nx, ny = 256, 176
+    rng = np.random.default_rng(4)
+    h = rng.uniform(0.05, 1.0, (ny, nx))
+    h = np.where(rng.uniform(size=h.shape) < 0.3, 0.0, h)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)
+
+    q = t(np.concatenate([
+        [h, h * rng.normal(0, 0.4, h.shape), h * rng.normal(0, 0.4, h.shape)],
+        h * rng.uniform(0.0, 0.5, (nt,) + h.shape)]).reshape(3 + nt, -1))
+    geo = [t(rng.normal(0, 0.01, (ny, nx))), t(rng.normal(0, 0.01, (ny, nx))),
+           t(rng.uniform(0.01, 0.05, (ny, nx)))]
+    plan = StructuredPlan(nx, ny, 0.01, 0.02, 1e-7,
+                          1e-3 if second_order else 0.0, 0, 2, 1, 0)
+    bc_vals = {s: t(np.concatenate([[rng.uniform(0.1, 0.6, n),
+                                     rng.normal(0, 0.1, n),
+                                     rng.normal(0, 0.1, n)],
+                                    rng.uniform(0, 0.1, (nt, n))]))
+               for s, n in (("left", ny), ("top", nx))}
+    strips = strip_layout(ny, n_strips, 3 if second_order else 1)
+    src = t(rng.uniform(0, 1e-2, (ny, nx)))
+    return plan, q, geo, bc_vals, src, strips
+
+
+@pytest.mark.parametrize("nt", [0, 3])
+def test_raster_strip_step_matches_plain_version(dev, nt):
+    """K2 in strip mode on 4 strips of 44 rows: each strip's launch against
+    its plain version (2e-5), and the strips' owned rows bit for bit the
+    whole raster's launch."""
+    plan, q, geo, bc_vals, src, strips = strip_case(dev, nt, False)
+    nx, ny = plan.nx, plan.ny
+    dt = torch.tensor(0.002, dtype=torch.float32, device=dev)
+    qA = q.flip(1).contiguous()
+    kw = dict(num_sediment=min(nt, 2), upwind=bool(nt))
+    modes = [dict(emit_prim=True)] + [
+        dict(stage=s, qA=qA if i else None, emit_prim=True)
+        for i, s in enumerate(FUSED_STAGES["ssprk3"])]
+    bufs = split_rows(q, strips, [dev] * 4, nx)
+    bufs_A = split_rows(qA, strips, [dev] * 4, nx)
+    kernels.reset_launch_counts()
+    for mode in modes:
+        whole = swe_raster_step(plan, q, *geo, dt, src=src, bc_vals=bc_vals,
+                                **kw, **mode)
+        for s, b, bA in zip(strips, bufs, bufs_A):
+            rows = slice(s.row0, s.row0 + s.rows)
+            args = (plan, b, *(g[rows] for g in geo), dt)
+            m = dict(mode, qA=bA if mode.get("qA") is not None else None)
+            skw = dict(src=src[rows], strip=s, **kw, **m,
+                       bc_vals=strip_wall_values(bc_vals, s, ny, dev))
+            got = swe_raster_step(*args, **skw)
+            want = swe_raster_step_plain(*args, **skw)
+            out_k, out_p = (s.owned(x.out) for x in (got, want))
+            assert rel(out_k, out_p) <= TOL[torch.float32]
+            assert rel(got.prim, want.prim) <= TOL[torch.float32]
+            assert rel(got.cmax, want.cmax) <= TOL[torch.float32]
+            assert torch.equal(
+                out_k, whole.out.reshape(3 + nt, ny, nx)[:, rows])
+            assert torch.equal(got.prim.reshape(3 + nt, -1, nx),
+                               whole.prim.reshape(3 + nt, ny, nx)[:, rows])
+        assert torch.equal(torch.stack([swe_raster_step(
+            plan, b, *(g[s.row0:s.row0 + s.rows] for g in geo), dt,
+            src=src[s.row0:s.row0 + s.rows], strip=s,
+            bc_vals=strip_wall_values(bc_vals, s, ny, dev), **kw,
+            **dict(mode, qA=bA if mode.get("qA") is not None else None),
+        ).cmax.max() for s, b, bA in zip(strips, bufs, bufs_A)]).max(),
+            whole.cmax.max())
+    assert kernels.swe_raster_step.launches == len(modes) * 9
+
+
+@pytest.mark.parametrize("limiter", ["minmod", "van_leer"])
+def test_raster_strip_muscl_matches_plain_version(dev, limiter):
+    """K2 MUSCL in strip mode on 4 strips with 3 halo rows: faces (its
+    face rows: one halo row beyond each inner strip boundary) and update
+    against their plain versions (2e-5), and bit for bit the whole
+    raster's faces and update."""
+    plan, q, geo, bc_vals, src, strips = strip_case(dev, 0, True)
+    nx, ny = plan.nx, plan.ny
+    dt = torch.tensor(0.002, dtype=torch.float32, device=dev)
+    qA = q.flip(1).contiguous()
+    bufs = split_rows(q, strips, [dev] * 4, nx)
+    bufs_A = split_rows(qA, strips, [dev] * 4, nx)
+    kernels.reset_launch_counts()
+    fx_w, fy_w, cm_w = swe_raster_muscl_faces(plan, q, bc_vals, limiter)
+    out_w, prim_w = swe_raster_muscl_update(
+        plan, q, fx_w, fy_w, *geo, dt, src=src, stage=(0.5, 0.5, 0.5),
+        qA=qA, emit_prim=True)
+    cms = []
+    for s, b, bA in zip(strips, bufs, bufs_A):
+        rows = slice(s.row0, s.row0 + s.rows)
+        bcs = strip_wall_values(bc_vals, s, ny, dev)
+        fk = swe_raster_muscl_faces(plan, b, bcs, limiter, s)
+        fp = raster_muscl_faces_plain(plan, b, bcs, limiter, s)
+        for a, w in zip(fk, fp):
+            assert rel(a, w) <= TOL[torch.float32]
+        x_lo = int(s.halo_lo > 0)
+        f0 = s.row0 - x_lo
+        assert torch.equal(fk[0], fx_w[:, f0:f0 + fk[0].shape[1]])
+        assert torch.equal(fk[1], fy_w[:, f0:f0 + fk[1].shape[1]])
+        cms.append(fk[2].max())
+        args = (plan, b, fk[0], fk[1], *(g[rows] for g in geo), dt)
+        ukw = dict(src=src[rows], stage=(0.5, 0.5, 0.5), qA=bA,
+                   emit_prim=True, strip=s)
+        ok, pk = swe_raster_muscl_update(*args, **ukw)
+        op, pp = raster_muscl_update_plain(*args, **ukw)
+        assert rel(s.owned(ok), s.owned(op)) <= \
+            TOL[torch.float32]
+        assert rel(pk, pp) <= TOL[torch.float32]
+        assert torch.equal(s.owned(ok),
+                           out_w.reshape(3, ny, nx)[:, rows])
+    assert torch.equal(torch.stack(cms).max(), cm_w.max())
+    assert kernels.swe_raster_muscl_faces.launches == 5
+    assert kernels.swe_raster_muscl_update.launches == 5
+
+
+def strip_deck(n_devices, scheme="euler", tracers=False, second_order=False):
+    cfg = {
+        "physics": ({"sediment": {"num_classes": 2}, "salinity": True}
+                    if tracers else {}),
+        "numerics": {"temporal": scheme, "precision": "single",
+                     "edge_flux_backend": "fused_structured",
+                     "second_order": second_order},
+        "parallel": {"n_devices": n_devices},
+        "time": {"stop": 0.02, "time_step": 0.001},
+        "logging": {"level": "none"},
+        "output": {"time_series": {"boundary_fluxes": 10}},
+        "regions": [{"name": "all", "grid_region_id": 1}],
+        "initial_conditions": [{"region": "all", "flow": "bump"}
+                               | ({"sediment": "mud", "salinity": "salt"}
+                                  if tracers else {})],
+        "boundaries": [{"name": "right", "grid_boundary_id": 2},
+                       {"name": "left", "grid_boundary_id": 1}],
+        "boundary_conditions": [{"boundaries": ["right"], "flow": "out"},
+                                {"boundaries": ["left"], "flow": "in"}],
+        "flow_conditions": [
+            {"name": "bump", "type": "dirichlet",
+             "height": "0.1 + 0.05*exp(-20*((x-1)^2+(y-0.25)^2))",
+             "x_momentum": 0.01, "y_momentum": 0},
+            {"name": "in", "type": "dirichlet", "height": 0.12,
+             "x_momentum": 0.01, "y_momentum": 0},
+            {"name": "out", "type": "critical-outflow"}],
+    }
+    if tracers:
+        cfg["sediment_conditions"] = [{"name": "mud", "c0": {"value": 2e-4},
+                                       "c1": {"value": 1e-4}}]
+        cfg["salinity_conditions"] = [{"name": "salt",
+                                       "concentration": 1e-3}]
+    return config_from_dict(cfg).validate()
+
+
+@pytest.mark.parametrize("deck", [
+    dict(scheme="euler"), dict(scheme="rk4", tracers=True),
+    dict(scheme="ssprk2", second_order=True)])
+def test_strips_on_one_card_match_the_single_strip(dev, deck):
+    """20 steps of 4 row strips of 8 rows on one card, bit for bit the
+    single strip: q, t, the Courant number and the accumulators; K2 (or
+    K2 MUSCL), K1c and K1a launched once per strip where the single strip
+    launches once."""
+    mesh = structured_quad(128, 32, 0.0, 2.0, 0.0, 0.5,
+                           region_fn=lambda cx, cy: np.ones_like(cx))
+    runs = []
+    for n_dev in (1, 4):
+        sim = Simulation(strip_deck(n_dev, **deck), mesh=mesh, device=dev,
+                         strip_devices=[dev] * 4 if n_dev > 1 else None)
+        kernels.reset_launch_counts()
+        sim.run()
+        runs.append((sim, launches()))
+    (one, l1), (four, l4) = runs
+    assert one.step == four.step == 20 and one.t == four.t
+    assert one.prev_max_courant == four.prev_max_courant > 0.0
+    for name in ("bflux_accum", "accum_sol", "accum_prim"):
+        assert np.array_equal(getattr(one, name), getattr(four, name)), name
+    assert np.array_equal(one.get_solution(), four.get_solution())
+    assert [4 * n for n in l1] == l4 and l1[0] == l1[2] == 20

@@ -3,7 +3,7 @@
 
     python3 tools/torch_step_profile.py [--nx 2048] [--ny 1408] [--steps 200]
                                         [--scheme euler] [--f64] [--raster]
-                                        [--tracers | --muscl]
+                                        [--strips P] [--tracers | --muscl]
                                         [--wb hr|bs2002]
 
 Runs the dam break of chip_smoke.py (f32, or f64 with --f64; boundary-flux
@@ -16,8 +16,10 @@ hydrostatic reconstruction or BS2002, first order or with --muscl (BS2002
 only) second order, dt 0.0002 s) through `Simulation` on the
 CUDA device, on its
 unstructured path or, with --raster, on the raster path
-(`edge_flux_backend: fused_structured`, float32 whatever --f64 says): one
-warm-up interval, then
+(`edge_flux_backend: fused_structured`, float32 whatever --f64 says),
+with --strips P in P row strips all on the one card (the deck's
+parallel.n_devices = P and an explicit device list): one warm-up
+interval, then
 --steps steps under torch.profiler (CPU and CUDA activities). Prints the
 card's name and power limit, the wall time per step, the device time per
 step of every kernel (the package's CUDA kernels and PyTorch's own
@@ -53,6 +55,8 @@ def main():
     ap.add_argument("--f64", action="store_true", help="double precision")
     ap.add_argument("--raster", action="store_true",
                     help="edge_flux_backend: fused_structured")
+    ap.add_argument("--strips", type=int, default=1,
+                    help="row strips of the raster, on the one card")
     deck = ap.add_mutually_exclusive_group()
     deck.add_argument("--tracers", action="store_true",
                       help="two sediment classes and salinity")
@@ -66,6 +70,8 @@ def main():
                     or args.muscl and args.wb == "hr"):
         ap.error("--wb runs the unstructured path in f32, flow only; "
                  "--muscl with bs2002 only")
+    if args.strips > 1 and not args.raster:
+        ap.error("--strips cuts the raster path (--raster)")
     if args.scheme is None:
         args.scheme = "ssprk2" if args.muscl else "euler"
     if not torch.cuda.is_available():
@@ -100,7 +106,10 @@ def main():
         if args.f64:
             cfg.numerics.precision = "double"
         cfg.time.coupling_interval = args.steps * dt
-        sim = Simulation(cfg, mesh=mesh, device="cuda")
+        cfg.parallel.n_devices = args.strips
+        sim = Simulation(cfg, mesh=mesh, device="cuda",
+                         strip_devices=(["cuda"] * args.strips
+                                        if args.strips > 1 else None))
     sim.advance()  # warm-up interval: libraries load, allocator fills
     torch.cuda.synchronize()
 
@@ -121,7 +130,9 @@ def main():
     busy_us = sum(r[0] for r in rows)
     size = "1448x996 triangles" if args.wb else f"{args.nx}x{args.ny}"
     print(f"[{card}] {size} ({mesh.num_cells} cells) "
-          f"{'raster ' if args.raster else ''}{args.scheme} "
+          f"{'raster ' if args.raster else ''}"
+          f"{f'in {args.strips} strips ' if args.strips > 1 else ''}"
+          f"{args.scheme} "
           f"{'tracers (ndof 6) ' if args.tracers else ''}"
           f"{'MUSCL minmod ' if args.muscl else ''}"
           f"{'well-balancing ' + args.wb + ' ' if args.wb else ''}"
