@@ -7,13 +7,18 @@ Phases, each printing as it goes; any failure exits non-zero:
 
 1. Card and build: the card's name and power limit, torch's CUDA, the
    triton and nvcc versions, and a fresh nvcc build of every kernel of the
-   package (one nvcc per source, all started together).
+   package (one nvcc per source, all started together), with each
+   kernel's registers, shared memory and spills.
 2. Kernels against their plain PyTorch versions on the card, with a random
    wet/dry state made with numpy from --seed. On a 256x176 quad mesh and a
    triangle mesh, in f32 and f64, with all three BC codes (Dirichlet values
    non-zero): K1a swe_edge_flux; K1b swe_cell_stage in stage mode for each
    ssprk3 stage and in rhs mode, with each source method; K1c
-   courant_argmax, including a constructed tie whose index must be exact.
+   courant_argmax, including a constructed tie whose index must be exact,
+   and (f32 and f64) NaN, infinities, signed zeros, one value, odd sizes
+   and slices off a 16-byte boundary, its (max, index, run fold) exactly
+   the plain version's. K1c must be one device kernel per call, by
+   torch.profiler, here and at each main path's shapes (phases 3, 4, 8).
    On a 256x176 raster, in f32: K2 swe_raster_step with a Dirichlet left
    wall (non-zero values), critical outflow on the right and bottom and a
    reflecting top, the rain plane off and on, in stage mode for each
@@ -167,9 +172,10 @@ DT = 0.0005
 OPS_PER_EDGE = 165  # K1a: two regularizations, ghost state, Roe, mask
 OPS_PER_CELL = 80  # K1b: 4-slot divergence, semi-implicit sources, stage
 OPS_PER_VALUE = 1  # K1c: one comparison per Courant value
-# K2: four Roe solves (~140 each), five regularizations and square roots,
-# the divergence, sources, stage update and Courant maxima
-OPS_PER_RASTER_CELL = 700
+# K2: the work of the function, each face once: two Roe solves (~140
+# each) per cell, one regularization and square root, the divergence,
+# sources, stage update and Courant maxima
+OPS_PER_RASTER_CELL = 360
 DX = 1.0 / 512.0  # cell size of the full-size raster [m]
 H_RESERVOIR, H_FLOODPLAIN = 0.25, 0.05  # initial depths [m]
 # phase 5: two sediment classes (their concentrations in the reservoir)
@@ -179,10 +185,10 @@ SEDIMENT_C = (2e-3, 1e-3)
 SALINITY_C = 1e-3
 # operations per item that the tracers add, counted from the CUDA sources:
 # K1a two concentrations and the advected wave per tracer; K1b its gather,
-# Hairsine-Rose, stage and primitive; K2 five concentrations, four faces'
-# waves, the divergence, sources and stage
+# Hairsine-Rose, stage and primitive; K2 one concentration, two faces'
+# waves (each face once), the divergence, sources and stage
 OPS_PER_TRACER = {"swe_edge_flux": 25, "swe_cell_stage": 20,
-                  "swe_raster_step": 75}
+                  "swe_raster_step": 60}
 # phase 6: the second-order dam break (dry floodplain, minmod, ssprk2)
 DT_MUSCL = 0.00025
 LIMITERS = ("minmod", "van_leer", "none")
@@ -349,6 +355,34 @@ def device_time(fn, reps=20):
     return cuda_ms(fn, reps), "cuda events"
 
 
+def check_one_kernel(fn, what, calls=3, sessions=5):
+    """Fail unless fn() launches exactly one device kernel a call, by
+    torch.profiler over `calls` calls: the CUDA runtime's kernel launches
+    number `calls`, and the device records no kernel but one. A session on
+    that card may leave out some or all of a run's device records, never
+    the runtime calls; one that records no kernel is taken again, up to
+    `sessions` times."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(sessions):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        launches = sum(e.count for e in prof.key_averages()
+                       if e.key.startswith(("cudaLaunchKernel",
+                                            "cuLaunchKernel")))
+        kernels = {name: n for _, n, name in device_events(prof)}
+        if kernels:
+            break
+    log(f"  {what}: {launches} kernel launches over {calls} calls, device "
+        f"records {kernels}")
+    if launches != calls or len(kernels) > 1:
+        raise SystemExit(f"{what}: not one kernel per call")
+
+
 def device_ms(fn, reps=20) -> float:
     """The milliseconds of `device_time`, for the log."""
     return device_time(fn, reps)[0]
@@ -381,10 +415,13 @@ def phase_build():
 
 
 def ptxas_summary(report):
-    """'kernel<args>: R registers, S spill bytes' of each entry function in
-    nvcc's -Xptxas -v report whose tracer count is 0 or NT (the others are
-    the same source at other counts); a MUSCL instance names its limiter
-    code."""
+    """'kernel<args>: R registers, S B shared memory, P B spilled' of each
+    entry function in nvcc's -Xptxas -v report whose tracer count is 0 or
+    NT (the others are the same source at other counts); a MUSCL instance
+    names its limiter code, a K2 instance its tile (its shared memory: the
+    static, and the dynamic that the kernel reports, raster_step.smem_bytes)."""
+    from rdycore_tpu_torch.ops.kernels.raster_step import smem_bytes
+
     out, entry, spill = [], None, ""
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -395,32 +432,37 @@ def ptxas_summary(report):
             spill = line.strip()
         m = re.search(r"Used (\d+) registers", line)
         if entry and m:
-            k = re.search(r"\d+([a-z_]+_kernel|argmax_partial|argmax_final)"
-                          r"(I\w+?EE|E)", entry)
+            k = re.search(r"\d+([a-z_]+_kernel)(I\w+?EE|E)", entry)
             counts = re.findall(r"Li(\d+)E", entry)
-            lims, wb = [], []
+            lims, wb, tile = [], [], []
             if "edge_flux" in entry:
                 counts, lims, wb = counts[:1], counts[1:2], counts[2:3]
             if "raster_muscl" in entry:
                 counts, lims = [], counts
+            if "raster_step" in entry:
+                tile, counts = [int(c) for c in counts[:2]], counts[2:3]
             if k and (not counts or int(counts[0]) in (0, NT)):
                 args = k.group(2)
                 what = ["f64" if args.startswith("Id") else "f32"]
+                what += [f"tile {tile[0]}x{tile[1]}"] if tile else []
                 what += [f"nt {c}" for c in counts[:1]]
                 what += [f"limiter {c}" for c in lims if c != "0"]
                 what += [{"1": "hr", "2": "bs2002"}[c] for c in wb
                          if c != "0"]
                 flags = re.findall(r"Lb(\d)", args)
-                if "raster" in entry:
-                    # raster_step<nt, upwind, strip>, raster_muscl<.., strip>
-                    what += [w for w, f in zip(
-                        (["upwind"] if "raster_step" in entry else [])
-                        + ["strip"], flags) if f == "1"]
+                if "raster_muscl" in entry:
+                    # raster_muscl<limiter, strip>
+                    what += ["strip" for f in flags if f == "1"]
                 elif "1" in flags:
                     what += ["hr" if "cell_stage" in entry else "upwind"]
                 spills = re.findall(r"(\d+) bytes spill", spill)
+                smem = int(re.search(r"(\d+) bytes smem", line).group(1)
+                           if "bytes smem" in line else 0)
+                if tile:  # K2's tile lives in dynamic shared memory
+                    smem += smem_bytes(int(counts[0]))
                 out.append(f"{k.group(1)}<{', '.join(what)}>: {m.group(1)} "
-                           f"regs, {sum(map(int, spills))} B spilled")
+                           f"regs, {smem} B shared memory, "
+                           f"{sum(map(int, spills))} B spilled")
             entry = None
     return out
 
@@ -530,6 +572,40 @@ def phase_kernels(seed, errs, dev):
                     f"{'ok' if exact else 'FAIL'}")
                 if not exact:
                     failures.append(f"courant_argmax {tag} {what}")
+    # K1c: NaN, infinities, signed zeros, one value, odd sizes and slices
+    # that start off a 16-byte boundary, against the plain version exactly
+    for dtype in (torch.float32, torch.float64):
+        x = torch.as_tensor(rng.uniform(0, 1, 70_001), dtype=dtype,
+                            device=dev)
+        nan = x.clone()
+        nan[[5, 60_000]] = float("nan")
+        cases = {"n=1": x[:1], "n=4097": x[:4097], "nan": nan,
+                 "+inf tie": torch.tensor([1.0, float("inf"), 3.0,
+                                           float("inf")], dtype=dtype,
+                                          device=dev),
+                 "-inf": torch.full((9,), -float("inf"), dtype=dtype,
+                                    device=dev),
+                 "signed zeros": torch.tensor([-0.0, 0.0, -0.0],
+                                              dtype=dtype, device=dev),
+                 **{f"slice at +{o}": x[o:] for o in (1, 2, 3)}}
+        dt = torch.tensor(0.5, dtype=dtype, device=dev)
+        for what, v in cases.items():
+            run = (torch.full((), 0.25, dtype=dtype, device=dev),
+                   torch.full((), -1, dtype=torch.int32, device=dev))
+            run_p = tuple(r.clone() for r in run)
+            mk, ik = courant_argmax(v, dt, *run)
+            mp, ip = courant_argmax_plain(v, dt, *run_p)
+            exact = ((float(mk) == float(mp) or (np.isnan(float(mk))
+                                                 and np.isnan(float(mp))))
+                     and int(ik) == int(ip) and int(run[1]) == int(run_p[1])
+                     and (torch.equal(run[0], run_p[0])
+                          or bool(run[0].isnan() and run_p[0].isnan())))
+            log(f"  {'courant_argmax':15s} {str(dtype)[6:] + ' ' + what:48s} "
+                f"idx {int(ik)} (plain {int(ip)}) {'ok' if exact else 'FAIL'}")
+            if not exact:
+                failures.append(f"courant_argmax {dtype} {what}")
+    check_one_kernel(lambda: courant_argmax(x, dt, *run),
+                     "courant_argmax on 70,001 values")
     # K2 on a 256x176 raster, f32
     nx, ny = 256, 176
     f32 = torch.float32
@@ -935,6 +1011,8 @@ def phase_main(steps, errs, dev, mesh):
         f"(plain {int(ip)})")
     if any(r > TOL[q.dtype] for r in checks.values()) or int(ik) != int(ip):
         raise SystemExit("full-size kernel check failed")
+    check_one_kernel(lambda: op.courant_max(courant, dt, *run),
+                     f"courant_argmax on {courant.numel():,} edge values")
 
     calls = {
         "swe_edge_flux": (
@@ -1115,6 +1193,8 @@ def phase_raster(steps, errs, dev, mesh):
         f"(plain {int(ip)}) {'ok' if exact else 'FAIL'}")
     if not exact:
         raise SystemExit("full-size raster Courant fold differs from plain")
+    check_one_kernel(lambda: op.courant_max(blocks, dt, *run),
+                     f"courant_argmax on {blocks.numel():,} block maxima")
     fk = op.boundary_fluxes(q, bv)
     fp = swe_edge_flux_plain(op.bnd, q, bv, th, ta)[0][:, :-1]
     rb = max(rel_err(fk[k], fp[k]) for k in range(3))
@@ -2430,6 +2510,9 @@ def strip_kernel_rows(card, sim, path, launches, dev, dt, nt=0):
         f"(relative): {rel}; Courant fold {'exact' if exact else 'DIFFERS'}")
     if not (exact and all(v <= TOL[f32] for v in rel.values())):
         raise SystemExit(f"{path} strip kernel check failed")
+    check_one_kernel(lambda: op.courant_max(blocks, dt_t, *run),
+                     f"courant_argmax on a strip's {blocks.numel():,} block "
+                     "maxima")
     Eb = op.bnd.bnd_left.shape[0]
     calls["courant_argmax"] = (lambda: op.courant_max(blocks, dt_t, *run),
                                lambda: courant_argmax_plain(blocks, dt_t,

@@ -6,7 +6,9 @@ Usage:
                                 [--f32|--f64] [--output-dir DIR]
 
 It runs on the CUDA device, or with --cpu on the CPU (the kernels' plain
-PyTorch versions). Without a CUDA device and without --cpu it fails. A
+PyTorch versions). The JAX package's options for MMS, forcing datasets,
+AMR and --pause are accepted and exit with status 2, naming the ROADMAP
+item that will port them. Without a CUDA device and without --cpu it fails. A
 fused_structured deck with parallel.n_devices = P > 1 runs in P row
 strips on cuda:0..P-1 (a ConfigError with fewer cards), or on the CPU
 with --cpu. Several strips on one card are asked for through the
@@ -19,6 +21,22 @@ import argparse
 import os
 import sys
 import time
+
+# The JAX package's CLI options this one lacks, each with the ROADMAP item
+# that will port it: given, they exit non-zero naming it (ROADMAP fault 20)
+_NOT_PORTED_OPTIONS = (
+    ("--mms", dict(action="store_true"), "queue 1 item 8"),
+    ("--constant-rain-rate", dict(type=float), "queue 1 item 5d"),
+    ("--homogeneous-rain-file", dict(), "queue 1 item 5d"),
+    ("--temporally-interpolate-rain", dict(action="store_true"),
+     "queue 1 item 5d"),
+    ("--raster-rain-dir", dict(), "queue 1 item 5d"),
+    ("--homogeneous-bc-file", dict(metavar="BOUNDARY=FILE"),
+     "queue 1 item 5d"),
+    ("--amr-dataset-dir", dict(), "queue 1 item 14"),
+    ("--amr-area-threshold", dict(type=float), "queue 1 item 14"),
+    ("--pause", dict(action="store_true"), "queue 1 item 18"),
+)
 
 
 def main(argv=None):
@@ -33,7 +51,15 @@ def main(argv=None):
         help="override output.directory (outputs normally land next to the "
              "config file)",
     )
+    for opt, kw, item in _NOT_PORTED_OPTIONS:
+        ap.add_argument(opt, **kw, help=f"not ported yet (ROADMAP {item})")
     args = ap.parse_args(argv)
+    refused = [f"{opt} is not ported to rdycore_tpu_torch yet (ROADMAP "
+               f"{item})" for opt, _, item in _NOT_PORTED_OPTIONS
+               if getattr(args, opt[2:].replace("-", "_")) not in (None,
+                                                                   False)]
+    if refused:
+        ap.exit(2, "rdycore_tpu_torch: " + "; ".join(refused) + "\n")
 
     from rdycore_tpu_torch.config.yaml_input import load_config
     from rdycore_tpu_torch.io.writers import attach_output_monitors

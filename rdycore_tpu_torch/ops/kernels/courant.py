@@ -16,19 +16,37 @@ never reads the maximum back to the host.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import build
 
-_P, _I64 = ctypes.c_void_p, ctypes.c_int64
-_ARGTYPES = [_P, _I64, _P, _P, _P, _P, _P, _P, _P, _P]
+_P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_ARGTYPES = [_P, _I64, _P, _INT, _P, _P, _P, _P, _P, _P]
 _FUNCTIONS = {
     "rdy_courant_argmax_f32": _ARGTYPES,
     "rdy_courant_argmax_f64": _ARGTYPES,
-    "rdy_courant_argmax_max_blocks": [],
+    "rdy_courant_argmax_blocks_per_sm": [],
+    "rdy_courant_argmax_work_bytes": [_INT],
 }
+# (device index, stream) -> (workspace, its capacity in blocks): the
+# kernel's ticket and per-block pairs, allocated zero once and left at zero
+# by every launch. A stream runs its launches in order, so they may share
+# one; launches on two streams at once may not (csrc/courant_argmax.cu).
+_WORKSPACES: Dict[Tuple[int, int], Tuple[torch.Tensor, int]] = {}
+
+
+def _workspace(lib, dev: torch.device, stream: int):
+    key = (dev.index, stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        max_blocks = lib.rdy_courant_argmax_blocks_per_sm() * sms
+        nbytes = lib.rdy_courant_argmax_work_bytes(max_blocks)
+        ws = _WORKSPACES[key] = (
+            torch.zeros((nbytes,), dtype=torch.uint8, device=dev), max_blocks)
+    return ws
 
 
 def courant_argmax_plain(
@@ -72,15 +90,16 @@ def courant_argmax(
     n = courant.shape[0]
     if n == 0:
         raise ValueError("courant_argmax: no edges")
+    if n >= 2**31:
+        raise ValueError(f"courant_argmax: {n} values (int32 indices)")
     if run_max is not None:
         ck(dt, "dt", dtype, (), dev)
         ck(run_max, "run_max", dtype, (), dev)
         ck(run_idx, "run_idx", torch.int32, (), dev)
 
     lib = build.load("courant_argmax", _FUNCTIONS)
-    nb = lib.rdy_courant_argmax_max_blocks()
-    pval = torch.empty((nb,), dtype=dtype, device=dev)
-    pidx = torch.empty((nb,), dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    work, max_blocks = _workspace(lib, dev, stream)
     out_max = torch.empty((), dtype=dtype, device=dev)
     out_idx = torch.empty((), dtype=torch.int32, device=dev)
     fn = (lib.rdy_courant_argmax_f32 if dtype == torch.float32
@@ -91,9 +110,9 @@ def courant_argmax(
 
     with torch.cuda.device(dev):
         status = fn(
-            courant.data_ptr(), n, pval.data_ptr(), pidx.data_ptr(),
+            courant.data_ptr(), n, work.data_ptr(), max_blocks,
             out_max.data_ptr(), out_idx.data_ptr(), ptr(dt), ptr(run_max),
-            ptr(run_idx), torch.cuda.current_stream(dev).cuda_stream,
+            ptr(run_idx), stream,
         )
     build.check_status(status, "courant_argmax")
     courant_argmax.launches += 1

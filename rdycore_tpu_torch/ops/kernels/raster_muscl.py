@@ -49,7 +49,6 @@ from ..swe.riemann import regularized_velocity, roe_flux
 from . import build
 from .cell_stage import _alpha_beta
 from .raster_step import (
-    BLOCK,
     Strip,
     StructuredPlan,
     block_max,
@@ -72,6 +71,8 @@ _FUNCTIONS = {
 }
 # halo rows a second-order strip needs off the walls
 MUSCL_HALO = 3
+# threads per block along x and y; one Courant maximum per block
+BLOCK = (32, 8)
 
 
 def face_rows(strip: Strip):
@@ -165,7 +166,7 @@ def raster_muscl_faces_plain(plan: StructuredPlan, q, bc_vals=None,
     b0 = lo - x_lo
     return (fx[:, b0:b0 + n_face].contiguous(),
             fy[:, b0:b0 + n_face + 1].contiguous(),
-            block_max(own, nx, n_face))
+            block_max(own, nx, n_face, BLOCK))
 
 
 def donor_factors(plan: StructuredPlan, q, fx, fy, dt,
@@ -240,7 +241,7 @@ def swe_raster_muscl_faces(
                              strip)
     fx = torch.empty((3, n_face, nx + 1), dtype=f, device=dev)
     fy = torch.empty((3, n_face + 1, nx), dtype=f, device=dev)
-    cmax = torch.empty((num_blocks(nx, n_face),), dtype=f, device=dev)
+    cmax = torch.empty((num_blocks(nx, n_face, BLOCK),), dtype=f, device=dev)
     inv_dx, inv_dy, hdx, hdy = _half_steps(plan)
     lib = build.load("swe_raster_muscl", _FUNCTIONS)
     with torch.cuda.device(dev):

@@ -44,8 +44,10 @@ Modes, as K1b's:
   out = alpha*qA + beta*(q + dt*rhs); (0, 1, 1) without qA is the euler
   step q + dt*rhs;
 - rhs (`stage=None`): out = rhs.
-`emit_prim` adds the primitives (h, u, v and the concentrations) of q. `cmax` holds the largest
-Courant coefficient amax/dx, amax/dy of each block of BLOCK cells' faces.
+`emit_prim` adds the primitives (h, u, v and the concentrations) of q.
+`cmax` holds the largest Courant coefficient amax/dx, amax/dy of the faces
+of each tile of cells (the kernel's blocks, `tile_for(nt)`), row-major by
+tile.
 """
 
 from __future__ import annotations
@@ -63,8 +65,13 @@ from ..tracer.sources import SedimentParams
 from . import build
 from .cell_stage import _alpha_beta
 
-# threads per block along x and y; one Courant maximum per block
-BLOCK = (32, 8)
+
+def tile_for(nt: int) -> Tuple[int, int]:
+    """The cells along x and y of a tile, one block of the kernel and one
+    Courant maximum, with nt tracer rows: 32 x 16 flow only, 32 x 8 with
+    tracers, whose shared memory per cell is larger (csrc kTileRows)."""
+    return (32, 16) if nt == 0 else (32, 8)
+
 
 _P, _I64, _INT, _F = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                       ctypes.c_float)
@@ -73,6 +80,7 @@ _FUNCTIONS = {
     + [_I64] * 4 + [_INT, _INT]
     + [_F, _F, _F, _F, _INT, _F, _F, _INT, _INT, _INT]
     + [_F] * 5 + [_P, _P, _P, _INT, _INT, _P],
+    "rdy_swe_raster_step_smem": [_INT],
 }
 
 
@@ -159,9 +167,10 @@ class RasterStepOut(NamedTuple):
     cmax: torch.Tensor  # [blocks] largest amax/dx, amax/dy per block
 
 
-def num_blocks(nx: int, ny: int) -> int:
-    """Number of Courant maxima a launch writes."""
-    return -(-nx // BLOCK[0]) * -(-ny // BLOCK[1])
+def num_blocks(nx: int, ny: int, block: Tuple[int, int]) -> int:
+    """Number of Courant maxima a launch over nx x ny cells in blocks of
+    `block` cells writes."""
+    return -(-nx // block[0]) * -(-ny // block[1])
 
 
 def f32(x: float) -> float:
@@ -230,10 +239,10 @@ def ghost_frame(plan: StructuredPlan, q, bc_vals=None,
     return frame
 
 
-def block_max(cell, nx: int, ny: int):
-    """The maximum of cell [ny, nx] over each BLOCK of cells (row-major
+def block_max(cell, nx: int, ny: int, block: Tuple[int, int]):
+    """The maximum of cell [ny, nx] over each `block` of cells (row-major
     by block), as the kernels write it."""
-    bx, by = BLOCK
+    bx, by = block
     gx, gy = -(-nx // bx), -(-ny // by)
     tiles = cell.new_zeros((gy * by, gx * bx))
     tiles[:ny, :nx] = cell
@@ -357,7 +366,8 @@ def swe_raster_step_plain(
                             qA=None if qA is None
                             else strip.owned(qA).reshape(n, -1),
                             emit_prim=emit_prim, num_sediment=num_sediment)
-    return RasterStepOut(strip.to_buffer(out), prim, block_max(cell, nx, ny))
+    return RasterStepOut(strip.to_buffer(out), prim,
+                         block_max(cell, nx, ny, tile_for(nt)))
 
 
 def wall_args(plan: StructuredPlan, bc_vals, ndof: int, dev, what: str,
@@ -408,7 +418,8 @@ def swe_raster_step(
     bc_vals {side: [ndof, n]} the prescribed (h, hu, hv and tracer masses)
     along each Dirichlet wall (n = R for left/right, by buffer row, nx for
     bottom/top). upwind: upwind-Roe tracer fluxes. `out` is a strip buffer
-    like q, of which the owned rows are written; prim [ndof, rows*nx]."""
+    like q, of which the owned rows are written; prim [ndof, rows*nx];
+    cmax one maximum per tile_for(nt) of cells."""
     if q.device.type == "cpu":
         return swe_raster_step_plain(
             plan, q, dz_dx, dz_dy, mannings_n, dt, src=src, bc_vals=bc_vals,
@@ -426,6 +437,7 @@ def swe_raster_step(
     if not 0 <= num_sediment <= nt:
         raise ValueError(f"swe_raster_step: {num_sediment} sediment classes "
                          f"of {nt} tracers")
+    tile = tile_for(nt)
     ck = build.check
     ck(q, "q", f, (ndof, C), dev)
     for name, t in (("dz_dx", dz_dx), ("dz_dy", dz_dy),
@@ -443,7 +455,7 @@ def swe_raster_step(
     out = torch.empty((ndof, C), dtype=f, device=dev)
     prim = (torch.empty((ndof, nx * ny), dtype=f, device=dev) if emit_prim
             else None)
-    cmax = torch.empty((num_blocks(nx, ny),), dtype=f, device=dev)
+    cmax = torch.empty((num_blocks(nx, ny, tile),), dtype=f, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -457,8 +469,8 @@ def swe_raster_step(
             plan.h_anuga,
             f32(1.0 / plan.dx), f32(1.0 / plan.dy), int(stage is None),
             alpha, beta, nt, int(upwind), num_sediment, *SedimentParams(),
-            out.data_ptr(), ptr(prim), cmax.data_ptr(),
-            BLOCK[0], BLOCK[1], torch.cuda.current_stream(dev).cuda_stream,
+            out.data_ptr(), ptr(prim), cmax.data_ptr(), *tile,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check_status(status, "swe_raster_step")
     swe_raster_step.launches += 1
@@ -466,3 +478,10 @@ def swe_raster_step(
 
 
 swe_raster_step.launches = 0
+
+
+def smem_bytes(nt: int) -> int:
+    """Dynamic shared memory of one block of the kernel with nt tracer rows
+    (builds the library)."""
+    return build.load("swe_raster_step", _FUNCTIONS).rdy_swe_raster_step_smem(
+        nt)

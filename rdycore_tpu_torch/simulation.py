@@ -19,9 +19,10 @@ plus the E3SM-style coupling surface (src/rdydata.c): get/set arrays in
 natural cell order between coupling intervals.
 
 It runs on the CUDA device unless built with device="cpu". Every feature
-outside these paths raises NotImplementedError naming the ROADMAP item
-that will port it, or the JAX package's own ConfigError where that package
-refuses it too; nothing degrades silently.
+outside these paths, and every public member of the JAX package's
+Simulation that this one lacks, raises NotImplementedError naming the
+ROADMAP item that will port it, or the JAX package's own ConfigError where
+that package refuses it too; nothing degrades silently.
 """
 
 from __future__ import annotations
@@ -78,6 +79,24 @@ def _not_ported(feature: str, item: str):
     raise NotImplementedError(
         f"{feature} is not ported to rdycore_tpu_torch yet (ROADMAP {item})"
     )
+
+
+def _stub(name: str, item: str, kind=None):
+    """A public member of the JAX package's Simulation that the port lacks:
+    calling it (reading it, for a property) raises NotImplementedError
+    naming its ROADMAP item (fault 20). kind: property, classmethod or
+    staticmethod."""
+    def stub(*args, **kwargs):
+        _not_ported(f"Simulation.{name}", item)
+
+    stub.__name__ = stub.__qualname__ = name
+    stub.__doc__ = f"Not ported to rdycore_tpu_torch yet (ROADMAP {item})."
+    return kind(stub) if kind else stub
+
+
+_COUPLING = "queue 1 item 18 (the rest of the coupling surface)"
+_CHECKPOINTS = "queue 1 item 5b (checkpoints, restart, HDF5 output)"
+_AMR = "queue 1 item 14"
 
 
 def num_tracers(config: Config) -> int:
@@ -920,6 +939,43 @@ class Simulation:
     def perform_amr(self) -> None:
         """RDyPerformAMR: adaptive mesh refinement is not ported."""
         _not_ported("adaptive mesh refinement", "queue 1 item 14")
+
+    # ---- the JAX Simulation's members not ported yet (ROADMAP fault 20) ----
+    rebuild_on_mesh = _stub("rebuild_on_mesh", _AMR)
+    write_checkpoint = _stub("write_checkpoint", _CHECKPOINTS)
+    read_checkpoint = _stub("read_checkpoint", _CHECKPOINTS)
+    restarted = _stub("restarted", _CHECKPOINTS, property)
+    from_file = _stub("from_file", _COUPLING, classmethod)
+    set_momentum_source = _stub("set_momentum_source", _COUPLING)
+    set_regional_momentum_source = _stub("set_regional_momentum_source",
+                                         _COUPLING)
+    set_regional_manning_n = _stub("set_regional_manning_n", _COUPLING)
+    boundary_names = _stub("boundary_names", _COUPLING, property)
+    get_num_boundary_conditions = _stub("get_num_boundary_conditions",
+                                        _COUPLING)
+    get_boundary_id = _stub("get_boundary_id", _COUPLING)
+    get_boundary_condition_flow_type = _stub(
+        "get_boundary_condition_flow_type", _COUPLING)
+    get_boundary_edge_centers = _stub("get_boundary_edge_centers", _COUPLING)
+    get_boundary_edge_centroids = _stub("get_boundary_edge_centroids",
+                                        _COUPLING)
+    get_boundary_cells = _stub("get_boundary_cells", _COUPLING)
+    get_boundary_cell_centroids = _stub("get_boundary_cell_centroids",
+                                        _COUPLING)
+    get_boundary_cell_natural_ids = _stub("get_boundary_cell_natural_ids",
+                                          _COUPLING)
+    get_num_global_cells = _stub("get_num_global_cells", _COUPLING)
+    convert_time = _stub("convert_time", _COUPLING, staticmethod)
+    get_time_unit = _stub("get_time_unit", _COUPLING)
+    get_version = _stub("get_version", _COUPLING)
+    set_log_file = _stub("set_log_file", _COUPLING)
+    get_build_configuration = _stub("get_build_configuration", _COUPLING)
+    create_prognostic_array = _stub("create_prognostic_array", _COUPLING)
+    create_one_dof_array = _stub("create_one_dof_array", _COUPLING)
+    read_one_dof_vec_from_binary = _stub("read_one_dof_vec_from_binary",
+                                         _COUPLING)
+    write_one_dof_vec_to_binary = _stub("write_one_dof_vec_to_binary",
+                                        _COUPLING)
 
     # ------------------------------------------------------------- coupling API
     # The E3SM-style get/set surface (src/rdydata.c), arrays in natural

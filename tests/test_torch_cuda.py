@@ -26,7 +26,12 @@ the CPU run (1e-10 in f64). The row-strip modes of K2 and K2 MUSCL (4
 strips of a 256x176 raster) are held to their plain versions the same way
 and to the whole raster's launch bit for bit, and 20 steps of 4 strips on
 one card (euler; rk4 with tracers; MUSCL ssprk2) to the single strip bit
-for bit.
+for bit. K1c is held to its plain version exactly (max, index and run
+fold; NaN, ties, infinities, signed zeros, misaligned slices, 1 to 5.77M
+values, f32 and f64) and counted as one kernel per call by torch.profiler;
+K2 at every tracer count and Riemann option on ragged rasters (a single
+cell, row and column among them) under every wall code, and in 4 strips
+bit for bit the whole raster's launch.
 """
 
 import numpy as np
@@ -202,7 +207,7 @@ def test_simulation_on_the_card_matches_the_cpu(dev):
 
 @pytest.mark.parametrize("rain", [False, True])
 def test_raster_step_matches_plain_version(dev, rain):
-    nx, ny = 100, 37  # ragged against the 32x8 blocks
+    nx, ny = 100, 37  # ragged against the 32x16 tiles
     rng = np.random.default_rng(1)
     h = rng.uniform(0.05, 1.0, (ny, nx))
     h = np.where(rng.uniform(size=h.shape) < 0.3, 0.0, h)
@@ -406,7 +411,7 @@ def test_muscl_kernels_match_plain_versions(dev, mesh, dtype, limiter):
 @pytest.mark.parametrize("limiter", ["minmod", "van_leer", "none"])
 @pytest.mark.parametrize("rain", [False, True])
 def test_raster_muscl_matches_plain_version(dev, rain, limiter):
-    nx, ny = 100, 37  # ragged against the 32x8 blocks
+    nx, ny = 100, 37  # ragged against the 32x16 tiles
     rng = np.random.default_rng(3)
     h = rng.uniform(0.05, 1.0, (ny, nx))
     h = np.where(rng.uniform(size=h.shape) < 0.3, 0.0, h)
@@ -756,3 +761,169 @@ def test_strips_on_one_card_match_the_single_strip(dev, deck):
         assert np.array_equal(getattr(one, name), getattr(four, name)), name
     assert np.array_equal(one.get_solution(), four.get_solution())
     assert [4 * n for n in l1] == l4 and l1[0] == l1[2] == 20
+
+
+# ------------------------------------------- K1c and K2 redesigned (tiles)
+def courant_cases(dtype, dev):
+    """(name, values) on the card: random at the sizes of the main paths
+    (one value; a block's share; the 5,770,624 edges of the 2048x1408
+    raster), with NaN, ties, infinities and signed zeros, and slices whose
+    start is not 16-byte aligned."""
+    rng = np.random.default_rng(7)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+    big = rng.uniform(0.0, 1.0, 5_770_624)
+    big[[123_457, 4_000_001]] = 2.0  # a tie far apart
+    cases = [("n=1", t([0.3])), ("n=4097", t(rng.uniform(0, 1, 4097))),
+             ("n=5770624 tie", t(big)),
+             ("odd n=40001", t(rng.uniform(0, 1, 40001)))]
+    x = rng.uniform(0, 1, 100_003)
+    x[[5, 70_000]] = np.nan
+    cases.append(("nan", t(x)))
+    cases.append(("+inf tie", t([1.0, np.inf, 3.0, np.inf])))
+    cases.append(("-inf only", t([-np.inf] * 9)))
+    cases.append(("signed zeros", t([-0.0, 0.0, -0.0])))
+    cases.append(("zeros then -0", t([0.0, -0.0, -1.0])))
+    base = t(rng.uniform(0, 1, 70_001))
+    for off in (1, 2, 3):
+        cases.append((f"slice at +{off}", base[off:]))
+    cases.append(("slice of 3 at +1", base[1:4]))
+    return cases
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_courant_argmax_matches_plain_version(dev, dtype):
+    """K1c returns exactly the plain version's (max, first index) and run
+    fold on every case, in one launch per call."""
+    dt = torch.tensor(0.5, dtype=dtype, device=dev)
+    kernels.reset_launch_counts()
+    cases = courant_cases(dtype, dev)
+    for name, x in cases:
+        run = (torch.full((), 0.25, dtype=dtype, device=dev),
+               torch.full((), -1, dtype=torch.int32, device=dev))
+        run_p = tuple(r.clone() for r in run)
+        m, i = kernels.courant_argmax(x, dt, *run)
+        mp, ip = courant_argmax_plain(x, dt, *run_p)
+        same = (float(m) == float(mp)
+                or (np.isnan(float(m)) and np.isnan(float(mp))))
+        assert same and int(i) == int(ip), name
+        assert m.dtype == dtype and i.dtype == torch.int32
+        assert float(x[int(i)]) == float(m) or np.isnan(float(m)), name
+        for r, rp in zip(run, run_p):
+            assert torch.equal(r, rp) or (
+                r.isnan().all() and rp.isnan().all()), name
+    assert kernels.courant_argmax.launches == len(cases)
+
+
+def test_courant_argmax_is_one_kernel_per_call(dev):
+    """One K1c call is one kernel launch, by torch.profiler, on one block's
+    share and on the 5.77M values that take the whole grid: the CUDA
+    runtime launches 3 kernels over 3 calls, and the device records none
+    but K1c's (a session that records no kernel, as the profiler sometimes
+    does there, is taken again, up to five times)."""
+    dt = torch.tensor(0.5, dtype=torch.float32, device=dev)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for n in (11_264, 5_770_624):
+        x = torch.rand(n, device=dev)
+        run = (torch.zeros((), device=dev),
+               torch.zeros((), dtype=torch.int32, device=dev))
+        kernels.courant_argmax(x, dt, *run)  # the workspace, once
+        torch.cuda.synchronize()
+        for _ in range(5):
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(3):
+                    kernels.courant_argmax(x, dt, *run)
+                torch.cuda.synchronize()
+            avgs = prof.key_averages()
+            device = {e.key for e in avgs
+                      if "CUDA" in str(getattr(e, "device_type", ""))
+                      and getattr(e, "self_device_time_total", 0.0) > 0}
+            if device:
+                break
+        launches = sum(e.count for e in avgs if e.key.startswith(
+            ("cudaLaunchKernel", "cuLaunchKernel")))
+        assert launches == 3, launches
+        assert len(device) <= 1 and all("argmax" in k for k in device)
+
+
+def raster_case(dev, nx, ny, nt, bc, seed=5):
+    """A random wet/dry nx x ny raster with nt tracer rows, its geometry,
+    rain plane, wall codes bc (left, right, bottom, top) and non-zero
+    Dirichlet values on every wall."""
+    rng = np.random.default_rng(seed)
+    h = rng.uniform(0.05, 1.0, (ny, nx))
+    h = np.where(rng.uniform(size=h.shape) < 0.3, 0.0, h)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)
+
+    q = t(np.concatenate([
+        [h, h * rng.normal(0, 0.4, h.shape), h * rng.normal(0, 0.4, h.shape)],
+        h * rng.uniform(0.0, 0.5, (nt,) + h.shape)]).reshape(3 + nt, -1))
+    geo = [t(rng.normal(0, 0.01, (ny, nx))), t(rng.normal(0, 0.01, (ny, nx))),
+           t(rng.uniform(0.01, 0.05, (ny, nx)))]
+    plan = StructuredPlan(nx, ny, 0.01, 0.02, 1e-7, 0.0, *bc)
+    bc_vals = {s: t(np.concatenate([[rng.uniform(0.1, 0.6, n),
+                                     rng.normal(0, 0.1, n),
+                                     rng.normal(0, 0.1, n)],
+                                    rng.uniform(0, 0.1, (nt, n))]))
+               for s, n in (("left", ny), ("right", ny), ("bottom", nx),
+                            ("top", nx))}
+    return plan, q, geo, bc_vals, t(rng.uniform(0, 1e-2, (ny, nx)))
+
+
+# every wall code on every side across the cases: Dirichlet 0, reflecting
+# 1, critical outflow 2 (left, right, bottom, top)
+WALLS = [(0, 2, 2, 1), (1, 0, 2, 2), (2, 1, 0, 2), (2, 2, 1, 0)]
+# ragged against the 32x8 tiles, a single cell, row and column
+SHAPES = [(1, 1), (70, 1), (1, 23), (33, 9), (100, 37)]
+
+
+@pytest.mark.parametrize("nt, upwind", [(0, False)] + [
+    (n, u) for n in range(1, 8) for u in (False, True)])
+def test_raster_step_tiles_match_plain_version(dev, nt, upwind):
+    """K2 at every tracer count and Riemann option (so in both its tiles)
+    against its plain version (2e-5) on ragged rasters, a single cell, row
+    and column, under every wall code on every side (Dirichlet non-zero),
+    in rhs mode with the primitives and in a stage with qA, rain off and
+    on; and in 4 strips of 9 rows of a 70 x 36 raster, each strip's launch
+    against its plain version and bit for bit the whole raster's."""
+    dt = torch.tensor(0.002, dtype=torch.float32, device=dev)
+    kw = dict(num_sediment=min(nt, 2), upwind=upwind)
+    kernels.reset_launch_counts()
+    n = 0
+    for k, (nx, ny) in enumerate(SHAPES):
+        plan, q, geo, bc_vals, src = raster_case(dev, nx, ny, nt,
+                                                 WALLS[k % len(WALLS)], k)
+        for mode in (dict(emit_prim=True, src=src if k % 2 else None),
+                     dict(stage=(0.75, 0.25, 0.25), qA=q.flip(1).contiguous(),
+                          src=src if k % 2 == 0 else None)):
+            got = swe_raster_step(plan, q, *geo, dt, bc_vals=bc_vals, **kw,
+                                  **mode)
+            want = swe_raster_step_plain(plan, q, *geo, dt, bc_vals=bc_vals,
+                                         **kw, **mode)
+            n += 1
+            for g, w in zip(got, want):
+                if w is not None:
+                    assert g.shape == w.shape
+                    assert rel(g, w) <= TOL[torch.float32], (nx, ny, mode)
+    plan, q, geo, bc_vals, src = raster_case(dev, 70, 36, nt, WALLS[0])
+    strips = strip_layout(36, 4, 1)
+    mode = dict(stage=(0.0, 1.0, 1.0), emit_prim=True)
+    whole = swe_raster_step(plan, q, *geo, dt, src=src, bc_vals=bc_vals,
+                            **kw, **mode)
+    for s, b in zip(strips, split_rows(q, strips, [dev] * 4, 70)):
+        rows = slice(s.row0, s.row0 + s.rows)
+        args = (plan, b, *(g[rows] for g in geo), dt)
+        skw = dict(src=src[rows], strip=s, **kw, **mode,
+                   bc_vals=strip_wall_values(bc_vals, s, 36, dev))
+        got = swe_raster_step(*args, **skw)
+        want = swe_raster_step_plain(*args, **skw)
+        assert rel(s.owned(got.out), s.owned(want.out)) <= TOL[torch.float32]
+        assert rel(got.prim, want.prim) <= TOL[torch.float32]
+        assert torch.equal(s.owned(got.out),
+                           whole.out.reshape(3 + nt, 36, 70)[:, rows])
+    assert kernels.swe_raster_step.launches == n + 5

@@ -136,8 +136,9 @@ def test_raster_step_modes_agree():
     h = args[1][0]
     assert torch.equal(rhs.prim[0], h)
     assert torch.all(rhs.prim[1][h < 1e-7] == 0.0)
-    # a Courant maximum per 32x8 block; the largest is that of the faces
-    assert rhs.cmax.shape == (2 * 3,) and float(rhs.cmax.max()) > 0.0
+    # a Courant maximum per 32x16 tile (flow only); the largest is that of
+    # the faces
+    assert rhs.cmax.shape == (2 * 2,) and float(rhs.cmax.max()) > 0.0
     with pytest.raises(ValueError, match="Dirichlet"):
         swe_raster_step(*args)
 
