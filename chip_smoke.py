@@ -81,22 +81,22 @@ Phases, each printing as it goes; any failure exits non-zero:
    h_anuga = 1e-3): K3a swe_muscl_grad, K1a in MUSCL mode for each
    limiter, K3b swe_positivity_drain and swe_positivity_scale (on a state
    where some donor factor is below 1, and with dt = 0), and on the raster
-   K2 MUSCL (swe_raster_muscl_faces for each limiter with its block maxima
-   and their K1c fold; swe_raster_muscl_update in each ssprk3 stage and
-   rhs mode, rain off and on), against their plain versions, tolerances
-   as in phase 2. Then, on each main path at full size, the dam break at
+   K2 MUSCL swe_raster_muscl_step (one launch per stage: each limiter, in
+   each ssprk3 stage and rhs mode, rain off and on, at a step where some
+   donor factor is below 1, with its tile maxima and their K1c fold),
+   against their plain versions, tolerances as in phase 2. Then, on each main path at full size, the dam break at
    second order (minmod, ssprk2, dt = 0.00025 s, a Courant number near
    0.4, the floodplain dry): 10 steps on the kernels against 10 on the
    plain versions (every row of q and of the accumulators, and the
    Courant number, to relative 1e-4), with the number of cells whose
    donor factor fell below 1 in each stage of the plain run; --steps
    steps with the launch counts set to 0 just before (per step 2 each of
-   K3a, K1a, K3b drain, K3b scale and K1b and 1 K1c; on the raster 2
-   faces, 2 update, 1 K1c and 1 boundary-only K1a); h finite and >=
-   -1e-7, the volume kept to 1e-4 (the front does not reach the outflow
-   wall); each kernel of the path held against its plain version at the
-   path's shapes (K3b drain and scale, and the raster update, also at 40
-   times the step, where the limiter acts) and timed like the others.
+   K3a, K1a, K3b drain, K3b scale and K1b and 1 K1c; on the raster 2 K2
+   MUSCL, 1 K1c and 1 boundary-only K1a); h finite and >= -1e-7, the
+   volume kept to 1e-4 (the front does not reach the outflow wall); each
+   kernel of the path held against its plain version at the path's shapes
+   (K3b drain and scale, and K2 MUSCL, also at 40 times the step, where
+   the limiter acts) and timed like the others.
 
 7. Well-balancing. At 256x176 (quad and triangle meshes over the bumpy
    bed z = 0.035 (1 + sin 4 pi x sin 4 pi y), f32 and f64, every BC code;
@@ -131,8 +131,8 @@ Phases, each printing as it goes; any failure exits non-zero:
    single strip (q, t, Courant number, boundary-flux accumulator); wall
    ms/step beside phase 4's. Then phase 5's NT = 3 deck (euler) and phase
    6's second-order deck (ssprk2) for 24 steps each in strips, bit for
-   bit their single strips, with exact launches (K2 MUSCL faces and
-   update 2 per strip and step). Each strip kernel (K2 or K2 MUSCL in
+   bit their single strips, with exact launches (K2 MUSCL 2 per strip
+   and step). Each strip kernel (K2 or K2 MUSCL in
    strip mode, K1c, K1a) launched on an inner strip of the final state is
    held against its plain version (2e-5; the Courant fold exact) and
    timed beside its bound, and the halo exchange is timed per stage.
@@ -196,15 +196,15 @@ LIMITERS = ("minmod", "van_leer", "none")
 # sources: K3a per cell (4 slots of 3 differences and 6 multiply-adds);
 # K1a in MUSCL mode per edge (K1a's plus two sides' 3 extrapolations and
 # limited slopes); K3b per cell (4 slots, the factor) and per edge (the
-# donor test, 3 products); K2 MUSCL per cell: faces (two Roe solves, four
-# gradients, twelve limited slopes) and update (five donor factors, the
-# divergence, sources and stage)
+# donor test, 3 products); K2 MUSCL per cell, each face once: two MUSCL
+# faces (about 190 each: six limited slopes, two regularizations and
+# square roots, Roe), two gradients, the donor factor, the divergence,
+# sources and stage
 OPS_PER_GRAD_CELL = 60
 OPS_PER_MUSCL_EDGE = 225
 OPS_PER_DRAIN_CELL = 16
 OPS_PER_SCALE_EDGE = 4
-OPS_PER_MUSCL_FACES_CELL = 400
-OPS_PER_MUSCL_UPDATE_CELL = 100
+OPS_PER_MUSCL_RASTER_CELL = 500
 # phase 7: well-balancing on a 1448x996 triangle mesh over a bumpy bed
 # (2,884,416 cells over the dam break's 4 m x 2.75 m), dt for a Courant
 # number of about 0.3-0.5
@@ -230,8 +230,7 @@ SOURCES = {"swe_edge_flux": _CSRC + "swe_edge_flux.cu",
            "swe_muscl_grad": _CSRC + "swe_muscl_grad.cu",
            "swe_positivity_drain": _CSRC + "swe_positivity.cu",
            "swe_positivity_scale": _CSRC + "swe_positivity.cu",
-           "swe_raster_muscl_faces": _CSRC + "swe_raster_muscl.cu",
-           "swe_raster_muscl_update": _CSRC + "swe_raster_muscl.cu",
+           "swe_raster_muscl_step": _CSRC + "swe_raster_muscl.cu",
            "swe_eta_vertex": _CSRC + "swe_eta_vertex.cu"}
 _SLOTTED = "rdycore_tpu/ops/pallas/slotted.py"
 # the per-shard kernel call of the row-strip sharded raster stepper
@@ -243,9 +242,7 @@ REPLACES = {"swe_edge_flux": _SLOTTED + ":2463",
             "swe_muscl_grad": _SLOTTED + ":3066",
             "swe_positivity_drain": _SLOTTED + ":1597",
             "swe_positivity_scale": _SLOTTED + ":1654",
-            "swe_raster_muscl_faces":
-                "rdycore_tpu/ops/pallas/structured_step.py:341",
-            "swe_raster_muscl_update":
+            "swe_raster_muscl_step":
                 "rdycore_tpu/ops/pallas/structured_step.py:341",
             "swe_eta_vertex": "rdycore_tpu/ops/pallas/routed.py:264"}
 
@@ -418,9 +415,10 @@ def ptxas_summary(report):
     """'kernel<args>: R registers, S B shared memory, P B spilled' of each
     entry function in nvcc's -Xptxas -v report whose tracer count is 0 or
     NT (the others are the same source at other counts); a MUSCL instance
-    names its limiter code, a K2 instance its tile (its shared memory: the
-    static, and the dynamic that the kernel reports, raster_step.smem_bytes)."""
-    from rdycore_tpu_torch.ops.kernels.raster_step import smem_bytes
+    names its limiter code, a K2 or K2 MUSCL instance its tile (its shared
+    memory: the static, and the dynamic that the kernel reports,
+    `smem_bytes` of raster_step and raster_muscl)."""
+    from rdycore_tpu_torch.ops.kernels import raster_muscl, raster_step
 
     out, entry, spill = [], None, ""
     for line in report.splitlines():
@@ -438,7 +436,8 @@ def ptxas_summary(report):
             if "edge_flux" in entry:
                 counts, lims, wb = counts[:1], counts[1:2], counts[2:3]
             if "raster_muscl" in entry:
-                counts, lims = [], counts
+                tile, lims, counts = [int(c) for c in counts[:2]], \
+                    counts[2:3], []
             if "raster_step" in entry:
                 tile, counts = [int(c) for c in counts[:2]], counts[2:3]
             if k and (not counts or int(counts[0]) in (0, NT)):
@@ -450,16 +449,15 @@ def ptxas_summary(report):
                 what += [{"1": "hr", "2": "bs2002"}[c] for c in wb
                          if c != "0"]
                 flags = re.findall(r"Lb(\d)", args)
-                if "raster_muscl" in entry:
-                    # raster_muscl<limiter, strip>
-                    what += ["strip" for f in flags if f == "1"]
-                elif "1" in flags:
+                if "1" in flags:
                     what += ["hr" if "cell_stage" in entry else "upwind"]
                 spills = re.findall(r"(\d+) bytes spill", spill)
                 smem = int(re.search(r"(\d+) bytes smem", line).group(1)
                            if "bytes smem" in line else 0)
-                if tile:  # K2's tile lives in dynamic shared memory
-                    smem += smem_bytes(int(counts[0]))
+                if tile:  # a tile lives in dynamic shared memory
+                    smem += (raster_muscl.smem_bytes()
+                             if "raster_muscl" in entry
+                             else raster_step.smem_bytes(int(counts[0])))
                 out.append(f"{k.group(1)}<{', '.join(what)}>: {m.group(1)} "
                            f"regs, {smem} B shared memory, "
                            f"{sum(map(int, spills))} B spilled")
@@ -1064,9 +1062,10 @@ def plain_raster_operator(op):
     from rdycore_tpu_torch.ops.kernels.courant import courant_argmax_plain
     from rdycore_tpu_torch.ops.kernels.edge_flux import swe_edge_flux_plain
     from rdycore_tpu_torch.ops.kernels.raster_muscl import (
-        donor_factors, raster_muscl_faces_plain, raster_muscl_update_plain)
+        TILE, donor_factors, raster_muscl_faces_plain,
+        raster_muscl_update_plain)
     from rdycore_tpu_torch.ops.kernels.raster_step import (
-        RasterStepOut, swe_raster_step_plain)
+        RasterStepOut, block_max, swe_raster_step_plain)
     from rdycore_tpu_torch.ops.structured import FusedStructuredOperator
 
     class PlainFusedStructuredOperator(FusedStructuredOperator):
@@ -1074,14 +1073,16 @@ def plain_raster_operator(op):
 
         def step(self, q, dt, src=None, bc_vals=None, **mode):
             if self.second_order:
-                fx, fy, cmax = raster_muscl_faces_plain(
+                # raster_muscl_step_plain's parts, to count the donors
+                fx, fy, own = raster_muscl_faces_plain(
                     self.plan, q, bc_vals, self.limiter, self.strip)
                 s = donor_factors(self.plan, q, fx, fy, dt, self.strip)
                 self.donor_counts.append(int((s < 1.0).sum()))
                 out, prim = raster_muscl_update_plain(
                     self.plan, q, fx, fy, self.dz_dx, self.dz_dy,
                     self.mannings_n, dt, src=src, strip=self.strip, **mode)
-                return RasterStepOut(out, prim, cmax)
+                return RasterStepOut(out, prim, block_max(
+                    own, self.plan.nx, own.shape[0], TILE))
             return swe_raster_step_plain(
                 self.plan, q, self.dz_dx, self.dz_dy, self.mannings_n, dt,
                 src=src, bc_vals=bc_vals, num_sediment=self.num_sediment,
@@ -1564,21 +1565,15 @@ def muscl_bytes(op, q_bytes, s):
     }
 
 
-def raster_muscl_bytes(nx, ny, blocks, s, strip=None):
-    """Bytes K2 MUSCL must move over ny rows: faces reads q and writes
-    the six face planes and the block maxima; update (an euler stage with
-    the primitives) reads q, the faces, three geometry planes and dt and
-    writes out and prim. On a strip of ny owned rows, faces also reads the
-    halo rows and writes the faces of its halo face rows, and update reads
-    the h of those rows' cells."""
+def raster_muscl_bytes(nx, ny, tiles, s, strip=None, qA=False):
+    """Bytes K2 MUSCL must move over ny owned rows in an euler stage with
+    the primitives (qA: the stage that also reads qA): K2's, reading q,
+    the three geometry planes and dt and writing out, prim and the tile
+    maxima; on a strip, also the halo rows of q."""
     halo = 0 if strip is None else strip.halo_lo + strip.halo_hi
-    nf = ny + (0 if strip is None else
-               int(strip.halo_lo > 0) + int(strip.halo_hi > 0))
-    C, faces = nx * ny, 3 * (nf * (nx + 1) + (nf + 1) * nx)
-    return {"swe_raster_muscl_faces": s * (3 * (ny + halo) * nx + faces
-                                           + blocks),
-            "swe_raster_muscl_update": s * (3 * C + (nf - ny) * nx + faces
-                                            + 3 * C + 1 + 6 * C)}
+    C = nx * ny
+    return s * (3 * (ny + halo) * nx + 3 * C + 1 + 6 * C + tiles
+                + (3 * C if qA else 0))
 
 
 def phase_muscl_kernels(seed, errs, dev):
@@ -1685,34 +1680,29 @@ def phase_muscl_kernels(seed, errs, dev):
                                 emit_prim=True))
         for i, st in enumerate(FUSED_STAGES["ssprk3"])
     ]
+    fx, fy, _ = rm.raster_muscl_faces_plain(plan, q, bc_vals, "minmod")
+    n_lim = int((rm.donor_factors(plan, q, fx, fy, dt) < 1.0).sum())
+    log(f"    raster cells with s < 1: {n_lim} of {nx * ny}")
+    if not n_lim > 0:
+        failures.append("swe_raster_muscl_step limiter idle")
     for lim in LIMITERS:
-        got = rm.swe_raster_muscl_faces(plan, q, bc_vals, lim)
-        want = rm.raster_muscl_faces_plain(plan, q, bc_vals, lim)
-        for field, g, w in zip(("fx", "fy", "cmax"), got, want):
-            check("swe_raster_muscl_faces", f"raster 256x176 {lim} {field}",
-                  g, w, f32)
-        run = (torch.zeros((), dtype=f32, device=dev),
-               torch.zeros((), dtype=torch.int32, device=dev))
-        courant_argmax(got[2], dt, *run)
-        check("swe_raster_muscl_faces", f"raster 256x176 {lim} courant fold",
-              run[0], want[2].max() * dt, f32)
-        if lim != "minmod":
-            continue
-        n_lim = int((rm.donor_factors(plan, q, *want[:2], dt) < 1.0).sum())
-        log(f"    raster cells with s < 1: {n_lim} of {nx * ny}")
-        if not n_lim > 0:
-            failures.append("swe_raster_muscl_update limiter idle")
         for rain in (False, True):
             src = t(rng.uniform(0.0, 1e-2, (ny, nx))) if rain else None
             for mode, extra in modes:
-                tag = f"raster rain {'on' if rain else 'off'} {mode}"
-                g = rm.swe_raster_muscl_update(plan, q, *want[:2], *geo, dt,
-                                               src=src, **extra)
-                w = rm.raster_muscl_update_plain(plan, q, *want[:2], *geo, dt,
-                                                 src=src, **extra)
-                for field, gi, wi in zip(("out", "prim"), g, w):
-                    check("swe_raster_muscl_update", f"{tag} {field}", gi, wi,
+                tag = f"raster {lim} rain {'on' if rain else 'off'} {mode}"
+                got = rm.swe_raster_muscl_step(plan, q, *geo, dt, bc_vals,
+                                               lim, src=src, **extra)
+                want = rm.raster_muscl_step_plain(plan, q, *geo, dt,
+                                                  bc_vals, lim, src=src,
+                                                  **extra)
+                for field, g, w in zip(("out", "prim", "cmax"), got, want):
+                    check("swe_raster_muscl_step", f"{tag} {field}", g, w,
                           f32)
+        run = (torch.zeros((), dtype=f32, device=dev),
+               torch.zeros((), dtype=torch.int32, device=dev))
+        courant_argmax(got.cmax, dt, *run)
+        check("swe_raster_muscl_step", f"raster 256x176 {lim} courant fold",
+              run[0], want.cmax.max() * dt, f32)
     torch.cuda.synchronize()
     if failures:
         raise SystemExit(f"second-order kernel checks failed: {failures}")
@@ -1778,9 +1768,8 @@ def phase_muscl(steps, errs, dev, mesh):
         log(f"== phase 6: {path} main path at second order (MUSCL minmod, "
             f"positivity limiter, ssprk2, dt {DT_MUSCL} s, dry floodplain), "
             f"{mesh.num_cells:,} cells, f32")
-        if raster:  # two launch pairs a step; K1a for the accumulator
-            per_step = {"swe_raster_muscl_faces": 2,
-                        "swe_raster_muscl_update": 2, "courant_argmax": 1,
+        if raster:  # two launches a step; K1a for the accumulator
+            per_step = {"swe_raster_muscl_step": 2, "courant_argmax": 1,
                         "swe_edge_flux": 1}
         else:  # two stages of K3a, K1a, K3b drain and scale, K1b
             per_step = {k: 2 for k in (
@@ -1807,40 +1796,31 @@ def phase_muscl(steps, errs, dev, mesh):
             op = sim._structured["op"]
             plan = op.plan
             geo = (op.dz_dx, op.dz_dy, op.mannings_n)
-            fk = rm.swe_raster_muscl_faces(plan, q, None, op.limiter)
-            fp = rm.raster_muscl_faces_plain(plan, q, None, op.limiter)
-            mk_, ik = op.courant_max(fk[2], dt, *run)
-            mp, ip = courant_argmax_plain(fk[2])
+            # K2 MUSCL at dt and at 40 times dt, where the donor factors
+            # fall below 1
+            got = [op.step(q, t, **stage) for t in (dt, dt_long)]
+            want = [rm.raster_muscl_step_plain(plan, q, *geo, t, None,
+                                               op.limiter, **stage)
+                    for t in (dt, dt_long)]
+            mk_, ik = op.courant_max(got[0].cmax, dt, *run)
+            mp, ip = courant_argmax_plain(got[0].cmax)
             fbk = op.boundary_fluxes(q, bv)
             fbp = swe_edge_flux_plain(op.bnd, q, bv, plan.tiny_h,
                                       plan.h_anuga)[0][:, :-1]
             pairs = {
-                "swe_raster_muscl_faces": list(zip(fk, fp)),
-                # the update at dt and at 40 times dt, where the donor
-                # factors fall below 1
-                "swe_raster_muscl_update": [
-                    gw for t in (dt, dt_long) for gw in zip(
-                        rm.swe_raster_muscl_update(plan, q, *fp[:2], *geo, t,
-                                                   **stage),
-                        rm.raster_muscl_update_plain(plan, q, *fp[:2], *geo,
-                                                     t, **stage))],
+                "swe_raster_muscl_step": [
+                    gw for g, w in zip(got, want) for gw in zip(g, w)],
                 "swe_edge_flux": [(fbk[k], fbp[k]) for k in range(3)],
             }
+            fp = rm.raster_muscl_faces_plain(plan, q, None, op.limiter)
             n_lim = int((rm.donor_factors(plan, q, *fp[:2], dt_long)
                          < 1.0).sum())
-            blocks = fk[2]
+            blocks = got[0].cmax
             calls = {
-                "swe_raster_muscl_faces": (
-                    lambda: rm.swe_raster_muscl_faces(plan, q, None,
-                                                      op.limiter),
-                    lambda: rm.raster_muscl_faces_plain(plan, q, None,
-                                                        op.limiter),
-                    None),
-                "swe_raster_muscl_update": (
-                    lambda: rm.swe_raster_muscl_update(
-                        plan, q, *fk[:2], *geo, dt, **stage),
-                    lambda: rm.raster_muscl_update_plain(
-                        plan, q, *fk[:2], *geo, dt, **stage),
+                "swe_raster_muscl_step": (
+                    lambda: op.step(q, dt, **stage),
+                    lambda: rm.raster_muscl_step_plain(
+                        plan, q, *geo, dt, None, op.limiter, **stage),
                     None),
                 "courant_argmax": (
                     lambda: op.courant_max(blocks, dt, *run),
@@ -1853,17 +1833,17 @@ def phase_muscl(steps, errs, dev, mesh):
                     None),
             }
             Eb = op.bnd.bnd_left.shape[0]
-            nbytes = raster_muscl_bytes(plan.nx, plan.ny, blocks.numel(), s)
+            nbytes = {"swe_raster_muscl_step": raster_muscl_bytes(
+                plan.nx, plan.ny, blocks.numel(), s)}
             nbytes["courant_argmax"] = courant_bytes(blocks.numel(), s)
             nbytes["swe_edge_flux"] = edge_flux_bytes(
                 0, Eb, 3 * s * int(torch.unique(op.bnd.bnd_left).numel()), s)
             C = q.shape[1]
-            nops = {"swe_raster_muscl_faces": OPS_PER_MUSCL_FACES_CELL * C,
-                    "swe_raster_muscl_update": OPS_PER_MUSCL_UPDATE_CELL * C,
+            nops = {"swe_raster_muscl_step": OPS_PER_MUSCL_RASTER_CELL * C,
                     "courant_argmax": OPS_PER_VALUE * blocks.numel(),
                     "swe_edge_flux": OPS_PER_EDGE * Eb}
             replaces = dict(
-                REPLACES, courant_argmax=REPLACES["swe_raster_muscl_faces"],
+                REPLACES, courant_argmax=REPLACES["swe_raster_muscl_step"],
                 swe_edge_flux=_SLOTTED + ":1254")
         else:
             op = sim.operator
@@ -2445,33 +2425,22 @@ def strip_kernel_rows(card, sim, path, launches, dev, dt, nt=0):
     stage = dict(stage=(0.0, 1.0, 1.0), emit_prim=True)
     sz, C = 4, st.rows * nx
     if op.second_order:
-        fk = rm.swe_raster_muscl_faces(plan, b, None, op.limiter, st)
-        fp = rm.raster_muscl_faces_plain(plan, b, None, op.limiter, st)
-        uk = rm.swe_raster_muscl_update(plan, b, *fp[:2], *geo, dt_t,
-                                        strip=st, **stage)
-        up = rm.raster_muscl_update_plain(plan, b, *fp[:2], *geo, dt_t,
-                                          strip=st, **stage)
-        pairs = {"swe_raster_muscl_faces": list(zip(fk, fp)),
-                 "swe_raster_muscl_update": [
-                     (st.owned(uk[0]), st.owned(up[0])),
-                     (uk[1], up[1])]}
-        blocks = fk[2]
-        calls = {
-            "swe_raster_muscl_faces": (
-                lambda: rm.swe_raster_muscl_faces(plan, b, None, op.limiter,
-                                                  st),
-                lambda: rm.raster_muscl_faces_plain(plan, b, None,
-                                                    op.limiter, st), None),
-            "swe_raster_muscl_update": (
-                lambda: rm.swe_raster_muscl_update(plan, b, *fk[:2], *geo,
-                                                   dt_t, strip=st, **stage),
-                lambda: rm.raster_muscl_update_plain(
-                    plan, b, *fk[:2], *geo, dt_t, strip=st, **stage), None)}
-        nbytes = raster_muscl_bytes(nx, st.rows, blocks.numel(), sz, st)
-        n_face = fk[0].shape[1] * nx
-        nops = {"swe_raster_muscl_faces": OPS_PER_MUSCL_FACES_CELL * n_face,
-                "swe_raster_muscl_update": OPS_PER_MUSCL_UPDATE_CELL * C}
-        kernel_names = ("swe_raster_muscl_faces", "swe_raster_muscl_update")
+        got = op.step(b, dt_t, **stage)
+        want = rm.raster_muscl_step_plain(plan, b, *geo, dt_t, None,
+                                          op.limiter, st, **stage)
+        pairs = {"swe_raster_muscl_step": [
+            (st.owned(got.out), st.owned(want.out)),
+            (got.prim, want.prim), (got.cmax, want.cmax)]}
+        blocks = got.cmax
+        calls = {"swe_raster_muscl_step": (
+            lambda: op.step(b, dt_t, **stage),
+            lambda: rm.raster_muscl_step_plain(plan, b, *geo, dt_t, None,
+                                               op.limiter, st, **stage),
+            None)}
+        nbytes = {"swe_raster_muscl_step": raster_muscl_bytes(
+            nx, st.rows, blocks.numel(), sz, st)}
+        nops = {"swe_raster_muscl_step": OPS_PER_MUSCL_RASTER_CELL * C}
+        kernel_names = ("swe_raster_muscl_step",)
     else:
         got = op.step(b, dt_t, **stage)
         want = swe_raster_step_plain(plan, b, *geo, dt_t,
@@ -2586,7 +2555,7 @@ def phase_strips(steps, dev, mesh):
              {"swe_raster_step": 1, "courant_argmax": 1,
               "swe_edge_flux": 1}),
             ("muscl", muscl_dam_break_config, "ssprk2", DT_MUSCL,
-             {"swe_raster_muscl_faces": 2, "swe_raster_muscl_update": 2,
+             {"swe_raster_muscl_step": 2,
               "courant_argmax": 1, "swe_edge_flux": 1})):
         one = raster_simulation(n, dev, mesh, scheme, config=config)
         one.run()

@@ -8,8 +8,8 @@ package's ops/pallas/), each beside its plain PyTorch version:
 - K3a `swe_muscl_grad`, K3b `swe_positivity_drain` and
   `swe_positivity_scale` (muscl.py, csrc/swe_muscl_grad.cu,
   csrc/swe_positivity.cu)
-- K2 MUSCL `swe_raster_muscl_faces` and `swe_raster_muscl_update`
-  (raster_muscl.py, csrc/swe_raster_muscl.cu)
+- K2 MUSCL `swe_raster_muscl_step` (raster_muscl.py,
+  csrc/swe_raster_muscl.cu)
 - K5 `swe_eta_vertex` (eta_vertex.py, csrc/swe_eta_vertex.cu), the BS2002
   vertex eta
 
@@ -25,12 +25,12 @@ from .courant import courant_argmax
 from .edge_flux import swe_edge_flux
 from .eta_vertex import swe_eta_vertex
 from .muscl import swe_muscl_grad, swe_positivity_drain, swe_positivity_scale
-from .raster_muscl import swe_raster_muscl_faces, swe_raster_muscl_update
+from .raster_muscl import swe_raster_muscl_step
 from .raster_step import swe_raster_step
 
 KERNELS = (swe_edge_flux, swe_cell_stage, courant_argmax, swe_raster_step,
            swe_muscl_grad, swe_positivity_drain, swe_positivity_scale,
-           swe_raster_muscl_faces, swe_raster_muscl_update, swe_eta_vertex)
+           swe_raster_muscl_step, swe_eta_vertex)
 
 
 def reset_launch_counts() -> None:

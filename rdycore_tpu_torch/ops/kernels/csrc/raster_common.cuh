@@ -141,14 +141,6 @@ __device__ __forceinline__ void store_block_max(float cm,
   }
 }
 
-// Whether a bx x by block fits the raster kernels and an nx x ny raster
-// their grid
-inline bool raster_launch_ok(int64_t nx, int64_t ny, int bx, int by) {
-  const int64_t gx = (nx + bx - 1) / bx, gy = (ny + by - 1) / by;
-  return bx * by <= kRasterThreads && (bx * by) % 32 == 0 && nx >= 1 &&
-         ny >= 1 && gy <= 65535 && gx <= 2147483647;
-}
-
 // Row strips. A launch owns the rows [row0, row0 + rows) of a raster of ny
 // rows, held in a strip buffer of halo_lo + rows + halo_hi rows: halo_lo
 // rows below the owned ones, copies of the strip beneath, and halo_hi rows

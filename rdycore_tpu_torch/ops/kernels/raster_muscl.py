@@ -1,38 +1,49 @@
-"""K2 MUSCL `swe_raster_muscl_faces` + `swe_raster_muscl_update`: one
-second-order step, RK stage or RHS of the raster in two launches.
+"""K2 MUSCL `swe_raster_muscl_step`: one second-order step, RK stage or
+RHS of the raster per launch, flow only.
 
-Each wrapper launches its kernel of csrc/swe_raster_muscl.cu for CUDA
-tensors and takes its plain PyTorch version for CPU tensors. Together they
-replace the `second_order` mode of the TPU kernel `_kernel`
-(rdycore_tpu/ops/pallas/structured_step.py:341-559, flow only), which does
-everything in one row tile with a 3-row halo; see the source's header for
-the bound and why the work is split in two.
+`swe_raster_muscl_step` launches csrc/swe_raster_muscl.cu for CUDA tensors
+and takes the plain PyTorch version `raster_muscl_step_plain` for CPU
+tensors. The kernel replaces the `second_order` mode of the TPU kernel
+`_kernel` (rdycore_tpu/ops/pallas/structured_step.py:341-559), which does
+the step in one row tile with a 3-row halo; here a block owns a tile of
+cells (`TILE`, 32 x 16) and keeps everything between the state and the
+output in shared memory: the stencil with its wall ghosts, every face the
+tile needs (its own and those of the ring of cells around it, each solved
+once in the tile from its cells' normal gradients), the donor factors of
+the tile and the ring, then the cell update. See the source's header for
+the phases, the bound, what binds on the H100 and why neighbouring tiles
+agree bit for bit.
 
-- faces: the limited MUSCL face states and Roe fluxes of every face,
-  fx [3, ny, nx + 1] (x face i is the west face of column i, face nx the
-  right wall) and fy [3, ny + 1, nx] (y face j the south face of row j),
-  and one Courant maximum per block over the faces its cells own (the east
-  and north face, and the west or south wall face where the cell has
-  one). The gradients are the TPU kernel's masked central or one-sided
-  differences (:366-410, in float32 as it forms them); wall faces stay
-  first order on the inline ghost, with h clamped >= 0 like every face.
-- update: the Audusse donor factors s = clip(h / (dt * drain), 0, 1) of
-  each cell and its neighbours from the face h-fluxes (a ghost donor keeps
-  s = 1; dt <= 0 divides by 1, :495-533), each face scaled by its donor's
-  s (:548-559), then the divergence, the semi-implicit sources on the raw
-  state, the rain plane and the stage or rhs output with the primitives,
-  as K2 (`raster_step.cell_update`).
+The plain version is the composition of its parts, each a function of its
+own here:
+- `raster_muscl_faces_plain`: the limited MUSCL face states and Roe fluxes
+  of every face, fx [3, face rows, nx + 1] (x face i is the west face of
+  column i, face nx the right wall) and fy [3, face rows + 1, nx] (y face
+  j the south face of row j), and the Courant coefficient of each owned
+  cell over the faces it owns (the east and north face, and the west or
+  south wall face where the cell has one). The gradients are the TPU
+  kernel's masked central or one-sided differences (:366-410, in float32
+  as it forms them); wall faces stay first order on the inline ghost,
+  with h clamped >= 0 like every face.
+- `donor_factors`: the Audusse donor factors s = clip(h / (dt * drain), 0,
+  1) of each cell of the face rows from the face h-fluxes (dt <= 0
+  divides by 1, :495-533).
+- `raster_muscl_update_plain`: each face scaled by its donor's s (a ghost
+  donor keeps s = 1; :548-559), then the divergence, the semi-implicit
+  sources on the raw state, the rain plane and the stage or rhs output
+  with the primitives, as K2 (`raster_step.cell_update`).
+`raster_muscl_step_plain` composes them and takes the Courant maximum of
+each tile (`raster_step.block_max`), the layout the kernel writes.
 
-With `strip` (raster_step.Strip), both launch over the owned rows of a row
-strip, the per-shard kernel of the JAX package's sharded stepper
+With `strip` (raster_step.Strip), a launch owns the rows of a row strip,
+the per-shard kernel of the JAX package's sharded stepper
 (`make_sharded_fused_structured_stepper(second_order=True)`,
-structured_step.py:1019): the strip buffer carries 3 halo rows off the
-walls (the TPU stepper's HR = 3), faces also solves the faces of the halo
-row next to the owned ones (its "face rows": x_lo = 1 halo row below and
-x_hi = 1 above where the strip has halo rows there), so that update can
-form a halo cell's donor factor, and every mask tests the global row.
-fx [3, face_rows, nx + 1] and fy [3, face_rows + 1, nx] then cover the
-face rows.
+structured_step.py:1019): the strip buffer carries MUSCL_HALO = 3 halo
+rows off the walls (the TPU stepper's HR = 3), what a tile's stencil
+reaches, and every mask tests the global row. In the plain parts the face
+rows are the owned rows and one halo row below (x_lo = 1) and above (x_hi
+= 1) where the strip has halo rows there, whose faces the donor factors
+of the halo cells next to the owned ones need.
 """
 
 from __future__ import annotations
@@ -49,6 +60,7 @@ from ..swe.riemann import regularized_velocity, roe_flux
 from . import build
 from .cell_stage import _alpha_beta
 from .raster_step import (
+    RasterStepOut,
     Strip,
     StructuredPlan,
     block_max,
@@ -62,17 +74,17 @@ from .raster_step import (
 
 _P, _I64, _INT, _F = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                       ctypes.c_float)
-_STRIP = [_I64] * 4 + [_INT, _INT]  # nx, ny, row0, rows, halo_lo, halo_hi
 _FUNCTIONS = {
-    "rdy_swe_raster_muscl_faces_f32": [_P] + [_INT] * 4 + [_P] * 4 + _STRIP
-    + [_F, _F, _F, _F, _INT, _P, _P, _P, _INT, _INT, _P],
-    "rdy_swe_raster_muscl_update_f32": [_P] * 8 + _STRIP
-    + [_F, _F, _F, _F, _INT, _F, _F, _P, _P, _P, _INT, _INT, _P],
+    "rdy_swe_raster_muscl_step_f32": [_P] * 7 + [_INT] * 4 + [_P] * 4
+    + [_I64] * 4 + [_INT, _INT] + [_F] * 6 + [_INT, _F, _F, _INT]
+    + [_P, _P, _P, _P],
+    "rdy_swe_raster_muscl_step_smem": [],
 }
 # halo rows a second-order strip needs off the walls
 MUSCL_HALO = 3
-# threads per block along x and y; one Courant maximum per block
-BLOCK = (32, 8)
+# the cells along x and y of a tile, one block of the kernel and one
+# Courant maximum
+TILE = (32, 16)
 
 
 def face_rows(strip: Strip):
@@ -127,9 +139,11 @@ def _faces(ql, qr, gl, gr, vf, hd: float, limiter: str, sn: float,
 def raster_muscl_faces_plain(plan: StructuredPlan, q, bc_vals=None,
                              limiter: str = "minmod",
                              strip: Optional[Strip] = None):
-    """Plain version of the faces kernel: (fx, fy, cmax). The faces of
-    every buffer row are solved, those of the face rows returned."""
-    strip = check_strip(plan, strip, MUSCL_HALO, "swe_raster_muscl_faces")
+    """The MUSCL faces of the flow state q [3, R*nx]: (fx, fy, own), own
+    [rows, nx] the largest amax/dx, amax/dy of the faces each owned cell
+    owns. The faces of every buffer row are solved, those of the face rows
+    returned."""
+    strip = check_strip(plan, strip, MUSCL_HALO, "swe_raster_muscl_step")
     nx, ny, R = plan.nx, plan.ny, strip.buffer_rows
     lo, rows = strip.halo_lo, strip.rows
     x_lo, n_face, _ = face_rows(strip)
@@ -161,20 +175,16 @@ def raster_muscl_faces_plain(plan: StructuredPlan, q, bc_vals=None,
     own[:, 0] = torch.maximum(own[:, 0], ax[:, 0] * inv_dx)
     if strip.row0 == 0:
         own[0] = torch.maximum(own[0], ay[0] * inv_dy)
-    if n_face != rows:
-        own = F.pad(own, (0, 0, x_lo, n_face - rows - x_lo))
     b0 = lo - x_lo
     return (fx[:, b0:b0 + n_face].contiguous(),
-            fy[:, b0:b0 + n_face + 1].contiguous(),
-            block_max(own, nx, n_face, BLOCK))
+            fy[:, b0:b0 + n_face + 1].contiguous(), own)
 
 
 def donor_factors(plan: StructuredPlan, q, fx, fy, dt,
                   strip: Optional[Strip] = None):
     """The donor factor s [face rows, nx] of each cell of the face rows
     of the state q [3, R*nx] for the faces fx, fy over a step dt (1 where
-    nothing drains; dt <= 0 divides by 1), as the update kernel forms
-    it."""
+    nothing drains; dt <= 0 divides by 1)."""
     strip = check_strip(plan, strip, MUSCL_HALO, "donor_factors")
     x_lo, n_face, _ = face_rows(strip)
     inv_dx, inv_dy, _, _ = _half_steps(plan)
@@ -195,9 +205,10 @@ def raster_muscl_update_plain(
     src=None, stage=None, qA=None, emit_prim=False,
     strip: Optional[Strip] = None,
 ):
-    """Plain version of the update kernel: (out, prim); the halo rows of
-    a strip's `out` are zero."""
-    strip = check_strip(plan, strip, MUSCL_HALO, "swe_raster_muscl_update")
+    """The positivity scaling, divergence, sources and stage or rhs
+    output of q from the faces of `raster_muscl_faces_plain`: (out, prim);
+    the halo rows of a strip's `out` are zero."""
+    strip = check_strip(plan, strip, MUSCL_HALO, "swe_raster_muscl_step")
     x_lo, _, x_hi = face_rows(strip)
     rows = strip.rows
     inv_dx, inv_dy, _, _ = _half_steps(plan)
@@ -220,72 +231,50 @@ def raster_muscl_update_plain(
     return strip.to_buffer(out), prim
 
 
-def swe_raster_muscl_faces(
-    plan: StructuredPlan, q: torch.Tensor,
+def raster_muscl_step_plain(
+    plan: StructuredPlan, q, dz_dx, dz_dy, mannings_n, dt, bc_vals=None,
+    limiter: str = "minmod", strip: Optional[Strip] = None, *, src=None,
+    stage=None, qA=None, emit_prim: bool = False,
+) -> RasterStepOut:
+    """Plain version of the kernel: the faces, the donor factors and the
+    update of its parts above, and the Courant maximum of each tile of
+    owned cells."""
+    fx, fy, own = raster_muscl_faces_plain(plan, q, bc_vals, limiter, strip)
+    out, prim = raster_muscl_update_plain(
+        plan, q, fx, fy, dz_dx, dz_dy, mannings_n, dt, src=src, stage=stage,
+        qA=qA, emit_prim=emit_prim, strip=strip)
+    return RasterStepOut(out, prim, block_max(own, plan.nx, own.shape[0],
+                                              TILE))
+
+
+def swe_raster_muscl_step(
+    plan: StructuredPlan, q: torch.Tensor, dz_dx: torch.Tensor,
+    dz_dy: torch.Tensor, mannings_n: torch.Tensor, dt: torch.Tensor,
     bc_vals: Optional[Dict[str, torch.Tensor]] = None,
-    limiter: str = "minmod", strip: Optional[Strip] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The MUSCL faces of the flow state q [3, R*nx] float32 (the strip
-    buffer; R = ny on the whole raster) on the raster of `plan`: (fx [3,
-    face rows, nx + 1], fy [3, face rows + 1, nx], cmax [blocks]). bc_vals
-    {side: [3, n]}: the Dirichlet walls' (h, hu, hv), n = R by buffer row
-    on the left and right."""
-    if q.device.type == "cpu":
-        return raster_muscl_faces_plain(plan, q, bc_vals, limiter, strip)
-    strip = check_strip(plan, strip, MUSCL_HALO, "swe_raster_muscl_faces")
-    dev, f = q.device, torch.float32
-    nx = plan.nx
-    _, n_face, _ = face_rows(strip)
-    build.check(q, "q", f, (3, nx * strip.buffer_rows), dev)
-    codes, walls = wall_args(plan, bc_vals, 3, dev, "swe_raster_muscl_faces",
-                             strip)
-    fx = torch.empty((3, n_face, nx + 1), dtype=f, device=dev)
-    fy = torch.empty((3, n_face + 1, nx), dtype=f, device=dev)
-    cmax = torch.empty((num_blocks(nx, n_face, BLOCK),), dtype=f, device=dev)
-    inv_dx, inv_dy, hdx, hdy = _half_steps(plan)
-    lib = build.load("swe_raster_muscl", _FUNCTIONS)
-    with torch.cuda.device(dev):
-        status = lib.rdy_swe_raster_muscl_faces_f32(
-            q.data_ptr(), *codes, *(None if w is None else w.data_ptr()
-                                    for w in walls),
-            nx, plan.ny, *strip, plan.tiny_h, plan.h_anuga, inv_dx, inv_dy,
-            LIMITERS[limiter], fx.data_ptr(), fy.data_ptr(), cmax.data_ptr(),
-            BLOCK[0], BLOCK[1], torch.cuda.current_stream(dev).cuda_stream)
-    build.check_status(status, "swe_raster_muscl_faces")
-    swe_raster_muscl_faces.launches += 1
-    return fx, fy, cmax
-
-
-swe_raster_muscl_faces.launches = 0
-
-
-def swe_raster_muscl_update(
-    plan: StructuredPlan, q: torch.Tensor, fx: torch.Tensor,
-    fy: torch.Tensor, dz_dx: torch.Tensor, dz_dy: torch.Tensor,
-    mannings_n: torch.Tensor, dt: torch.Tensor, *,
+    limiter: str = "minmod", strip: Optional[Strip] = None, *,
     src: Optional[torch.Tensor] = None,
     stage: Optional[Tuple[float, float, float]] = None,
     qA: Optional[torch.Tensor] = None, emit_prim: bool = False,
-    strip: Optional[Strip] = None,
-) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The positivity scaling, divergence, sources and update of q [3,
-    R*nx] float32 (the strip buffer) from the faces of
-    `swe_raster_muscl_faces`: (out, a strip buffer like q of which the
-    owned rows are written, prim [3, rows*nx]), with K2's stage and rhs
-    modes (raster_step.py); dz_dx, dz_dy, mannings_n and src [rows, nx]."""
+) -> RasterStepOut:
+    """One second-order launch over the raster of `plan`, or over the
+    owned rows of `strip`, with K2's stage and rhs modes (raster_step.py).
+    q [3, R*nx] float32, the strip buffer (R = ny on the whole raster; qA
+    the same), dz_dx, dz_dy, mannings_n and the rain plane src [rows, nx],
+    dt a 0-dim tensor read on the device, bc_vals {side: [3, n]} the
+    Dirichlet walls' (h, hu, hv) (n = R by buffer row on the left and
+    right, nx below and above). `out` is a strip buffer like q, of which
+    the owned rows are written; prim [3, rows*nx]; cmax one maximum per
+    TILE of owned cells, row-major by tile."""
     if q.device.type == "cpu":
-        return raster_muscl_update_plain(
-            plan, q, fx, fy, dz_dx, dz_dy, mannings_n, dt, src=src,
-            stage=stage, qA=qA, emit_prim=emit_prim, strip=strip)
-    strip = check_strip(plan, strip, MUSCL_HALO, "swe_raster_muscl_update")
+        return raster_muscl_step_plain(
+            plan, q, dz_dx, dz_dy, mannings_n, dt, bc_vals, limiter, strip,
+            src=src, stage=stage, qA=qA, emit_prim=emit_prim)
+    strip = check_strip(plan, strip, MUSCL_HALO, "swe_raster_muscl_step")
     dev, f = q.device, torch.float32
     nx, ny = plan.nx, strip.rows
-    _, n_face, _ = face_rows(strip)
     C = nx * strip.buffer_rows
     ck = build.check
     ck(q, "q", f, (3, C), dev)
-    ck(fx, "fx", f, (3, n_face, nx + 1), dev)
-    ck(fy, "fy", f, (3, n_face + 1, nx), dev)
     for name, t in (("dz_dx", dz_dx), ("dz_dy", dz_dy),
                     ("mannings_n", mannings_n)):
         ck(t, name, f, (ny, nx), dev)
@@ -294,28 +283,37 @@ def swe_raster_muscl_update(
         ck(src, "src", f, (ny, nx), dev)
     if qA is not None:
         ck(qA, "qA", f, (3, C), dev)
+    codes, walls = wall_args(plan, bc_vals, 3, dev, "swe_raster_muscl_step",
+                             strip)
     alpha, beta = _alpha_beta(stage) if stage is not None else (0.0, 0.0)
     out = torch.empty((3, C), dtype=f, device=dev)
     prim = (torch.empty((3, nx * ny), dtype=f, device=dev) if emit_prim
             else None)
+    cmax = torch.empty((num_blocks(nx, ny, TILE),), dtype=f, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    inv_dx, inv_dy, _, _ = _half_steps(plan)
+    inv_dx, inv_dy, hdx, hdy = _half_steps(plan)
     lib = build.load("swe_raster_muscl", _FUNCTIONS)
     with torch.cuda.device(dev):
-        status = lib.rdy_swe_raster_muscl_update_f32(
-            q.data_ptr(), ptr(qA), fx.data_ptr(), fy.data_ptr(),
-            dz_dx.data_ptr(), dz_dy.data_ptr(), mannings_n.data_ptr(),
-            ptr(src), nx, plan.ny, *strip, plan.tiny_h, plan.h_anuga, inv_dx,
-            inv_dy,
-            int(stage is None), alpha, beta, dt.data_ptr(), out.data_ptr(),
-            ptr(prim), BLOCK[0], BLOCK[1],
-            torch.cuda.current_stream(dev).cuda_stream)
-    build.check_status(status, "swe_raster_muscl_update")
-    swe_raster_muscl_update.launches += 1
-    return out, prim
+        status = lib.rdy_swe_raster_muscl_step_f32(
+            q.data_ptr(), ptr(qA), dz_dx.data_ptr(), dz_dy.data_ptr(),
+            mannings_n.data_ptr(), ptr(src), dt.data_ptr(), *codes,
+            *(ptr(w) for w in walls), nx, plan.ny, *strip, plan.tiny_h,
+            plan.h_anuga, inv_dx, inv_dy, hdx, hdy, int(stage is None), alpha,
+            beta, LIMITERS[limiter], out.data_ptr(), ptr(prim),
+            cmax.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    build.check_status(status, "swe_raster_muscl_step")
+    swe_raster_muscl_step.launches += 1
+    return RasterStepOut(out, prim, cmax)
 
 
-swe_raster_muscl_update.launches = 0
+swe_raster_muscl_step.launches = 0
+
+
+def smem_bytes() -> int:
+    """Dynamic shared memory of one block of the kernel (builds the
+    library)."""
+    return build.load("swe_raster_muscl",
+                      _FUNCTIONS).rdy_swe_raster_muscl_step_smem()

@@ -12,9 +12,8 @@ at first order, with tracers, or (flow only) at second order.
   the interior on inflow) and source functions, and is the f64 reference of
   the tests.
 - `make_fused_structured_stepper` runs the kernel K2 `swe_raster_step`
-  (with tracer rows in its nt mode), or at second order the launch pair
-  K2 MUSCL (`swe_raster_muscl_faces` + `swe_raster_muscl_update`), once
-  per stage (euler, ssprk2 and ssprk3 in stage mode, rk4 from rhs-mode
+  (with tracer rows in its nt mode), or at second order K2 MUSCL
+  `swe_raster_muscl_step`, once per stage (euler, ssprk2 and ssprk3 in stage mode, rk4 from rhs-mode
   calls), folds the Courant maxima with K1c, and takes the boundary-flux
   accumulator from K1a on the operator's boundary edges alone. That
   accumulator is first order and unscaled also at second order, as the
@@ -51,13 +50,8 @@ from ..operator import OperatorArrays
 from ..timestepping import IntervalResult
 from .kernels.courant import courant_argmax
 from .kernels.edge_flux import swe_edge_flux
-from .kernels.raster_muscl import (
-    MUSCL_HALO,
-    swe_raster_muscl_faces,
-    swe_raster_muscl_update,
-)
+from .kernels.raster_muscl import MUSCL_HALO, swe_raster_muscl_step
 from .kernels.raster_step import (
-    RasterStepOut,
     Strip,
     StructuredPlan,
     f32,
@@ -344,12 +338,9 @@ class FusedStructuredOperator:
         [ndof, ny*nx] on the whole raster; mode: stage=, qA=,
         emit_prim=)."""
         if self.second_order:
-            fx, fy, cmax = swe_raster_muscl_faces(self.plan, q, bc_vals,
-                                                  self.limiter, self.strip)
-            out, prim = swe_raster_muscl_update(
-                self.plan, q, fx, fy, self.dz_dx, self.dz_dy,
-                self.mannings_n, dt, src=src, strip=self.strip, **mode)
-            return RasterStepOut(out, prim, cmax)
+            return swe_raster_muscl_step(
+                self.plan, q, self.dz_dx, self.dz_dy, self.mannings_n, dt,
+                bc_vals, self.limiter, self.strip, src=src, **mode)
         return swe_raster_step(self.plan, q, self.dz_dx, self.dz_dy,
                                self.mannings_n, dt, src=src, bc_vals=bc_vals,
                                num_sediment=self.num_sediment,

@@ -8,7 +8,7 @@
   (tests/test_torch_cuda.py).
 - The Courant block layout the raster kernels write and K1c folds: each
   tile's maximum is that of exactly its own cells at ragged sizes, for K2's
-  tiles and K2 MUSCL's 32 x 8 blocks, which it keeps.
+  tiles and K2 MUSCL's.
 """
 
 import jax.numpy as jnp
@@ -18,8 +18,8 @@ import torch
 
 from rdycore_tpu_torch.ops.kernels.courant import courant_argmax_plain
 from rdycore_tpu_torch.ops.kernels.raster_muscl import (
-    BLOCK,
-    raster_muscl_faces_plain,
+    TILE,
+    raster_muscl_step_plain,
 )
 from rdycore_tpu_torch.ops.kernels.raster_step import (
     StructuredPlan,
@@ -79,7 +79,7 @@ def test_courant_argmax_plain_matches_jax(case, dtype):
     assert int(run[1]) == int(want_run[1])
 
 
-@pytest.mark.parametrize("tile", [tile_for(0), tile_for(3), BLOCK])
+@pytest.mark.parametrize("tile", [tile_for(0), tile_for(3), TILE])
 @pytest.mark.parametrize("nx, ny", [(1, 1), (70, 1), (1, 23), (33, 9),
                                     (100, 37), (2048, 1408)])
 def test_block_layout_covers_every_cell_once(nx, ny, tile):
@@ -102,8 +102,8 @@ def test_block_layout_covers_every_cell_once(nx, ny, tile):
 
 def test_k2_and_k2_muscl_keep_their_layouts():
     """The plain K2 writes one maximum per 32 x 16 tile flow only and per
-    32 x 8 tile with tracers, and K2 MUSCL's faces one per 32 x 8 block, on
-    a ragged raster."""
+    32 x 8 tile with tracers, and K2 MUSCL one per 32 x 16 tile, on a
+    ragged raster."""
     nx, ny = 64, 37
     rng = np.random.default_rng(3)
     h = rng.uniform(0.05, 1.0, (ny, nx))
@@ -111,7 +111,7 @@ def test_k2_and_k2_muscl_keep_their_layouts():
     plan = StructuredPlan(nx, ny, 0.01, 0.02, 1e-7, 1e-3, 1, 2, 1, 1)
     geo = [torch.zeros(ny, nx), torch.zeros(ny, nx), torch.full((ny, nx), 0.02)]
     dt = torch.tensor(0.001)
-    assert BLOCK == (32, 8)
+    assert TILE == (32, 16)
     assert tile_for(0) == (32, 16) and tile_for(3) == (32, 8)
     for rows, tile in ((flow, (32, 16)), (flow + [0.01 * h], (32, 8))):
         q = torch.as_tensor(np.stack(rows).reshape(len(rows), -1),
@@ -119,5 +119,6 @@ def test_k2_and_k2_muscl_keep_their_layouts():
         cmax = swe_raster_step_plain(plan, q, *geo, dt).cmax
         assert cmax.shape == (num_blocks(nx, ny, tile),)
         assert float(cmax.max()) > 0.0
-    faces = raster_muscl_faces_plain(plan, q[:3], None, "minmod")[2]
-    assert faces.shape == (num_blocks(nx, ny, BLOCK),) == (2 * 5,)
+    muscl = raster_muscl_step_plain(plan, q[:3], *geo, dt).cmax
+    assert muscl.shape == (num_blocks(nx, ny, TILE),) == (2 * 3,)
+    assert float(muscl.max()) > 0.0

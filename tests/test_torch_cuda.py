@@ -16,14 +16,17 @@ tracers, two of them sediment classes, Roe and upwind-Roe) of K1a, K1b
 and K2 are held to their plain versions the same way, and a sediment deck
 on the card to the CPU run on both paths. So are the second-order kernels
 (K3a, K1a in MUSCL mode and K3b on the unstructured mesh for each limiter,
-f32 and f64; K2 MUSCL's faces and update launches on the raster), and a
+f32 and f64; K2 MUSCL on the raster, one launch per stage, at ragged
+sizes under every wall code, and on a state whose donor
+factors fall below 1 on cells at tile edges and corners), and a
 second-order deck on the card to the CPU run on both paths (1e-10 in f64
 on the unstructured path, 1e-5 in f32 on the raster). So are the
 well-balancing modes over a bumpy bed (K1a and K1b with hydrostatic
 reconstruction at NT = 0 and 3, K1a's BS2002 correction at first order
 and for each limiter, and K5), and a well-balanced deck on the card to
-the CPU run (1e-10 in f64). The row-strip modes of K2 and K2 MUSCL (4
-strips of a 256x176 raster) are held to their plain versions the same way
+the CPU run (1e-10 in f64). The row-strip modes of K2 (4 strips of a
+256x176 raster) and K2 MUSCL (2-4 strips, the last ragged) are held to
+their plain versions the same way
 and to the whole raster's launch bit for bit, and 20 steps of 4 strips on
 one card (euler; rk4 with tracers; MUSCL ssprk2) to the single strip bit
 for bit. K1c is held to its plain version exactly (max, index and run
@@ -52,13 +55,15 @@ from rdycore_tpu_torch.ops.kernels.muscl import (
     positivity_scale_plain,
 )
 from rdycore_tpu_torch.ops.kernels.raster_muscl import (
+    TILE,
+    donor_factors,
     raster_muscl_faces_plain,
-    raster_muscl_update_plain,
-    swe_raster_muscl_faces,
-    swe_raster_muscl_update,
+    raster_muscl_step_plain,
+    swe_raster_muscl_step,
 )
 from rdycore_tpu_torch.ops.swe.muscl import ls_gradients
 from rdycore_tpu_torch.ops.kernels.raster_step import (
+    Strip,
     StructuredPlan,
     swe_raster_step,
     swe_raster_step_plain,
@@ -112,8 +117,7 @@ def setup(mesh_fn, dtype, dev, seed=0, nt=0, riemann="roe", z_fn=None,
 
 def launches():
     """The launch count of each kernel, in the order of kernels.KERNELS:
-    K1a, K1b, K1c, K2, K3a, K3b drain, K3b scale, K2 MUSCL faces and
-    update, K5."""
+    K1a, K1b, K1c, K2, K3a, K3b drain, K3b scale, K2 MUSCL, K5."""
     return [k.launches for k in kernels.KERNELS]
 
 
@@ -150,7 +154,7 @@ def test_kernels_match_plain_versions(dev, mesh, dtype):
     m, i = op.courant_max(cp)
     mp, ip = courant_argmax_plain(cp)
     assert float(m) == float(mp) and int(i) == int(ip)
-    assert launches() == [1, 6, 1, 0, 0, 0, 0, 0, 0, 0]
+    assert launches() == [1, 6, 1, 0, 0, 0, 0, 0, 0]
 
 
 @pytest.mark.parametrize("riemann", ["roe", "upwind_roe"])
@@ -179,7 +183,7 @@ def test_tracer_kernels_match_plain_versions(dev, mesh, dtype, riemann):
                 if w is not None:
                     assert g.shape == (6, op.num_cells)
                     assert rel(g, w) <= TOL[dtype]
-    assert launches() == [1, 4, 0, 0, 0, 0, 0, 0, 0, 0]
+    assert launches() == [1, 4, 0, 0, 0, 0, 0, 0, 0]
 
 
 def test_simulation_on_the_card_matches_the_cpu(dev):
@@ -310,8 +314,8 @@ def test_tracer_simulation_on_the_card_matches_the_cpu(dev, backend):
                    torch.as_tensor(cpu.get_solution()[k])) <= 1e-5
         assert rel(torch.as_tensor(gpu.bflux_accum[k]),
                    torch.as_tensor(cpu.bflux_accum[k])) <= 1e-5
-    expected = ([20, 20, 20, 0, 0, 0, 0, 0, 0, 0] if backend == "xla"
-                else [20, 0, 20, 20, 0, 0, 0, 0, 0, 0])
+    expected = ([20, 20, 20, 0, 0, 0, 0, 0, 0] if backend == "xla"
+                else [20, 0, 20, 20, 0, 0, 0, 0, 0])
     assert launches() == expected
 
 
@@ -346,7 +350,7 @@ def test_raster_simulation_on_the_card_matches_the_cpu(dev):
                torch.as_tensor(cpu.get_solution())) <= 1e-5
     assert rel(torch.as_tensor(gpu.bflux_accum),
                torch.as_tensor(cpu.bflux_accum)) <= 1e-5
-    assert launches() == [20, 0, 20, 60, 0, 0, 0, 0, 0, 0]
+    assert launches() == [20, 0, 20, 60, 0, 0, 0, 0, 0]
 
 
 def test_structured_kind_on_the_card_matches_the_cpu(dev):
@@ -405,14 +409,14 @@ def test_muscl_kernels_match_plain_versions(dev, mesh, dtype, limiter):
     assert bool(torch.isfinite(s0).all())
     assert rel(s0, positivity_drain_plain(a, fp, q[0],
                                           torch.zeros_like(dt))) <= tol
-    assert launches() == [1, 0, 0, 0, 1, 2, 1, 0, 0, 0]
+    assert launches() == [1, 0, 0, 0, 1, 2, 1, 0, 0]
 
 
-@pytest.mark.parametrize("limiter", ["minmod", "van_leer", "none"])
-@pytest.mark.parametrize("rain", [False, True])
-def test_raster_muscl_matches_plain_version(dev, rain, limiter):
-    nx, ny = 100, 37  # ragged against the 32x16 tiles
-    rng = np.random.default_rng(3)
+def muscl_case(dev, nx, ny, bc, seed):
+    """A random wet/dry nx x ny raster for K2 MUSCL (h_anuga = 1e-3), its
+    geometry, rain plane, wall codes bc (left, right, bottom, top),
+    non-zero Dirichlet values on every wall and qA."""
+    rng = np.random.default_rng(seed)
     h = rng.uniform(0.05, 1.0, (ny, nx))
     h = np.where(rng.uniform(size=h.shape) < 0.3, 0.0, h)
 
@@ -423,28 +427,101 @@ def test_raster_muscl_matches_plain_version(dev, rain, limiter):
                     h * rng.normal(0, 0.4, h.shape)]).reshape(3, -1))
     geo = [t(rng.normal(0, 0.01, (ny, nx))), t(rng.normal(0, 0.01, (ny, nx))),
            t(rng.uniform(0.01, 0.05, (ny, nx)))]
-    plan = StructuredPlan(nx, ny, 0.01, 0.02, 1e-7, 1e-3, 0, 2, 1, 2)
-    bc_vals = {"left": t([np.full(ny, 0.3), np.full(ny, 0.05), np.zeros(ny)])}
-    src = t(rng.uniform(0, 1e-2, (ny, nx))) if rain else None
-    dt = t(0.002)
-    qA = q.flip(1).contiguous()
-    kernels.reset_launch_counts()
-    got = kernels.swe_raster_muscl_faces(plan, q, bc_vals, limiter)
-    want = raster_muscl_faces_plain(plan, q, bc_vals, limiter)
+    plan = StructuredPlan(nx, ny, 0.01, 0.02, 1e-7, 1e-3, *bc)
+    bc_vals = {s: t([rng.uniform(0.1, 0.6, n), rng.normal(0, 0.1, n),
+                     rng.normal(0, 0.1, n)])
+               for s, n in (("left", ny), ("right", ny), ("bottom", nx),
+                            ("top", nx))}
+    return (plan, q, geo, bc_vals, t(rng.uniform(0, 1e-2, (ny, nx))),
+            q.flip(1).contiguous())
+
+
+def check_muscl(got, want, what):
+    """K2 MUSCL's (out, prim, cmax) against its plain version: 2e-5, the
+    tile layout exact."""
     for g, w in zip(got, want):
-        assert rel(g, w) <= TOL[torch.float32]
-    modes = [dict(emit_prim=True)] + [
-        dict(stage=s, qA=qA if i else None, emit_prim=True)
-        for i, s in enumerate(FUSED_STAGES["ssprk3"])
-    ]
-    for mode in modes:  # on the plain faces: errors do not compound
-        out = kernels.swe_raster_muscl_update(plan, q, *want[:2], *geo, dt,
-                                              src=src, **mode)
-        ref = raster_muscl_update_plain(plan, q, *want[:2], *geo, dt,
-                                        src=src, **mode)
-        for g, w in zip(out, ref):
-            assert rel(g, w) <= TOL[torch.float32]
-    assert launches() == [0, 0, 0, 0, 0, 0, 0, 1, len(modes), 0]
+        assert (g is None) == (w is None), what
+        if w is not None:
+            assert g.shape == w.shape, what
+            assert rel(g, w) <= TOL[torch.float32], what
+
+
+@pytest.mark.parametrize("limiter", ["minmod", "van_leer", "none"])
+@pytest.mark.parametrize("rain", [False, True])
+def test_raster_muscl_matches_plain_version(dev, rain, limiter):
+    """K2 MUSCL, one launch a call, against its plain version on ragged
+    rasters (a single cell, row and column among them)
+    under every wall code on every side (Dirichlet non-zero), in rhs mode
+    and each ssprk3 stage (qA in the later ones) with the primitives, at a
+    step long enough for donor factors below 1; the K1c fold of its tile
+    maxima exact against the plain fold of the same maxima."""
+    dt = torch.tensor(0.02, dtype=torch.float32, device=dev)
+    kernels.reset_launch_counts()
+    n = 0
+    for k, (nx, ny) in enumerate(SHAPES):
+        plan, q, geo, bc_vals, src, qA = muscl_case(
+            dev, nx, ny, WALLS[k % len(WALLS)], k)
+        if nx * ny > 1000:
+            fx, fy, _ = raster_muscl_faces_plain(plan, q, bc_vals, limiter)
+            assert bool((donor_factors(plan, q, fx, fy, dt) < 1.0).any())
+        modes = [dict(emit_prim=True)] + [
+            dict(stage=st, qA=qA if i else None, emit_prim=True)
+            for i, st in enumerate(FUSED_STAGES["ssprk3"])]
+        for mode in modes:
+            kw = dict(src=src if rain else None, **mode)
+            got = swe_raster_muscl_step(plan, q, *geo, dt, bc_vals, limiter,
+                                        **kw)
+            want = raster_muscl_step_plain(plan, q, *geo, dt, bc_vals,
+                                           limiter, **kw)
+            n += 1
+            check_muscl(got, want, (nx, ny, mode.get("stage")))
+            run = (torch.zeros((), device=dev),
+                   torch.zeros((), dtype=torch.int32, device=dev))
+            run_p = tuple(x.clone() for x in run)
+            mk, ik = kernels.courant_argmax(got.cmax, dt, *run)
+            mp, ip = courant_argmax_plain(got.cmax, dt, *run_p)
+            assert torch.equal(mk, mp) and int(ik) == int(ip)
+            assert torch.equal(run[0], run_p[0])
+    assert launches() == [0, 0, n, 0, 0, 0, 0, n, 0]
+
+
+def test_raster_muscl_donors_at_tile_edges(dev):
+    """K2 MUSCL on a 96 x 48 raster (3 x 3 tiles of 32 x 16) of thin,
+    fast layers over a step long enough that most cells drain faster than
+    they hold, those on the tiles' edges and at their corners among them
+    (their donor factors, which the neighbouring tiles form again from
+    their own faces, below 1): the result agrees with the plain version,
+    one launch a call."""
+    nx, ny = 96, 48
+    rng = np.random.default_rng(8)
+    h = rng.uniform(0.002, 0.02, (ny, nx))
+    h = np.where(rng.uniform(size=h.shape) < 0.1, 0.0, h)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)
+
+    q = t(np.stack([h, h * rng.normal(0, 1.5, h.shape),
+                    h * rng.normal(0, 1.5, h.shape)]).reshape(3, -1))
+    geo = [t(np.zeros((ny, nx))), t(np.zeros((ny, nx))),
+           t(np.full((ny, nx), 0.02))]
+    plan = StructuredPlan(nx, ny, 0.01, 0.01, 1e-7, 1e-3, 1, 2, 1, 2)
+    dt = t(0.02)
+    fx, fy, _ = raster_muscl_faces_plain(plan, q, None, "minmod")
+    s = donor_factors(plan, q, fx, fy, dt).cpu().numpy() < 1.0
+    bx, by = TILE
+    cols = [c for k in range(bx, nx, bx) for c in (k - 1, k)]
+    rows = [r for k in range(by, ny, by) for r in (k - 1, k)]
+    assert s[:, cols].mean() > 0.75 and s[rows].mean() > 0.75
+    assert s[np.ix_(rows, cols)].mean() > 0.75  # the corners
+    kernels.reset_launch_counts()
+    for mode in (dict(stage=(0.0, 1.0, 1.0), emit_prim=True),
+                 dict(stage=(0.5, 0.5, 0.5), qA=q.flip(1).contiguous()),
+                 dict()):
+        got = swe_raster_muscl_step(plan, q, *geo, dt, None, "minmod", **mode)
+        want = raster_muscl_step_plain(plan, q, *geo, dt, None, "minmod",
+                                       **mode)
+        check_muscl(got, want, mode.get("stage"))
+    assert kernels.swe_raster_muscl_step.launches == 3
 
 
 @pytest.mark.parametrize("backend", ["xla", "fused_structured"])
@@ -483,8 +560,8 @@ def test_muscl_simulation_on_the_card_matches_the_cpu(dev, backend):
                torch.as_tensor(cpu.bflux_accum)) <= tol
     # ssprk2: two stages a step, the Courant fold and (raster) the
     # boundary fluxes once a step
-    assert launches() == ([20, 0, 20, 0, 0, 0, 0, 40, 40, 0] if raster
-                          else [40, 40, 20, 0, 40, 40, 40, 0, 0, 0])
+    assert launches() == ([20, 0, 20, 0, 0, 0, 0, 40, 0] if raster
+                          else [40, 40, 20, 0, 40, 40, 40, 0, 0])
 
 
 @pytest.mark.parametrize("nt, riemann", [(0, "roe"), (3, "roe"),
@@ -515,7 +592,7 @@ def test_hr_kernels_match_plain_versions(dev, mesh, dtype, nt, riemann):
             for g, w in zip(got, want):
                 if w is not None:
                     assert rel(g, w) <= TOL[dtype]
-    assert launches() == [1, 2 * len(methods), 0, 0, 0, 0, 0, 0, 0, 0]
+    assert launches() == [1, 2 * len(methods), 0, 0, 0, 0, 0, 0, 0]
 
 
 @pytest.mark.parametrize("limiter", [None, "minmod", "van_leer", "none"])
@@ -542,7 +619,7 @@ def test_bs2002_kernels_match_plain_versions(dev, mesh, dtype, limiter):
     f0, _ = swe_edge_flux_plain(a, q, bv, op.tiny_h, op.h_anuga, grad=grad,
                                 limiter=lim)
     assert rel(f0[1:], fp[1:]) > 1e-3
-    assert launches() == [1, 0, 0, 0, 0, 0, 0, 0, 0, 1]
+    assert launches() == [1, 0, 0, 0, 0, 0, 0, 0, 1]
 
 
 @pytest.mark.parametrize("wb", ["hydrostatic_reconstruction", "bs2002"])
@@ -579,7 +656,7 @@ def test_wb_simulation_on_the_card_matches_the_cpu(dev, wb):
         assert rel(torch.as_tensor(got), torch.as_tensor(want)) <= 1e-10
     # ssprk2: two stages a step, the Courant fold once; K5 before each K1a
     k5 = 40 if wb == "bs2002" else 0
-    assert launches() == [40, 40, 20, 0, 0, 0, 0, 0, 0, k5]
+    assert launches() == [40, 40, 20, 0, 0, 0, 0, 0, k5]
 
 
 # ------------------------------------------------------------- row strips
@@ -657,49 +734,55 @@ def test_raster_strip_step_matches_plain_version(dev, nt):
     assert kernels.swe_raster_step.launches == len(modes) * 9
 
 
+def ragged_strips(ny, P):
+    """P row strips with 3 halo rows off the walls, each of ny // P + 1
+    rows but the last, which takes the rest (ragged against the tiles)."""
+    rows = ny // P + 1
+    return [Strip(p * rows, min(rows, ny - p * rows), 3 if p else 0,
+                  3 if p < P - 1 else 0) for p in range(P)]
+
+
 @pytest.mark.parametrize("limiter", ["minmod", "van_leer"])
-def test_raster_strip_muscl_matches_plain_version(dev, limiter):
-    """K2 MUSCL in strip mode on 4 strips with 3 halo rows: faces (its
-    face rows: one halo row beyond each inner strip boundary) and update
-    against their plain versions (2e-5), and bit for bit the whole
-    raster's faces and update."""
-    plan, q, geo, bc_vals, src, strips = strip_case(dev, 0, True)
+@pytest.mark.parametrize("P", [2, 3, 4])
+def test_raster_strip_muscl_matches_plain_version(dev, P, limiter):
+    """K2 MUSCL in strip mode on P strips with 3 halo rows, the last one
+    ragged, in the ssprk2 second stage (qA) with the primitives and in rhs
+    mode: each strip's launch against its plain version (2e-5), and bit for
+    bit the whole raster's launch on the owned rows (out, prim), the
+    strips' largest tile maximum the whole raster's; one launch a strip."""
+    plan, q, geo, bc_vals, src, _ = strip_case(dev, 0, True)
     nx, ny = plan.nx, plan.ny
     dt = torch.tensor(0.002, dtype=torch.float32, device=dev)
     qA = q.flip(1).contiguous()
-    bufs = split_rows(q, strips, [dev] * 4, nx)
-    bufs_A = split_rows(qA, strips, [dev] * 4, nx)
+    strips = ragged_strips(ny, P)
+    assert strips[-1].rows < strips[0].rows
+    bufs = split_rows(q, strips, [dev] * P, nx)
+    bufs_A = split_rows(qA, strips, [dev] * P, nx)
     kernels.reset_launch_counts()
-    fx_w, fy_w, cm_w = swe_raster_muscl_faces(plan, q, bc_vals, limiter)
-    out_w, prim_w = swe_raster_muscl_update(
-        plan, q, fx_w, fy_w, *geo, dt, src=src, stage=(0.5, 0.5, 0.5),
-        qA=qA, emit_prim=True)
-    cms = []
-    for s, b, bA in zip(strips, bufs, bufs_A):
-        rows = slice(s.row0, s.row0 + s.rows)
-        bcs = strip_wall_values(bc_vals, s, ny, dev)
-        fk = swe_raster_muscl_faces(plan, b, bcs, limiter, s)
-        fp = raster_muscl_faces_plain(plan, b, bcs, limiter, s)
-        for a, w in zip(fk, fp):
-            assert rel(a, w) <= TOL[torch.float32]
-        x_lo = int(s.halo_lo > 0)
-        f0 = s.row0 - x_lo
-        assert torch.equal(fk[0], fx_w[:, f0:f0 + fk[0].shape[1]])
-        assert torch.equal(fk[1], fy_w[:, f0:f0 + fk[1].shape[1]])
-        cms.append(fk[2].max())
-        args = (plan, b, fk[0], fk[1], *(g[rows] for g in geo), dt)
-        ukw = dict(src=src[rows], stage=(0.5, 0.5, 0.5), qA=bA,
-                   emit_prim=True, strip=s)
-        ok, pk = swe_raster_muscl_update(*args, **ukw)
-        op, pp = raster_muscl_update_plain(*args, **ukw)
-        assert rel(s.owned(ok), s.owned(op)) <= \
-            TOL[torch.float32]
-        assert rel(pk, pp) <= TOL[torch.float32]
-        assert torch.equal(s.owned(ok),
-                           out_w.reshape(3, ny, nx)[:, rows])
-    assert torch.equal(torch.stack(cms).max(), cm_w.max())
-    assert kernels.swe_raster_muscl_faces.launches == 5
-    assert kernels.swe_raster_muscl_update.launches == 5
+    for mode in (dict(stage=(0.5, 0.5, 0.5), emit_prim=True), dict()):
+        whole = swe_raster_muscl_step(plan, q, *geo, dt, bc_vals, limiter,
+                                      src=src, **mode,
+                                      qA=qA if "stage" in mode else None)
+        cms = []
+        for s, b, bA in zip(strips, bufs, bufs_A):
+            rows = slice(s.row0, s.row0 + s.rows)
+            args = (plan, b, *(g[rows] for g in geo), dt,
+                    strip_wall_values(bc_vals, s, ny, dev), limiter, s)
+            skw = dict(src=src[rows], qA=bA if "stage" in mode else None,
+                       **mode)
+            got = swe_raster_muscl_step(*args, **skw)
+            want = raster_muscl_step_plain(*args, **skw)
+            assert rel(s.owned(got.out), s.owned(want.out)) <= \
+                TOL[torch.float32]
+            check_muscl(got[1:], want[1:], list(s))
+            assert torch.equal(s.owned(got.out),
+                               whole.out.reshape(3, ny, nx)[:, rows])
+            if whole.prim is not None:
+                assert torch.equal(got.prim.reshape(3, -1, nx),
+                                   whole.prim.reshape(3, ny, nx)[:, rows])
+            cms.append(got.cmax.max())
+        assert torch.equal(torch.stack(cms).max(), whole.cmax.max())
+    assert kernels.swe_raster_muscl_step.launches == 2 * (P + 1)
 
 
 def strip_deck(n_devices, scheme="euler", tracers=False, second_order=False):

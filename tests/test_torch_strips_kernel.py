@@ -2,10 +2,11 @@
 strip plumbing of rdycore_tpu_torch, on the CPU, in float32.
 
 - K2 (`swe_raster_step`, flow only and with three tracers, in rhs mode
-  and each ssprk3 stage, rain and Dirichlet walls) and K2 MUSCL (faces and
-  update) launched strip by strip on 4 strips of a 128x32 raster give the
-  whole raster's launch bit for bit on the owned rows: outputs,
-  primitives, faces, and the largest Courant maximum.
+  and each ssprk3 stage, rain and Dirichlet walls) and K2 MUSCL
+  (`swe_raster_muscl_step`, and the faces of its plain version) launched
+  strip by strip on 4 strips of a 128x32 raster give the whole raster's
+  launch bit for bit on the owned rows: outputs, primitives, faces, and
+  the largest Courant maximum.
 - The strip checks: a strip needs halo rows off the raster's walls (1 at
   first order, 3 at second) and none on them; the layout refuses rows
   that do not split or strips thinner than their halo.
@@ -27,8 +28,8 @@ from rdycore_tpu_torch.mesh import structured_quad
 from rdycore_tpu_torch.operator import build_operator
 from rdycore_tpu_torch.ops.kernels.raster_muscl import (
     donor_factors,
-    swe_raster_muscl_faces,
-    swe_raster_muscl_update,
+    raster_muscl_faces_plain,
+    swe_raster_muscl_step,
 )
 from rdycore_tpu_torch.ops.kernels.raster_step import (
     Strip,
@@ -100,27 +101,27 @@ def test_raster_step_strips_reproduce_the_whole_raster(nt):
 def test_raster_muscl_strips_reproduce_the_whole_raster():
     plan, q, geo, bcv, src, strips, bufs = strip_case(0, 3, True)
     dt = torch.tensor(5e-3)  # large enough for donor factors below 1
-    fx, fy, cm = swe_raster_muscl_faces(plan, q, bcv, "minmod")
+    fx, fy, _ = raster_muscl_faces_plain(plan, q, bcv, "minmod")
     assert int((donor_factors(plan, q, fx, fy, dt) < 1.0).sum()) > 0
-    out, prim = swe_raster_muscl_update(plan, q, fx, fy, *geo, dt, src=src,
-                                        emit_prim=True)
+    whole = swe_raster_muscl_step(plan, q, *geo, dt, bcv, "minmod", src=src,
+                                  emit_prim=True)
     cms = []
     for s, b in zip(strips, bufs):
-        sfx, sfy, scm = swe_raster_muscl_faces(
-            plan, b, strip_wall_values(bcv, s, NY, CPU), "minmod", s)
+        bcs = strip_wall_values(bcv, s, NY, CPU)
+        sfx, sfy, _ = raster_muscl_faces_plain(plan, b, bcs, "minmod", s)
         f0 = s.row0 - int(s.halo_lo > 0)  # the first face row
         assert torch.equal(sfx, fx[:, f0:f0 + sfx.shape[1]])
         assert torch.equal(sfy, fy[:, f0:f0 + sfy.shape[1]])
-        o, p = swe_raster_muscl_update(plan, b, sfx, sfy,
-                                       *(rows(g, s) for g in geo), dt,
-                                       src=rows(src, s), emit_prim=True,
-                                       strip=s)
-        assert torch.equal(s.owned(o),
-                           out.reshape(3, NY, NX)[:, s.row0:s.row0 + s.rows])
-        assert torch.equal(p.reshape(3, -1, NX), prim.reshape(3, NY, NX)[
+        got = swe_raster_muscl_step(plan, b, *(rows(g, s) for g in geo), dt,
+                                    bcs, "minmod", s, src=rows(src, s),
+                                    emit_prim=True)
+        assert torch.equal(s.owned(got.out), whole.out.reshape(3, NY, NX)[
             :, s.row0:s.row0 + s.rows])
-        cms.append(scm.max())
-    assert torch.equal(torch.stack(cms).max(), cm.max())
+        assert torch.equal(got.prim.reshape(3, -1, NX),
+                           whole.prim.reshape(3, NY, NX)[
+                               :, s.row0:s.row0 + s.rows])
+        cms.append(got.cmax.max())
+    assert torch.equal(torch.stack(cms).max(), whole.cmax.max())
 
 
 def test_strip_checks():
@@ -135,7 +136,7 @@ def test_strip_checks():
             swe_raster_step(*args, bc_vals=bc, strip=bad)
     # second order needs 3 halo rows off the walls
     with pytest.raises(ValueError, match="halo rows >= 3"):
-        swe_raster_muscl_faces(plan, bufs[1], bc, "minmod", s)
+        swe_raster_muscl_step(*args, bc, "minmod", s)
     # only the strips that hold a Dirichlet bottom or top wall read it
     assert set(bc) == {"left", "right"}
     assert set(strip_wall_values(bcv, strips[-1], NY, CPU)) == {

@@ -1,17 +1,25 @@
 #!/usr/bin/env python3
-"""K2 and K1c on the GPU at the main paths' shapes, timed in turns.
+"""K2, K2 MUSCL and K1c on the GPU at the main paths' shapes, timed in
+turns.
 
     python3 tools/torch_kernel_times.py [--nx 2048] [--ny 1408] [--reps 50]
                                         [--rounds 3] [--package-root DIR]
 
-Builds the two kernels (printing nvcc's register, shared-memory and spill
-report of each instance), then on a random wet raster of nx x ny cells
-(f32, made with numpy from a fixed seed; dam-break depths 0.05-0.25 m
-with momentum):
+Builds the three kernels (printing nvcc's register, shared-memory and
+spill report of each instance), then on a random wet raster of nx x ny
+cells (f32, made with numpy from a fixed seed; dam-break depths 0.05-0.25
+m with momentum):
 
 - K2 `swe_raster_step`, flow only, in an euler stage with the primitives
   (the main path's launch) and in rhs mode, and with three tracer rows,
   the cases in turn each round;
+- K2 MUSCL (minmod, h_anuga = 0 as in the second-order dam break) in an
+  euler stage with the primitives (the first ssprk2 stage), in the ssprk2
+  second stage (with qA, no primitives), in a qA stage with the
+  primitives and in rhs mode: `swe_raster_muscl_step`, or, in a
+  checkout that predates it, the launch pair
+  `swe_raster_muscl_faces` + `swe_raster_muscl_update` (and the faces
+  launch alone), each beside its bytes bound;
 - K1c `courant_argmax` (with the running fold) beside `torch.max(x, 0)` on
   the 5,770,624 edge values of the unstructured path and on K2's flow-only
   tile maxima of the whole raster and of one of 4 strips, in turns (K1c,
@@ -19,8 +27,8 @@ with momentum):
 
 With --package-root, `rdycore_tpu_torch` is imported from DIR (another
 checkout, such as the parent commit unpacked with `git archive` into an
-ignored directory) and only K2 is timed: run it beside a run of this
-checkout in one call to compare the two kernels on one card.
+ignored directory) and only K2 and K2 MUSCL are timed: run it beside a run
+of this checkout in one call to compare the kernels on one card.
 
 Each time is the mean device time of --reps launches from torch.profiler
 (between CUDA events where it records none), after a warm-up. Prints the
@@ -79,6 +87,53 @@ def device_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def time_muscl(plan, q, geo, dt, reps, rounds):
+    """K2 MUSCL in three modes, each beside its bytes bound (the planes of
+    swe_raster_muscl_step: q, the geometry, out and prim or qA)."""
+    from rdycore_tpu_torch.ops.kernels import raster_muscl as rm
+
+    nx, ny = plan.nx, plan.ny
+    C, s = nx * ny, 4
+    qA = q.flip(1).contiguous()
+    # mode -> (its keywords, the f32 planes the function moves)
+    modes = {"euler stage with prim": (dict(stage=(0.0, 1.0, 1.0),
+                                            emit_prim=True), 12),
+             "ssprk2 second stage (qA)": (dict(stage=(0.5, 0.5, 0.5),
+                                               qA=qA), 12),
+             "qA stage with prim": (dict(stage=(0.5, 0.5, 0.5), qA=qA,
+                                         emit_prim=True), 15),
+             "rhs mode": (dict(), 9)}
+    cases = {}
+    if hasattr(rm, "swe_raster_muscl_step"):
+        for mode, (kw, planes) in modes.items():
+            cases[f"step, {mode}"] = (
+                lambda kw=kw: rm.swe_raster_muscl_step(
+                    plan, q, *geo, dt, None, "minmod", **kw), planes)
+    else:  # the former launch pair, faces then update
+        def pair(kw):
+            fx, fy, _ = rm.swe_raster_muscl_faces(plan, q, None, "minmod")
+            return rm.swe_raster_muscl_update(plan, q, fx, fy, *geo, dt,
+                                              **kw)
+
+        for mode, (kw, planes) in modes.items():
+            cases[f"faces + update, {mode}"] = (lambda kw=kw: pair(kw),
+                                                planes)
+        cases["faces alone"] = (
+            lambda: rm.swe_raster_muscl_faces(plan, q, None, "minmod"), 0)
+    ts = {what: [] for what in cases}
+    for _ in range(rounds):
+        for what, (fn, _) in cases.items():
+            ts[what].append(device_ms(fn, reps))
+    for what, (fn, planes) in cases.items():
+        med = float(np.median(ts[what]))
+        bound = 1e3 * s * planes * C / HBM_BYTES_PER_S
+        share = (f"; bound {bound:.4f} ms ({100 * bound / med:.1f}% of the "
+                 "median)" if planes else "")
+        print(f"K2 MUSCL {what}, {C} cells: ms "
+              f"{', '.join(f'{x:.4f}' for x in ts[what])}; median "
+              f"{med:.4f}{share}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--nx", type=int, default=2048)
@@ -99,7 +154,8 @@ def main() -> int:
         StructuredPlan, swe_raster_step)
 
     print(f"card: {card()}; package {os.path.dirname(rs.__file__)}")
-    built = build.build_all(["swe_raster_step", "courant_argmax"], force=True)
+    built = build.build_all(["swe_raster_step", "swe_raster_muscl",
+                             "courant_argmax"], force=True)
     for name, (secs, report) in built.items():
         lines = [ln.strip() for ln in report.splitlines()
                  if "registers" in ln or "spill" in ln
@@ -146,6 +202,8 @@ def main() -> int:
               f"{', '.join(f'{x:.4f}' for x in ts[what])}; median {med:.4f}"
               f"; bound {bound:.4f} ms ({100 * bound / med:.1f}% of the "
               "median)")
+    time_muscl(plan._replace(h_anuga=0.0), q, geo, dt, args.reps,
+               args.rounds)
     if other:
         print(f"card: {card()}")
         return 0
