@@ -137,12 +137,33 @@ Phases, each printing as it goes; any failure exits non-zero:
    held against its plain version (2e-5; the Courant fold exact) and
    timed beside its bound, and the halo exchange is timed per stage.
 
+9. The implicit and IMEX schemes at full size. (a) ark_imex (ARS(2,2,2),
+   Manning friction solved per cell at each DIRK stage) on phase 3's deck:
+   100 steps through `run_main_path` (10 against the linearization twin,
+   every row to 1e-4; exact launches: K1a and K1b twice a step, K1c once;
+   the volume budget). (b) beuler (6 Newton iterations of GMRES(16),
+   residuals on the kernels, JVPs by forward-mode AD through the twin) on
+   phase 3's mesh and dam break with every wall reflecting, dt 0.0025 s (a
+   Courant number of about 2, printed, > 1 required): 4 steps with exact
+   launches (K1a and K1b 25 times a step, K1c once), the first 2 held
+   against the same 2 steps with plain residuals (2e-5 relative to 1 +
+   |q|), h finite and >= -1e-6, the closed box's volume to 1e-5; one more
+   step split by CUDA events into residual kernels, JVPs and glue, with
+   its Newton residual norm beside its start. (c) The same on the raster
+   (K2 in rhs mode 25 times a step, K1c and boundary K1a once; JVPs
+   through the plain `structured` operator). (d) The raster at second
+   order (K2 MUSCL in rhs mode, minmod), 2 steps, the kernel-vs-plain
+   difference printed unbounded. Each path's kernels are held against
+   their plain versions and timed at its shapes.
+
 Before the last line it prints the card's name and power limit and a JSON
 line {"kernels": [...]} with one row per kernel and path ("path":
 "unstructured", "raster", "unstructured+tracers", "raster+tracers" (these
 two with "nt": 3), "unstructured+muscl", "raster+muscl",
 "unstructured+hr", "unstructured+bs2002", "unstructured+bs2002+muscl",
-"raster+strips4", "raster+strips4+tracers" or "raster+strips4+muscl"; a
+"raster+strips4", "raster+strips4+tracers", "raster+strips4+muscl",
+"unstructured ark_imex", "unstructured beuler", "raster beuler" or "raster
+beuler+muscl", these four with "launches_per_step"; a
 strip row names its strip [row0, rows, halo_lo, halo_hi]),
 each with that path's own launches, times and bound, and "timers" naming
 the timer of each time ("profiler", or "cuda events" where torch.profiler
@@ -164,6 +185,7 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+L2_BYTES = 50e6  # H100 L2: a call repeated on one input finds some there
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}  # non-tensor
 TOL = {torch.float32: 2e-5, torch.float64: 1e-12}
 DT = 0.0005
@@ -252,6 +274,12 @@ REPLACES = {"swe_edge_flux": _SLOTTED + ":2463",
 STEADY = {}
 REFERENCE = {}
 STRIPS = 4  # phase 8: row strips on the one card
+# phase 9: ark_imex steps and their coupling interval (in steps); beuler's
+# dt (a Courant number of about 2 on the dam break: sqrt(g 0.25 m) * dt /
+# (1/512 m)) and steps
+IMEX_STEPS, IMEX_INTERVAL_STEPS = 100, 50
+DT_BEULER = 0.0025
+BEULER_STEPS = 4
 
 
 def log(*args):
@@ -710,50 +738,21 @@ def tracer_dam_break_config(steps, backend="xla", scheme="euler"):
 
 
 def plain_operator(op):
-    """The same operator with every kernel replaced by its plain version
-    (run on the card's tensors), for holding the kernels' run against. Its
-    `donor_counts` collects, per positivity pass, the number of cells whose
-    donor factor is below 1."""
-    from rdycore_tpu_torch.operator import SWEOperator
-    from rdycore_tpu_torch.ops.kernels.cell_stage import swe_cell_stage_plain
-    from rdycore_tpu_torch.ops.kernels.courant import courant_argmax_plain
-    from rdycore_tpu_torch.ops.kernels.edge_flux import swe_edge_flux_plain
+    """The operator's linearization twin (`operator.linearization_twin`:
+    every kernel replaced by its plain version, run on the card's tensors),
+    for holding the kernels' run against. Its `donor_counts` collects, per
+    positivity pass, the number of cells whose donor factor is below 1."""
+    from rdycore_tpu_torch.operator import LinearizationTwin
     from rdycore_tpu_torch.ops.kernels.muscl import (
         positivity_drain_plain, positivity_scale_plain)
-    from rdycore_tpu_torch.ops.swe.bs2002 import eta_vertices
-    from rdycore_tpu_torch.ops.swe.muscl import ls_gradients
 
-    class PlainSWEOperator(SWEOperator):
+    class PlainSWEOperator(LinearizationTwin):
         donor_counts = []
-
-        def muscl_grad(self, q):
-            return ls_gradients(self.arrays, q)
-
-        def eta_vertices(self, h):
-            return eta_vertices(self.arrays.bs2002, h, self.tiny_h)
-
-        def edge_flux(self, q, bv, grad=None, eta_v=None):
-            return swe_edge_flux_plain(self.arrays, q, bv, self.tiny_h,
-                                       self.h_anuga,
-                                       self.riemann == "upwind_roe", grad,
-                                       self.limiter, self.well_balancing_hr,
-                                       self.arrays.bs2002, eta_v)
 
         def limit_positivity(self, flux, h, dt):
             s = positivity_drain_plain(self.arrays, flux, h, dt)
             self.donor_counts.append(int((s < 1.0).sum()))
             return positivity_scale_plain(self.arrays, flux, s)
-
-        def courant_max(self, courant, dt=None, run_max=None, run_idx=None):
-            return courant_argmax_plain(courant, dt, run_max, run_idx)
-
-        def cell_stage(self, flux, q, dt, ext_src, **mode):
-            return swe_cell_stage_plain(
-                self.arrays, flux, q, dt, ext_src, tiny_h=self.tiny_h,
-                h_anuga=self.h_anuga, xq2018_threshold=self.xq2018_threshold,
-                source_method=self.source_method,
-                num_sediment=self.num_sediment,
-                hr=self.well_balancing_hr, **mode)
 
     return PlainSWEOperator(**{f.name: getattr(op, f.name)
                                for f in dataclasses.fields(op)})
@@ -798,12 +797,23 @@ def kernel_row(card, name, path, fns, launches, err, nbytes, nops, dtype,
     """One entry of the {"kernels": [...]} line, logged. fns = (the
     kernel's call, its plain version's, one PyTorch call that computes the
     same function or None), each timed here; the bound from nbytes and
-    nops; "timers" names the timer that gave each time (`device_time`)."""
-    times = [None if f is None else device_time(f, reps=5 if i == 1 else 20)
-             for i, f in enumerate(fns)]
-    ms, plain_ms, lib_ms = (None if t is None else t[0] for t in times)
+    nops; "timers" names the timer that gave each time (`device_time`, or
+    CUDA events where its time is under the HBM time of the bytes beyond
+    the L2's 50 MB)."""
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     t_ops = 1e3 * nops / PEAK_OPS_PER_S[dtype]
+    # all but the L2's worth of the bytes come from HBM: a time under this
+    # floor means that both profiler sessions dropped records of the call
+    t_floor = 1e3 * max(nbytes - L2_BYTES, 0.0) / HBM_BYTES_PER_S
+    times = [None if f is None else device_time(f, reps=5 if i == 1 else 20)
+             for i, f in enumerate(fns)]
+    for i, (f, t) in enumerate(zip(fns, times)):
+        if t is not None and t[0] < t_floor:
+            log(f"  {name}: profiler time {t[0]:.4f} ms under the "
+                f"{t_floor:.4f} ms that HBM takes for the bytes the L2 "
+                "cannot hold; timing between CUDA events instead")
+            times[i] = (cuda_ms(f), "cuda events")
+    ms, plain_ms, lib_ms = (None if t is None else t[0] for t in times)
     row = {
         "name": name, "path": path, "route": "cuda", "source": SOURCES[name],
         "replaces": replaces[name], "launches": launches, "max_abs_err": err,
@@ -1115,7 +1125,8 @@ def raster_simulation(steps, dev, mesh, scheme="euler", plain=False,
     if plain:
         st["op"] = plain_raster_operator(st["op"])
         st["adv"] = make_fused_structured_stepper(
-            st["op"], st["scheme"], accumulate=st["accumulate"])
+            st["op"], st["scheme"], accumulate=st["accumulate"],
+            lin_op=st["lin_op"])
     return sim
 
 
@@ -2582,6 +2593,383 @@ def phase_strips(steps, dev, mesh):
     return rows
 
 
+# ------------------------------------------------------------------ phase 9
+def imex_dam_break_config(steps, backend="xla", scheme="ark_imex"):
+    """Phase 3's dam break (Manning 0.018, critical outflow on the right)
+    under ARS(2,2,2) ARK-IMEX, coupling intervals of 50 steps."""
+    from rdycore_tpu_torch.config.yaml_input import config_from_dict
+
+    d = dam_break_dict(steps, backend, scheme)
+    d["time"]["coupling_interval"] = IMEX_INTERVAL_STEPS * DT
+    return config_from_dict(d).validate()
+
+
+def closed_dam_break_config(steps, backend="xla", scheme="beuler",
+                            second_order=False):
+    """Phase 3's dam break with every wall reflecting (a closed box) at
+    dt = DT_BEULER, two steps a coupling interval; second order: MUSCL
+    minmod with the positivity limiter."""
+    from rdycore_tpu_torch.config.yaml_input import config_from_dict
+
+    d = dam_break_dict(steps, backend, scheme)
+    d["boundary_conditions"] = []
+    d["time"].update(time_step=DT_BEULER, stop=steps * DT_BEULER,
+                     coupling_interval=2 * DT_BEULER)
+    if second_order:
+        d["numerics"].update(second_order=True, limiter="minmod")
+    return config_from_dict(d).validate()
+
+
+def check_closed_box(sim, q0, area):
+    """h finite and >= -1e-6, and the volume of the closed box kept to
+    1e-5 of the initial volume (every GMRES update is a sum of Krylov
+    vectors, each of zero net volume in a closed box; f32 sums)."""
+    hq = sim.get_height()
+    finite = bool(np.isfinite(sim.get_solution()).all())
+    v0 = float(np.sum(q0[0] * area))
+    v1 = float(np.sum(hq.astype(np.float64) * area))
+    kept = abs(v1 - v0) / v0
+    log(f"  state: finite {finite}, min h {hq.min():.3e}; volume initial "
+        f"{v0:.9e} m^3, final {v1:.9e}, change {kept:.3e} of the initial "
+        f"volume; max Courant {sim.prev_max_courant:.4f}")
+    if not (finite and hq.min() >= -1e-6 and kept <= 1e-5):
+        raise SystemExit("beuler state or closed-box volume failed")
+    if not sim.prev_max_courant > 1.0:
+        raise SystemExit(f"beuler ran at a Courant number "
+                         f"{sim.prev_max_courant} <= 1")
+
+
+def run_beuler_path(path, make_sim, steps, per_step, check,
+                    plain_bound=2e-5):
+    """Drive a beuler path at full size through `Simulation`: first 2
+    steps with plain residuals (make_sim(n, plain=True): the kernels
+    replaced by their plain versions, the JVPs through the twin either
+    way), kept aside; then every launch count set to 0, and the path on
+    the kernels: its first coupling interval (2 steps), held to the plain
+    run to `plain_bound` relative to 1 + |q| (2e-5: the JAX package's
+    bound for kernel against XLA residuals; None: printed only), and the
+    remaining steps; exact launches per step over all `steps` (the counted
+    window holds the path's run alone); then check(sim, q0). Returns the
+    simulation, the launches and the wall milliseconds per step."""
+    from rdycore_tpu_torch.ops import kernels
+
+    card = nvidia_smi_line()
+    plain = make_sim(steps, plain=True)
+    plain.advance()
+    torch.cuda.synchronize()
+    qp, c_plain, n_plain = (plain.get_solution(), plain.prev_max_courant,
+                            plain.step)
+    del plain
+    sim = make_sim(steps)
+    q0 = sim.get_solution().astype(np.float64)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    sim.advance()
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    n_first = sim.step
+    qk = sim.get_solution()
+    rel = float((np.abs(qk - qp) / (1.0 + np.abs(qp))).max())
+    log(f"  {n_first} steps, kernel residuals vs plain residuals: max "
+        f"|dq| / (1 + |q|) {rel:.3e}; Courant {sim.prev_max_courant:.6f} "
+        f"vs {c_plain:.6f}")
+    if not (n_first == n_plain == 2
+            and (plain_bound is None or rel <= plain_bound)):
+        raise SystemExit(f"{path}: kernel residuals differ from plain: "
+                         f"{rel}")
+    t0 = time.perf_counter()
+    sim.run()
+    torch.cuda.synchronize()
+    t_rest = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    if sim.step != steps:
+        raise SystemExit(f"{path} took {sim.step} steps, expected {steps}")
+    check_launches(path, launches,
+                   {k: n * steps for k, n in per_step.items()})
+    check(sim, q0)
+    ms = 1e3 * (t_first + t_rest) / steps
+    log(f"  [{card}] {steps} steps in {t_first + t_rest:.3f} s wall = "
+        f"{ms:.1f} ms/step (the first interval, {n_first} steps with the "
+        f"libraries' loads, {t_first:.3f} s)")
+    return sim, launches, ms
+
+
+def beuler_split(card, path, first, F, F_lin, u, dt):
+    """One more backward-Euler step from u, each residual (`first`, the
+    step's Courant and diagnostics call, and F) and each JVP (through
+    F_lin) between CUDA events: ms of the step split into residual
+    kernels, JVPs, and the GMRES and line-search glue (the rest), and the
+    residual norm ||u1 - u - dt F(u1)|| after the last Newton iteration
+    beside its starting value ||dt F(u)||."""
+    from rdycore_tpu_torch.timestepping import newton_beuler_solve
+
+    spans = {"residual": [], "jvp": []}
+
+    def timed(kind, fn):
+        def g(x):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            out = fn(x)
+            e1.record()
+            spans[kind].append((e0, e1))
+            return out
+        return g
+
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    timed("residual", first)(u)
+    u1 = newton_beuler_solve(timed("residual", F), timed("jvp", F_lin), u,
+                             dt)
+    e1.record()
+    torch.cuda.synchronize()
+    total = e0.elapsed_time(e1)
+    ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+    glue = total - ms["residual"] - ms["jvp"]
+    r0 = float(torch.linalg.vector_norm(dt * F(u)))
+    r1 = float(torch.linalg.vector_norm(u1 - u - dt * F(u1)))
+    log(f"  [{card}] {path} step split (CUDA events): {total:.1f} ms = "
+        f"residual kernels {ms['residual']:.1f} ms ({len(spans['residual'])}"
+        f" calls) + JVPs {ms['jvp']:.1f} ms ({len(spans['jvp'])} calls) + "
+        f"GMRES and line-search glue {glue:.1f} ms; Newton residual "
+        f"||u - u^n - dt F(u)|| {r0:.4e} at u^n -> {r1:.4e} "
+        f"({r1 / r0:.3e})")
+    if not (np.isfinite(r1) and r1 < r0):
+        raise SystemExit(f"{path}: the Newton residual did not fall")
+    return dict(step_ms=total, residual_ms=ms["residual"],
+                jvp_ms=ms["jvp"], glue_ms=glue, residual_start=r0,
+                residual_end=r1)
+
+
+def unstructured_rows(card, path, op, q, bv, dt, launches, per_step, errs,
+                      prim=True):
+    """K1a, K1b in rhs mode and K1c of an unstructured rhs-mode path
+    (`apply` and `rhs`) at its shapes: held against their plain versions
+    on (q, bv) and timed; the {"kernels": ...} rows of `path`."""
+    from rdycore_tpu_torch.ops.kernels.cell_stage import swe_cell_stage_plain
+    from rdycore_tpu_torch.ops.kernels.courant import courant_argmax_plain
+    from rdycore_tpu_torch.ops.kernels.edge_flux import swe_edge_flux_plain
+
+    a, s = op.arrays, q.element_size()
+    kw = dict(tiny_h=op.tiny_h, h_anuga=op.h_anuga,
+              xq2018_threshold=op.xq2018_threshold,
+              source_method=op.source_method)
+    flux, courant = op.edge_flux(q, bv)
+    fp, cp = swe_edge_flux_plain(a, q, bv, op.tiny_h, op.h_anuga)
+    ok_ = op.cell_stage(fp, q, dt, None, emit_prim=prim)
+    op_ = swe_cell_stage_plain(a, fp, q, dt, None, emit_prim=prim, **kw)
+    mk, ik = op.courant_max(cp)
+    mp, ip = courant_argmax_plain(cp)
+    pairs = {"swe_edge_flux": [(flux, fp), (courant, cp)],
+             "swe_cell_stage": [(ok_.flux_div, op_.flux_div),
+                                (ok_.rhs, op_.rhs)]
+             + ([(ok_.prim, op_.prim)] if prim else [])}
+    rel = {k: max(rel_err(g, w) for g, w in v) for k, v in pairs.items()}
+    err = {k: max(abs_err(g, w) for g, w in v) for k, v in pairs.items()}
+    err["courant_argmax"] = abs(float(mk) - float(mp))
+    log(f"  full-size kernels vs plain on the {path} path (relative): "
+        f"{rel}; courant idx {int(ik)} (plain {int(ip)})")
+    if not (all(v <= TOL[q.dtype] for v in rel.values())
+            and int(ik) == int(ip)):
+        raise SystemExit(f"full-size {path} kernel check failed")
+    run = (torch.zeros((), dtype=q.dtype, device=q.device),
+           torch.zeros((), dtype=torch.int32, device=q.device))
+    calls = {
+        "swe_edge_flux": (
+            lambda: op.edge_flux(q, bv),
+            lambda: swe_edge_flux_plain(a, q, bv, op.tiny_h, op.h_anuga),
+            None),
+        "swe_cell_stage": (
+            lambda: op.cell_stage(flux, q, dt, None, emit_prim=prim),
+            lambda: swe_cell_stage_plain(a, flux, q, dt, None,
+                                         emit_prim=prim, **kw),
+            None),
+        "courant_argmax": (
+            lambda: op.courant_max(courant, dt, *run),
+            lambda: courant_argmax_plain(courant, dt, *run),
+            lambda: torch.max(courant, 0)),
+    }
+    q_bytes = q.numel() * s
+    nbytes = kernel_bytes(op, q_bytes, s, rhs=True)
+    if not prim:  # rhs mode writes flux_div and rhs alone
+        nbytes["swe_cell_stage"] -= q_bytes
+    nops = {"swe_edge_flux": OPS_PER_EDGE * op.num_edges,
+            "swe_cell_stage": OPS_PER_CELL * op.num_cells,
+            "courant_argmax": OPS_PER_VALUE * op.num_edges}
+    return [kernel_row(card, name, path, fns, launches[name],
+                       max(err[name], errs.get(name, 0.0)), nbytes[name],
+                       nops[name], q.dtype,
+                       launches_per_step=per_step[name])
+            for name, fns in calls.items()]
+
+
+def raster_rhs_rows(card, path, sim, launches, per_step, errs):
+    """K2 (or K2 MUSCL) in rhs mode, K1c on its block maxima and K1a on
+    the boundary edges at the raster path's shapes: held against their
+    plain versions on the final state and timed; the rows of `path`."""
+    from rdycore_tpu_torch.ops.kernels import raster_muscl as rm
+    from rdycore_tpu_torch.ops.kernels.courant import courant_argmax_plain
+    from rdycore_tpu_torch.ops.kernels.edge_flux import swe_edge_flux_plain
+    from rdycore_tpu_torch.ops.kernels.raster_step import (
+        swe_raster_step_plain)
+
+    op, q = sim._structured["op"], sim.q
+    bv = sim.boundary_values.to(q.dtype)
+    plan, s, C = op.plan, q.element_size(), q.shape[1]
+    geo = (op.dz_dx, op.dz_dy, op.mannings_n)
+    dt = torch.tensor(DT_BEULER, dtype=q.dtype, device=q.device)
+    k2 = "swe_raster_muscl_step" if op.second_order else "swe_raster_step"
+    if op.second_order:
+        def plain():
+            return rm.raster_muscl_step_plain(plan, q, *geo, dt, None,
+                                              op.limiter)
+    else:
+        def plain():
+            return swe_raster_step_plain(plan, q, *geo, dt)
+    got, want = op.step(q, dt), plain()
+    blocks = got.cmax
+    run = (torch.zeros((), dtype=q.dtype, device=q.device),
+           torch.zeros((), dtype=torch.int32, device=q.device))
+    mk, ik = op.courant_max(blocks, dt, *run)
+    mp, ip = courant_argmax_plain(blocks)
+    fk = op.boundary_fluxes(q, bv)
+    fp = swe_edge_flux_plain(op.bnd, q, bv, plan.tiny_h,
+                             plan.h_anuga)[0][:, :-1]
+    pairs = {k2: [(got.out, want.out), (got.cmax, want.cmax)],
+             "swe_edge_flux": [(fk[k], fp[k]) for k in range(3)]}
+    rel = {k: max(rel_err(g, w) for g, w in v) for k, v in pairs.items()}
+    err = {k: max(abs_err(g, w) for g, w in v) for k, v in pairs.items()}
+    exact = float(mk) == float(mp) and int(ik) == int(ip)
+    err["courant_argmax"] = abs(float(mk) - float(mp))
+    log(f"  full-size kernels vs plain on the {path} path (relative): {rel};"
+        f" Courant fold {'exact' if exact else 'DIFFERS'}")
+    if not (exact and all(v <= TOL[q.dtype] for v in rel.values())):
+        raise SystemExit(f"full-size {path} kernel check failed")
+    calls = {
+        k2: (lambda: op.step(q, dt), plain, None),
+        "courant_argmax": (lambda: op.courant_max(blocks, dt, *run),
+                           lambda: courant_argmax_plain(blocks, dt, *run),
+                           lambda: torch.max(blocks, 0)),
+        "swe_edge_flux": (
+            lambda: op.boundary_fluxes(q, bv),
+            lambda: swe_edge_flux_plain(op.bnd, q, bv, plan.tiny_h,
+                                        plan.h_anuga), None),
+    }
+    Eb = op.bnd.bnd_left.shape[0]
+    # rhs mode: q (K2 MUSCL: and its two-row halos, none on one strip),
+    # the three geometry planes and dt read; rhs and the tile maxima
+    # written
+    nbytes = {k2: s * ((3 + 3 + 3) * C + 1 + blocks.numel()),
+              "courant_argmax": courant_bytes(blocks.numel(), s),
+              "swe_edge_flux": edge_flux_bytes(
+                  0, Eb, 3 * s * int(torch.unique(op.bnd.bnd_left).numel()),
+                  s)}
+    nops = {k2: (OPS_PER_MUSCL_RASTER_CELL if op.second_order
+                 else OPS_PER_RASTER_CELL) * C,
+            "courant_argmax": OPS_PER_VALUE * blocks.numel(),
+            "swe_edge_flux": OPS_PER_EDGE * Eb}
+    replaces = dict(REPLACES, courant_argmax=REPLACES[k2],
+                    swe_edge_flux=_SLOTTED + ":1254")
+    return [kernel_row(card, name, path, fns, launches[name],
+                       max(err[name], errs.get(name, 0.0)), nbytes[name],
+                       nops[name], q.dtype, replaces,
+                       launches_per_step=per_step[name])
+            for name, fns in calls.items()]
+
+
+def phase_implicit(errs, dev, mesh):
+    """Phase 9: the IMEX and implicit schemes at full size. (a) ark_imex on
+    the unstructured path (`run_main_path`); (b) beuler on the
+    unstructured path, (c) on the raster and (d) on the raster at second
+    order (`run_beuler_path`), in a closed box at a Courant number above
+    1, each with one more step split into residual kernels, JVPs and glue
+    (`beuler_split`). The rows of each path name it and carry its
+    launches per step."""
+    from rdycore_tpu_torch.operator import linearization_twin
+
+    card = nvidia_smi_line()
+    area = mesh.cell_area
+    rows, splits = [], {}
+
+    log(f"== phase 9a: ark_imex (ARS(2,2,2), implicit Manning friction) on "
+        f"the unstructured path, dam break on {mesh.num_cells:,} cells, f32")
+    imex_step = {"swe_edge_flux": 2, "swe_cell_stage": 2,
+                 "courant_argmax": 1}
+    sim, launches = run_main_path(
+        "unstructured ark_imex path",
+        lambda n, plain=False: unstructured_simulation(
+            n, dev, mesh, plain, config=imex_dam_break_config),
+        IMEX_STEPS, imex_step,
+        lambda sim, q0: check_state_and_budget(sim, q0, area))
+    # the explicit part's operator: friction-free K1b
+    op = dataclasses.replace(sim.operator, source_method=2)
+    dt = torch.tensor(DT, dtype=sim.q.dtype, device=dev)
+    rows += unstructured_rows(card, "unstructured ark_imex", op, sim.q,
+                              sim.boundary_values, dt, launches, imex_step,
+                              errs)
+    del sim
+
+    beuler_step = {"swe_edge_flux": 25, "swe_cell_stage": 25,
+                   "courant_argmax": 1}
+    log(f"== phase 9b: beuler (Newton-GMRES, kernel residuals, twin JVPs) "
+        f"on the unstructured path, closed dam break on {mesh.num_cells:,} "
+        f"cells, dt {DT_BEULER} s, f32")
+    sim, launches, wall = run_beuler_path(
+        "unstructured beuler path",
+        lambda n, plain=False: unstructured_simulation(
+            n, dev, mesh, plain, config=closed_dam_break_config),
+        BEULER_STEPS, beuler_step,
+        lambda sim, q0: check_closed_box(sim, q0, area))
+    op, bv, q = sim.operator, sim.boundary_values, sim.q
+    dt = torch.tensor(DT_BEULER, dtype=q.dtype, device=dev)
+    twin = linearization_twin(op)
+    splits["unstructured beuler"] = dict(wall_ms_per_step=wall, **beuler_split(
+        card, "unstructured beuler", lambda u: op.apply(u, dt, bv, None),
+        lambda u: op.rhs(u, dt, bv, None),
+        lambda u: twin.rhs(u, dt, bv, None), q, dt))
+    rows += unstructured_rows(card, "unstructured beuler", op, q, bv, dt,
+                              launches, beuler_step, errs, prim=False)
+    del sim, twin
+
+    for tag, second_order, steps in (("raster beuler", False, BEULER_STEPS),
+                                     ("raster beuler+muscl", True, 2)):
+        k2 = "swe_raster_muscl_step" if second_order else "swe_raster_step"
+        per_step = {k2: 25, "courant_argmax": 1, "swe_edge_flux": 1}
+        order = (" at second order (K2 MUSCL rhs, minmod)" if second_order
+                 else "")
+        log(f"== phase 9{'d' if second_order else 'c'}: beuler on the raster"
+            f"{order}, closed dam break on {mesh.num_cells:,} cells, dt "
+            f"{DT_BEULER} s, f32")
+
+        def make(n, plain=False, so=second_order):
+            return raster_simulation(
+                n, dev, mesh, "beuler", plain,
+                lambda k, b, s: closed_dam_break_config(k, b, s, so))
+
+        # at second order the rhs has the limiter's kinks and the JVPs are
+        # first order: Newton converges slowly there, and the rounding of
+        # kernel against plain residuals can change a line-search choice;
+        # that difference is printed, unbounded (ROADMAP item 7)
+        sim, launches, wall = run_beuler_path(
+            f"{tag} path", make, steps, per_step,
+            lambda sim, q0: check_closed_box(sim, q0, area),
+            None if second_order else 2e-5)
+        st = sim._structured
+        op, lin, q = st["op"], st["lin_op"], sim.q
+        ny, nx = st["ny"], st["nx"]
+        dt = torch.tensor(DT_BEULER, dtype=q.dtype, device=dev)
+        es3 = torch.zeros((3, ny, nx), dtype=q.dtype, device=dev)
+        splits[tag] = dict(wall_ms_per_step=wall, **beuler_split(
+            card, tag, lambda u: op.step(u, dt),
+            lambda u: op.step(u, dt).out,
+            lambda u: lin.apply(u.reshape(3, ny, nx), dt, es3)[0].reshape(
+                3, -1), q, dt))
+        rows += raster_rhs_rows(card, tag, sim, launches, per_step, errs)
+        del sim
+    log(f"  [{card}] beuler steps (ms): {json.dumps(splits)}")
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -2608,6 +2996,7 @@ def main():
     phase_wb_kernels(args.seed, errs, dev)
     rows += phase_wb(args.steps, errs, dev, wb_mesh())
     rows += phase_strips(args.steps, dev, mesh)
+    rows += phase_implicit(errs, dev, mesh)
     del mesh
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi_line())

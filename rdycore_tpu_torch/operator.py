@@ -46,6 +46,11 @@ second order is refused as the JAX package refuses it.
 
 Boundary edges carry a BC code each (`bnd_code`), so one launch covers all
 edges whatever the segments; the JAX XLA path loops over segments instead.
+
+`LinearizationTwin` (`linearization_twin(op)`) is the same operator with
+every kernel taken by its plain version, on whatever device: the
+backward-Euler integrator differentiates it by forward-mode AD for its
+Jacobian-vector products, as the JAX package differentiates its XLA twin.
 """
 
 from __future__ import annotations
@@ -59,11 +64,21 @@ import torch
 from .constants import DEFAULT_H_ANUGA, DEFAULT_TINY_H, DEFAULT_XQ2018_THRESHOLD
 from .device import DeviceLike, resolve_device
 from .mesh.core import Mesh, named_boundary_sets
-from .ops.kernels.cell_stage import CellStageOut, swe_cell_stage
-from .ops.kernels.courant import courant_argmax
-from .ops.kernels.edge_flux import boundary_flux_plain, swe_edge_flux
+from .ops.kernels.cell_stage import (
+    CellStageOut,
+    swe_cell_stage,
+    swe_cell_stage_plain,
+)
+from .ops.kernels.courant import courant_argmax, courant_argmax_plain
+from .ops.kernels.edge_flux import (
+    boundary_flux_plain,
+    swe_edge_flux,
+    swe_edge_flux_plain,
+)
 from .ops.kernels.eta_vertex import swe_eta_vertex
 from .ops.kernels.muscl import (
+    positivity_drain_plain,
+    positivity_scale_plain,
     swe_muscl_grad,
     swe_positivity_drain,
     swe_positivity_scale,
@@ -73,8 +88,9 @@ from .ops.swe.bs2002 import (
     BS2002Arrays,
     bs2002_arrays_from_numpy,
     build_bs2002_host,
+    eta_vertices,
 )
-from .ops.swe.muscl import LIMITERS, precompute_ls_coefficients
+from .ops.swe.muscl import LIMITERS, ls_gradients, precompute_ls_coefficients
 from .ops.swe.sources import SOURCE_IMPLICIT_XQ2018, SOURCE_SEMI_IMPLICIT
 
 
@@ -358,6 +374,17 @@ class SWEOperator:
             courant_edge=cedge,
         )
 
+    def rhs(
+        self, q: torch.Tensor, dt, boundary_values: torch.Tensor,
+        ext_src: Optional[torch.Tensor],
+    ) -> torch.Tensor:
+        """dq/dt alone: `apply` without its Courant reduction and
+        primitives (the edge phase and one cell launch in rhs mode), for
+        the implicit integrators' residuals and JVPs."""
+        dt = torch.as_tensor(dt, dtype=q.dtype, device=q.device)
+        flux, _ = self.fluxes(q, boundary_values, dt)
+        return self.cell_stage(flux, q, dt, ext_src).rhs
+
     def boundary_fluxes(
         self, q: torch.Tensor, boundary_values: torch.Tensor
     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -374,6 +401,50 @@ class SWEOperator:
             a, q, boundary_values, self.tiny_h, self.h_anuga,
             upwind=self.riemann == "upwind_roe", bs=a.bs2002, eta_v=eta_v,
         )
+
+
+class LinearizationTwin(SWEOperator):
+    """The operator with every kernel replaced by its plain PyTorch
+    version, whatever the device of its tensors: the linearization of the
+    implicit integrator, as the JAX package builds its own from the kernel
+    operator (`dataclasses.replace(op, edge_flux_backend="xla")`,
+    rdycore_tpu/timestepping.py:270-278). `torch.func.jvp` differentiates
+    its `apply` in every mode of the unstructured path; the residuals stay
+    on the kernels (`SWEOperator`). Build it with `linearization_twin`."""
+
+    def muscl_grad(self, q):
+        return ls_gradients(self.arrays, q)
+
+    def eta_vertices(self, h):
+        return eta_vertices(self.arrays.bs2002, h, self.tiny_h)
+
+    def edge_flux(self, q, boundary_values, grad=None, eta_v=None):
+        return swe_edge_flux_plain(
+            self.arrays, q, boundary_values, self.tiny_h, self.h_anuga,
+            self.riemann == "upwind_roe", grad, self.limiter,
+            self.well_balancing_hr, self.arrays.bs2002, eta_v)
+
+    def limit_positivity(self, flux, h, dt):
+        s = positivity_drain_plain(self.arrays, flux, h, dt)
+        return positivity_scale_plain(self.arrays, flux, s)
+
+    def courant_max(self, courant, dt=None, run_max=None, run_idx=None):
+        return courant_argmax_plain(courant, dt, run_max, run_idx)
+
+    def cell_stage(self, flux, q, dt, ext_src, **mode):
+        return swe_cell_stage_plain(
+            self.arrays, flux, q, dt, ext_src, tiny_h=self.tiny_h,
+            h_anuga=self.h_anuga, xq2018_threshold=self.xq2018_threshold,
+            source_method=self.source_method,
+            num_sediment=self.num_sediment, hr=self.well_balancing_hr,
+            **mode)
+
+
+def linearization_twin(op: SWEOperator) -> LinearizationTwin:
+    """`op`'s linearization twin: the same configuration and arrays, every
+    kernel taken by its plain version."""
+    return LinearizationTwin(**{f.name: getattr(op, f.name)
+                                for f in dataclasses.fields(op)})
 
 
 # --------------------------------------------------------------------------

@@ -32,6 +32,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ...constants import GRAVITY
+from ..math import maximum0
 from ..swe.sources import SOURCE_NONE, apply_source
 from ..tracer.sources import SedimentParams, tracer_source_terms
 from . import build
@@ -98,8 +99,7 @@ def hr_pressure_correction(a, h, tiny_h: float):
     nbr, cn, sn = hr_slots(a, h.shape[0])
     z_self, z_nbr = a.cell_z[:, None], a.cell_z[nbr]
     h_self, h_nbr = h[:, None], h[nbr]
-    h_rec = torch.clamp(h_self + z_self - torch.maximum(z_self, z_nbr),
-                        min=0.0)
+    h_rec = maximum0(h_self + z_self - torch.maximum(z_self, z_nbr))
     corr = 0.5 * GRAVITY * (h_self * h_self - h_rec * h_rec)
     corr = torch.where((h_self < tiny_h) & (h_nbr < tiny_h), 0.0, corr)
     coef = a.cell_edge_coef

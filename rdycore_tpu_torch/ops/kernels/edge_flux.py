@@ -41,6 +41,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..math import maximum0
 from ..swe.boundary import BC_DIRICHLET, ghost_states
 from ..swe.bs2002 import BS2002Arrays, dhv_correction
 from ..swe.muscl import LIMITERS, reconstruct_interior_states
@@ -148,8 +149,8 @@ def swe_edge_flux_plain(a, q, bvals, tiny_h: float, h_anuga: float,
         # depths from eta - max(z); velocities and concentrations raw
         zl, zr = a.cell_z[il], a.cell_z[ir]
         zmax = torch.maximum(zl, zr)
-        hl = torch.clamp(hl + zl - zmax, min=0.0)
-        hr_ = torch.clamp(hr_ + zr - zmax, min=0.0)
+        hl = maximum0(hl + zl - zmax)
+        hr_ = maximum0(hr_ + zr - zmax)
     if q.shape[0] == 3:
         f_h, f_hu, f_hv, amax_i = roe_flux(hl, ul, vl, hr_, ur, vr,
                                            a.int_sn, a.int_cn)

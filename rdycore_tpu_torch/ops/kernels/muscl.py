@@ -23,6 +23,7 @@ import ctypes
 
 import torch
 
+from ..math import clip01, minimum0
 from ..swe.muscl import ls_gradients
 from . import build
 
@@ -88,11 +89,11 @@ swe_muscl_grad.launches = 0
 def positivity_drain_plain(a, flux, h, dt):
     """Plain version of the drain kernel: s [C]."""
     contrib = flux[0, a.cell_edges] * a.cell_edge_coef  # [C, K] dh/dt
-    drain = -torch.clamp_max(contrib, 0.0).sum(dim=-1)
+    drain = -minimum0(contrib).sum(dim=-1)
     drain_safe = torch.where(drain > 0.0, drain, 1.0)
     dt_s = torch.where(dt > 0.0, dt, 1.0)
     return torch.where(drain > 0.0,
-                       torch.clamp(h / (dt_s * drain_safe), 0.0, 1.0), 1.0)
+                       clip01(h / (dt_s * drain_safe)), 1.0)
 
 
 def positivity_scale_plain(a, flux, s):

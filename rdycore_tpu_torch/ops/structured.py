@@ -13,8 +13,10 @@ at first order, with tracers, or (flow only) at second order.
   the tests.
 - `make_fused_structured_stepper` runs the kernel K2 `swe_raster_step`
   (with tracer rows in its nt mode), or at second order K2 MUSCL
-  `swe_raster_muscl_step`, once per stage (euler, ssprk2 and ssprk3 in stage mode, rk4 from rhs-mode
-  calls), folds the Courant maxima with K1c, and takes the boundary-flux
+  `swe_raster_muscl_step`, once per stage (euler, ssprk2 and ssprk3 in
+  stage mode, rk4 from rhs-mode calls; beuler's residuals from rhs-mode
+  calls, its JVPs through `StructuredSWEOperator`), folds the Courant
+  maxima with K1c, and takes the boundary-flux
   accumulator from K1a on the operator's boundary edges alone. That
   accumulator is first order and unscaled also at second order, as the
   JAX package's raster stepper takes it from the unstructured
@@ -47,7 +49,7 @@ import torch
 from ..constants import DEFAULT_H_ANUGA, DEFAULT_TINY_H
 from ..device import DeviceLike, resolve_device
 from ..operator import OperatorArrays
-from ..timestepping import IntervalResult
+from ..timestepping import IntervalResult, newton_beuler_solve
 from .kernels.courant import courant_argmax
 from .kernels.edge_flux import swe_edge_flux
 from .kernels.raster_muscl import MUSCL_HALO, swe_raster_muscl_step
@@ -124,7 +126,7 @@ class StructuredSWEOperator:
 
         def wall_flux(hs, us, vs, sn, cn, bc):
             (hl_s, ul_s, vl_s), (hr_s, ur_s, vr_s) = bc_mod.ghost_states(
-                torch.tensor(bc, device=q.device), hs, us, vs, sn, cn,
+                torch.full((), bc, device=q.device), hs, us, vs, sn, cn,
                 q.new_zeros((3,) + hs.shape), th, ta,
             )
             return masked(roe_flux(hl_s, ul_s, vl_s, hr_s, ur_s, vr_s, sn,
@@ -143,8 +145,10 @@ class StructuredSWEOperator:
                             self.bc_top)
 
         # divergence; wall fluxes with outward normals enter as -F/length
-        inv_dx = 1.0 / torch.tensor(self.dx, dtype=q.dtype, device=q.device)
-        inv_dy = 1.0 / torch.tensor(self.dy, dtype=q.dtype, device=q.device)
+        # filled on the device: a blocking copy from the host would wait
+        # for the work queued on it
+        inv_dx = 1.0 / torch.full((), self.dx, dtype=q.dtype, device=q.device)
+        inv_dy = 1.0 / torch.full((), self.dy, dtype=q.dtype, device=q.device)
         fx_full = torch.cat([(-fxl)[:, :, None], fx, fxr[:, :, None]], dim=2)
         div_x = -(fx_full[:, :, 1:] - fx_full[:, :, :-1]) * inv_dx
         fy_full = torch.cat([(-fyb)[:, None, :], fy, fyt[:, None, :]], dim=1)
@@ -398,6 +402,7 @@ FUSED_SCHEMES = tuple(FUSED_STAGES) + ("rk4",)
 
 def make_fused_structured_stepper(
     op, scheme: str = "euler", accumulate: bool = False,
+    lin_op: Optional[StructuredSWEOperator] = None,
 ) -> Callable[..., IntervalResult]:
     """advance(q [ndof, ny*nx] float32, t0, dt, n_steps, t_end, src=None,
     bc_vals=None, bv_edges=None) -> IntervalResult, all of it float32 on
@@ -422,16 +427,28 @@ def make_fused_structured_stepper(
     maximum has no edge id). The accumulator's tracer rows stay zero: the
     JAX package's raster stepper takes its boundary fluxes from the
     flow-only `boundary_fluxes` (structured_step.py:899-906), and so does
-    this one."""
-    if scheme == "beuler":
-        raise NotImplementedError(
-            "temporal: beuler on the raster is not ported to "
-            "rdycore_tpu_torch yet (ROADMAP queue 1 item 13)"
-        )
-    if scheme not in FUSED_SCHEMES:
+    this one.
+
+    beuler (backward Euler, one strip, flow only; structured_step.py:
+    715-730, :921-960): the Courant number from one rhs-mode launch on the
+    pre-step state, then `newton_beuler_solve` with its residuals F from
+    K2's rhs mode (K2 MUSCL's with `second_order`) and its JVPs through
+    `lin_op`, the first-order `StructuredSWEOperator` in float32 with zero
+    Dirichlet ghosts (its external sources the rain plane in row 0), as
+    the JAX package's `lin_op`."""
+    if scheme not in FUSED_SCHEMES + ("beuler",):
         raise ValueError(f"fused_structured: unsupported scheme '{scheme}'")
     stages = FUSED_STAGES.get(scheme)
     ops = list(op) if isinstance(op, (list, tuple)) else [op]
+    if scheme == "beuler":
+        if lin_op is None:
+            raise ValueError(
+                "scheme 'beuler' needs lin_op (the StructuredSWEOperator "
+                "twin for Newton-GMRES JVPs)")
+        if ops[0].num_tracers:
+            raise ValueError("fused raster beuler is flow-only")
+        if len(ops) > 1:
+            raise ValueError("fused raster beuler runs on one strip")
     strips = [o.strip for o in ops]
     devs = [o.dz_dx.device for o in ops]
     uniq = list(dict.fromkeys(devs))  # the strips' devices, each once
@@ -450,7 +467,7 @@ def make_fused_structured_stepper(
         # one clock (dt, t_end, t) per device of the strips
         clocks = [[scalar(dt, d), scalar(t_end, d), scalar(t0, d)]
                   for d in uniq]
-        cmax = [scalar(0.0, d) for d in devs]
+        cmax = [torch.zeros((), dtype=f, device=d) for d in devs]
         cidx = [torch.zeros((), dtype=torch.int32, device=d) for d in devs]
         srcs = [None if src is None else
                 src[s.row0:s.row0 + s.rows].to(d)
@@ -473,7 +490,7 @@ def make_fused_structured_stepper(
             asol = [torch.zeros_like(x) for x in qq]
             aprim = [torch.zeros((ndof, s.rows * nx), dtype=f, device=d)
                      for s, d in zip(strips, devs)]
-            atime = scalar(0.0, devs[0])
+            atime = torch.zeros((), dtype=f, device=devs[0])
 
         def step(states, dts, qA=None, **mode):
             if P > 1:
@@ -484,6 +501,20 @@ def make_fused_structured_stepper(
 
         def outs(res):
             return [r.out for r in res]
+
+        def beuler(o, u0, dt_i, src_s, bc):
+            es3 = torch.zeros((3, ny, nx), dtype=f, device=dev)
+            if src_s is not None:
+                es3[0] = src_s
+
+            def F_k(u):
+                return o.step(u, dt_i, src=src_s, bc_vals=bc).out
+
+            def F_l(u):
+                rhs3, _ = lin_op.apply(u.reshape(3, ny, nx), dt_i, es3)
+                return rhs3.reshape(3, -1)
+
+            return newton_beuler_solve(F_k, F_l, u0, dt_i)
 
         def lin(a, b, w):  # a + b * w, strip by strip
             return [x + y * w[k] for x, y, k in zip(a, b, slot)]
@@ -496,6 +527,10 @@ def make_fused_structured_stepper(
                 qs = outs(first)
                 for coeffs in stages[1:]:
                     qs = outs(step(qs, dts, stage=coeffs, qA=qq))
+            elif scheme == "beuler":
+                # the Courant diagnostic (and the primitives) of u^n
+                first = step(qq, dts, emit_prim=accumulate)
+                qs = [beuler(ops[0], qq[0], dts[0], srcs[0], bcs[0])]
             else:  # rk4 from rhs-mode launches
                 first = step(qq, dts, emit_prim=accumulate)
                 k1 = outs(first)

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from ...constants import GRAVITY
-from ..math import safe_cbrt
+from ..math import safe_cbrt, safe_sqrt
 from .riemann import regularized_velocity
 
 # BC type codes (the JAX package's; also the per-edge codes the CUDA edge
@@ -38,7 +38,7 @@ def critical_outflow_ghost(h, u, v, sn, cn):
 
     q = h * torch.abs(uperp)
     h_crit = safe_cbrt(q * q / g)
-    vel = torch.sqrt(g * h_crit)
+    vel = safe_sqrt(g * h_crit)
 
     hl = torch.where(outgoing, h, 0.0)
     ul = torch.where(outgoing, u, 0.0)

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ...constants import GRAVITY
-from ..math import safe_cbrt
+from ..math import cbrt, maximum0
 
 INDEX_FIELDS = ("vertex_cells", "int_vbeg", "int_vend", "bnd_vbeg",
                 "bnd_vend")
@@ -112,11 +112,10 @@ def eta_cells(z1, z2, z3, h, tiny_h: float):
     h2 = torch.where(z2 < z3, (z2 - z1) * (z2 - z1) / (3.0 * dz31_safe), h3)
     # wet-bed sub-cases: all, one or two vertices submerged
     all_sub = (z1 + z2 + z3) / 3.0 + h
-    one_sub = z1 + safe_cbrt(torch.clamp(3.0 * h * (z2 - z1) * dz31,
-                                         min=0.0))
+    one_sub = z1 + cbrt(maximum0(3.0 * h * (z2 - z1) * dz31))
     b = z3 - 3.0 * z1
     c = z1 * z2 + z1 * z1 - z3 * z2 - 3.0 * h * dz31
-    two_sub = 0.5 * (-b + torch.sqrt(torch.clamp(b * b - 4.0 * c, min=0.0)))
+    two_sub = 0.5 * (-b + torch.sqrt(maximum0(b * b - 4.0 * c)))
     return torch.where(
         h <= tiny_h, z1,
         torch.where(h >= h3, all_sub,
@@ -134,8 +133,8 @@ def eta_vertices(bs: BS2002Arrays, h, tiny_h: float):
 
 def dhv_correction(eta_v, vbeg, vend, zvbeg, zvend, cn, sn):
     """(df_hu, df_hv): the momentum flux correction g*dhv^2/24*(cn, sn)."""
-    hv_beg = torch.clamp(eta_v[vbeg] - zvbeg, min=0.0)
-    hv_end = torch.clamp(eta_v[vend] - zvend, min=0.0)
+    hv_beg = maximum0(eta_v[vbeg] - zvbeg)
+    hv_end = maximum0(eta_v[vend] - zvend)
     dhv = hv_end - hv_beg
     corr = GRAVITY * dhv * dhv / 24.0
     return corr * cn, corr * sn

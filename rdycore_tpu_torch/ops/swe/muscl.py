@@ -24,6 +24,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..math import maximum0
+
 # limiter codes of the CUDA kernels (csrc/swe_physics.cuh kLim*)
 LIMITERS = {"minmod": 1, "van_leer": 2, "none": 3}
 
@@ -137,5 +139,5 @@ def reconstruct_interior_states(
     extrap_r = gx[:, ir] * a.int_dxr + gy[:, ir] * a.int_dyr
     ql = q[:3, il] + limit_slope(limiter, extrap_l, 0.5 * dq)
     qr = q[:3, ir] + limit_slope(limiter, extrap_r, -0.5 * dq)
-    return ((torch.clamp_min(ql[0], 0.0), ql[1], ql[2]),
-            (torch.clamp_min(qr[0], 0.0), qr[1], qr[2]))
+    return ((maximum0(ql[0]), ql[1], ql[2]),
+            (maximum0(qr[0]), qr[1], qr[2]))

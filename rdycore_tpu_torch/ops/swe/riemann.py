@@ -17,6 +17,7 @@ from typing import Tuple
 import torch
 
 from ...constants import GRAVITY
+from ..math import maximum0, safe_sqrt
 
 
 def roe_eigenspectrum(hl, ul, vl, hr, ur, vr, sn, cn):
@@ -27,10 +28,10 @@ def roe_eigenspectrum(hl, ul, vl, hr, ur, vr, sn, cn):
     g = torch.tensor(GRAVITY, dtype=hl.dtype)
     sqrt_g = torch.sqrt(g)
 
-    hl_s = torch.clamp_min(hl, 0.0)
-    hr_s = torch.clamp_min(hr, 0.0)
-    duml = torch.sqrt(hl_s)
-    dumr = torch.sqrt(hr_s)
+    hl_s = maximum0(hl)
+    hr_s = maximum0(hr)
+    duml = safe_sqrt(hl_s)
+    dumr = safe_sqrt(hr_s)
     cl = sqrt_g * duml
     cr = sqrt_g * dumr
     hhat = duml * dumr
@@ -38,7 +39,7 @@ def roe_eigenspectrum(hl, ul, vl, hr, ur, vr, sn, cn):
     denom_safe = torch.where(denom > 0.0, denom, 1.0)
     uhat = (duml * ul + dumr * ur) / denom_safe
     vhat = (duml * vl + dumr * vr) / denom_safe
-    chat = torch.sqrt(0.5 * g * (hl_s + hr_s))
+    chat = safe_sqrt(0.5 * g * (hl_s + hr_s))
     chat_safe = torch.where(chat > 0.0, chat, 1.0)
     uperp = uhat * cn + vhat * sn
 
@@ -56,13 +57,13 @@ def roe_eigenspectrum(hl, ul, vl, hr, ur, vr, sn, cn):
 
     al1 = uperpl - cl
     ar1 = uperpr - cr
-    da1 = torch.clamp_min(2.0 * (ar1 - al1), 0.0)
+    da1 = maximum0(2.0 * (ar1 - al1))
     da1_safe = torch.where(da1 > 0.0, da1, 1.0)
     a1 = torch.where(a1 < da1, 0.5 * (a1 * a1 / da1_safe + da1), a1)
 
     al3 = uperpl + cl
     ar3 = uperpr + cr
-    da3 = torch.clamp_min(2.0 * (ar3 - al3), 0.0)
+    da3 = maximum0(2.0 * (ar3 - al3))
     da3_safe = torch.where(da3 > 0.0, da3, 1.0)
     a3 = torch.where(a3 < da3, 0.5 * (a3 * a3 / da3_safe + da3), a3)
 
@@ -102,10 +103,10 @@ def roe_flux(
     g = torch.tensor(GRAVITY, dtype=hl.dtype)
     sqrt_g = torch.sqrt(g)
 
-    hl_s = torch.clamp_min(hl, 0.0)
-    hr_s = torch.clamp_min(hr, 0.0)
-    duml = torch.sqrt(hl_s)
-    dumr = torch.sqrt(hr_s)
+    hl_s = maximum0(hl)
+    hr_s = maximum0(hr)
+    duml = safe_sqrt(hl_s)
+    dumr = safe_sqrt(hr_s)
     cl = sqrt_g * duml
     cr = sqrt_g * dumr
     hhat = duml * dumr
@@ -118,7 +119,7 @@ def roe_flux(
         inv_chat = torch.rsqrt(torch.where(c2 > 0.0, c2, 1.0))
         chat = c2 * inv_chat
     else:
-        chat = torch.sqrt(c2)
+        chat = safe_sqrt(c2)
         inv_chat = 1.0 / torch.where(chat > 0.0, chat, 1.0)
     uperp = uhat * cn + vhat * sn
 
@@ -137,13 +138,13 @@ def roe_flux(
 
     al1 = uperpl - cl
     ar1 = uperpr - cr
-    da1 = torch.clamp_min(2.0 * (ar1 - al1), 0.0)
+    da1 = maximum0(2.0 * (ar1 - al1))
     da1_safe = torch.where(da1 > 0.0, da1, 1.0)
     a1 = torch.where(a1 < da1, 0.5 * (a1 * a1 / da1_safe + da1), a1)
 
     al3 = uperpl + cl
     ar3 = uperpr + cr
-    da3 = torch.clamp_min(2.0 * (ar3 - al3), 0.0)
+    da3 = maximum0(2.0 * (ar3 - al3))
     da3_safe = torch.where(da3 > 0.0, da3, 1.0)
     a3 = torch.where(a3 < da3, 0.5 * (a3 * a3 / da3_safe + da3), a3)
 

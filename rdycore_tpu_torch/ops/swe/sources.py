@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from ...constants import GRAVITY
+from ..math import safe_sqrt
 
 SOURCE_SEMI_IMPLICIT = 0
 SOURCE_IMPLICIT_XQ2018 = 1
@@ -85,13 +86,46 @@ def apply_source_semi_implicit(
     u = hu / h_safe
     v = hv / h_safe
     cd = g * mannings_n * mannings_n * torch.pow(h_safe, -1.0 / 3.0)
-    speed = torch.sqrt(u * u + v * v)
+    speed = safe_sqrt(u * u + v * v)
     tb = cd * speed / h_safe
     factor = tb / (1.0 + dt * tb)
 
     tbx = torch.where(wet, (hu + dt * flux_div[1] - dt * bedx) * factor, 0.0)
     tby = torch.where(wet, (hv + dt * flux_div[2] - dt * bedy) * factor, 0.0)
     return _result(q, bedx, bedy, tbx, tby, ext_src, tiny_h, h_anuga)
+
+
+def friction_implicit_stage_solve(m, mannings_n, dt_imp, tiny_h: float):
+    """Exact per-cell solve of the implicit friction stage equation
+
+        q + dt_imp * tau(q) = m,   tau(q) = n^2 g h^{-7/3} q |q|
+
+    of the ARK-IMEX integrator's DIRK stages (rdycore_tpu/ops/swe/
+    sources.py:106-146). Friction acts on the momentum only and is
+    colinear with it, so with K = dt_imp n^2 g h^{-7/3} and M = |m| the
+    stage reduces to s + K s^2 = M, s/M = 2 / (1 + sqrt(1 + 4KM)) (no
+    cancellation as KM -> 0). Dry cells (h < tiny_h) keep m. Returns
+    (q_stage [ndof, C], F_I = (q_stage - m) / dt_imp [ndof, C]); the h and
+    tracer rows pass through with F_I = 0, and dt_imp <= 0 divides by 1.
+    dt_imp is a 0-dim tensor or a float."""
+    g = torch.tensor(GRAVITY, dtype=m.dtype)
+    h, mx, my = m[0], m[1], m[2]
+    wet = h >= tiny_h
+    h_safe = torch.where(wet, h, 1.0)
+    K = dt_imp * g * mannings_n * mannings_n * torch.pow(h_safe, -7.0 / 3.0)
+    M = safe_sqrt(mx * mx + my * my)
+    ratio = 2.0 / (1.0 + torch.sqrt(1.0 + 4.0 * (K * M)))
+    ratio = torch.where(wet, ratio, 1.0)
+    qx = mx * ratio
+    qy = my * ratio
+    dt_imp = torch.as_tensor(dt_imp, dtype=m.dtype, device=m.device)
+    dt_safe = torch.where(dt_imp > 0.0, dt_imp, 1.0)
+    zero = torch.zeros_like(m[:1])
+    fi = torch.cat([zero, ((qx - mx) / dt_safe)[None],
+                    ((qy - my) / dt_safe)[None],
+                    torch.zeros_like(m[3:])])
+    q_stage = torch.cat([m[:1], qx[None], qy[None], m[3:]])
+    return q_stage, fi
 
 
 def apply_source_xq2018(
@@ -115,7 +149,8 @@ def apply_source_xq2018(
     n2g = g * mannings_n * mannings_n
     ux = mx / h_safe
     uy = my / h_safe
-    lam = n2g * torch.pow(h_safe, -4.0 / 3.0) * torch.sqrt(ux * ux + uy * uy)
+    lam = (n2g * torch.pow(h_safe, -4.0 / 3.0)
+           * safe_sqrt(ux * ux + uy * uy))
 
     dtlam = dt * lam
     dtlam_safe = torch.where(dtlam > 0.0, dtlam, 1.0)
@@ -126,7 +161,7 @@ def apply_source_xq2018(
     qx1 = torch.where(small, mx, qx_impl)
     qy1 = torch.where(small, my, qy_impl)
 
-    qmag = torch.sqrt(qx1 * qx1 + qy1 * qy1)
+    qmag = safe_sqrt(qx1 * qx1 + qy1 * qy1)
     h73 = n2g * torch.pow(h_safe, -7.0 / 3.0)
     tbx = torch.where(wet, h73 * qx1 * qmag, 0.0)
     tby = torch.where(wet, h73 * qy1 * qmag, 0.0)

@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from ...constants import GRAVITY
+from ..math import safe_sqrt
 
 DENSITY_OF_WATER = 1000.0
 DEFAULT_KP_CONSTANT = 0.001
@@ -79,7 +80,7 @@ def tracer_source_terms(
     ci = torch.where(wet, hci / h_safe, 0.0)
 
     cd = g * mannings_n * mannings_n * torch.pow(h_safe, -1.0 / 3.0)
-    speed = torch.sqrt(u * u + v * v)
+    speed = safe_sqrt(u * u + v * v)
     tb = cd * speed / h_safe
     factor = tb / (1.0 + dt * tb)
     if include_friction:

@@ -7,7 +7,9 @@ limiter, flow only): unstructured, with or without well-balancing
 (hydrostatic reconstruction, or BS2002 flow only), and the uniform raster
 (`edge_flux_backend: structured`, first order and flow only, or
 `fused_structured`, also cut into `parallel.n_devices` row strips, each on
-its own device or several on one card)
+its own device or several on one card); explicit, ARK-IMEX (`temporal:
+ark_imex`, unstructured) or backward Euler (`temporal: beuler`,
+unstructured, and on one raster strip flow only)
 (the reference's RDy object, src/rdycore.c, src/rdysetup.c,
 src/rdyadvance.c):
 
@@ -56,7 +58,11 @@ from .ops.structured import (
     make_structured_stepper,
 )
 from .ops.swe import boundary as bc_mod
-from .ops.swe.sources import SOURCE_IMPLICIT_XQ2018, SOURCE_SEMI_IMPLICIT
+from .ops.swe.sources import (
+    SOURCE_IMPLICIT_XQ2018,
+    SOURCE_NONE,
+    SOURCE_SEMI_IMPLICIT,
+)
 from .timestepping import adapt_timestep, make_interval_advancer
 
 # raster wall -> its outward normal (cn, sn)
@@ -72,6 +78,9 @@ _BC_CODES = {
 _SOURCE_CODES = {
     "semi_implicit": SOURCE_SEMI_IMPLICIT,
     "implicit_xq2018": SOURCE_IMPLICIT_XQ2018,
+    # admitted under temporal: ark_imex only, whose DIRK stages own the
+    # friction (the advancer runs the operator without it)
+    "ark_imex": SOURCE_NONE,
 }
 
 
@@ -119,9 +128,16 @@ def check_slice(config: Config) -> None:
     structured or fused_structured). What depends on the path is refused
     by `refuse_on_path`."""
     p, n = config.physics, config.numerics
-    if p.flow.source.method == "ark_imex":
-        _not_ported(f"source.method: {p.flow.source.method}",
-                    "queue 1 item 13")
+    if p.flow.source.method == "ark_imex" and n.temporal != "ark_imex":
+        # the JAX package runs semi-implicit friction for it without a
+        # word (ROADMAP fault 11); under temporal: ark_imex the DIRK stages
+        # own the friction, whatever the source method
+        raise ConfigError(
+            "source.method: ark_imex is the friction of temporal: ark_imex "
+            f"and has no form under temporal: {n.temporal} (the JAX package "
+            "runs semi_implicit friction in its place, ROADMAP fault 11); "
+            "use semi_implicit or implicit_xq2018, or temporal: ark_imex"
+        )
     if p.flow.mode != "swe":
         # the JAX package accepts the diffusion mode but runs the SWE for it
         raise NotImplementedError(
@@ -173,16 +189,6 @@ _PATH_REFUSALS = (
         "unstructured": ("parallel.n_devices > 1 on the unstructured path",
                          "queue 1 item 16"),
         "structured": _CONFIG_ERROR}),
-    ("temporal: beuler", lambda c: c.numerics.temporal == "beuler", {
-        "unstructured": ("temporal: beuler", "queue 1 item 13")}),
-    # row strips refuse beuler with the JAX package's ConfigError
-    # (Simulation._init_structured_backend)
-    ("temporal: beuler",
-     lambda c: c.numerics.temporal == "beuler" and c.parallel.n_devices <= 1,
-     {"fused_structured": ("temporal: beuler on the raster",
-                           "queue 1 item 13")}),
-    ("temporal: ark_imex", lambda c: c.numerics.temporal == "ark_imex", {
-        "unstructured": ("temporal: ark_imex", "queue 1 item 13")}),
     ("time_series.boundary_fluxes",
      lambda c: bool(c.output.time_series.boundary_fluxes),
      {"structured": _CONFIG_ERROR}),
@@ -420,6 +426,17 @@ class Simulation:
         # ---- stepper ----
         self._advance_fn = None
         self._advance_scheme = config.numerics.temporal
+        if self._advance_scheme == "ark_imex":
+            self.log.info(
+                "ark_imex: ARS(2,2,2) — explicit fluxes + per-cell "
+                "closed-form implicit Manning friction per stage"
+                + ("; tracers advance explicitly" if self.ndof > 3 else "")
+            )
+        if self._advance_scheme == "beuler":
+            self.log.info(
+                "beuler: backward Euler via matrix-free Newton-GMRES "
+                "(kernel residuals, linearization-twin JVPs)"
+            )
         self._monitors: List[Callable] = []
 
         # monitors fire at step cadence in the reference (TSMonitors); each
@@ -814,12 +831,27 @@ class Simulation:
                             for x in (dzx, dzy, mann)), bnd, **options)
             # the rain plane goes to the kernel when the config declares
             # sources, or from the first interval a coupler sets one
+            lin_op = None
+            if scheme == "beuler":
+                # the Newton-GMRES JVP twin: the first-order raster operator
+                # in float32 with zero Dirichlet ghosts, as the JAX
+                # package's lin_op (its simulation.py:846-860)
+                lin_op = build_structured_operator(
+                    nx, ny, dx, dy, mannings_n=mann, dtype=torch.float32,
+                    dz_dx=dzx, dz_dy=dzy, device=self.device,
+                    **{f"bc_{side}": bc for side, bc in bcs.items()},
+                    tiny_h=cfg.physics.flow.tiny_h,
+                    h_anuga=cfg.physics.flow.h_anuga_reg_parameter,
+                    source_method=self.operator.source_method,
+                    xq2018_threshold=self.operator.xq2018_threshold,
+                )
             self._structured = dict(
                 kind="fused", nx=nx, ny=ny, op=op, scheme=scheme,
                 with_src=bool(cfg.sources), side_cols=side_cols,
-                accumulate=accum, strips=n_dev > 1,
+                accumulate=accum, strips=n_dev > 1, lin_op=lin_op,
                 adv=make_fused_structured_stepper(op, scheme,
-                                                  accumulate=accum),
+                                                  accumulate=accum,
+                                                  lin_op=lin_op),
             )
             where = ("; its plain version on the CPU"
                      if self.device.type == "cpu" else "")

@@ -32,22 +32,47 @@ fused tier computes no tracer boundary fluxes and falls back to its
 two-kernel tier when accumulating (timestepping.py:285-297), stage mode
 keeps every row.
 
+ark_imex (ARS(2,2,2), `_ark_imex_step`) and beuler (backward Euler by
+matrix-free Newton-GMRES, `_beuler_step` and `newton_beuler_solve`) go
+through `SWEOperator.apply` and `SWEOperator.rhs`, so their residuals run
+on the kernels in every operator mode. beuler takes its Jacobian-vector
+products by forward-mode AD (`jvp`, `torch.autograd.forward_ad`) through
+the operator's linearization twin (`operator.linearization_twin`, its
+kernels' plain versions), where the JAX package differentiates its XLA
+twin (timestepping.py:270-278). Neither reads a device value back inside
+the interval: the Newton iterations, the GMRES cycle, its least-squares
+solve and the line search are a fixed sequence of device operations.
+
 Adaptive dt stays *between* intervals, on the host (`adapt_timestep`),
 exactly like the reference (rdyadvance.c:303-343).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, NamedTuple
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
-from .operator import RHSResult, SWEOperator
+from .operator import RHSResult, SWEOperator, linearization_twin
+from .ops.swe.sources import SOURCE_NONE, friction_implicit_stage_solve
 
 TEMPORAL_EULER = "euler"
 TEMPORAL_RK4 = "rk4"
 TEMPORAL_SSPRK2 = "ssprk2"
 TEMPORAL_SSPRK3 = "ssprk3"
+TEMPORAL_ARK_IMEX = "ark_imex"
+TEMPORAL_BEULER = "beuler"
+SCHEMES = (TEMPORAL_EULER, TEMPORAL_SSPRK2, TEMPORAL_SSPRK3, TEMPORAL_RK4,
+           TEMPORAL_ARK_IMEX, TEMPORAL_BEULER)
+
+# ARS(2,2,2) additive RK coefficients (Ascher, Ruuth & Spiteri 1997 2.6)
+ARS222_GAMMA = 1.0 - 0.5 * 2.0**0.5
+ARS222_DELTA = 1.0 - 1.0 / (2.0 * ARS222_GAMMA)
+# beuler: Newton iterations per step and the GMRES cycle's Krylov size
+NEWTON_ITERS = 6
+KRYLOV_M = 16
 
 # stage tables: each stage computes
 # q_out = alpha * q^n + beta * q_stage + gfac * dt * F(q_stage)
@@ -84,6 +109,155 @@ def _rk4_step(rhs_fn: Callable, q, t, dt):
     return q_new, r1
 
 
+def _ark_imex_step(op: SWEOperator, q, dt, bv, es, mannings_n):
+    """One ARS(2,2,2) additive IMEX-RK step (rdycore_tpu/timestepping.py:
+    60-80): explicit fluxes, bed slope and external sources from the
+    friction-free operator `op` (source_method SOURCE_NONE), implicit
+    Manning friction solved per cell in closed form at each DIRK stage
+    (`friction_implicit_stage_solve`). Returns the new q and the first
+    `apply`'s RHSResult, whose Courant number, boundary fluxes and
+    primitives feed the diagnostics. The second explicit evaluation takes
+    the rhs alone (`op.rhs`: no Courant reduction, no primitives)."""
+    g_, d_ = ARS222_GAMMA, ARS222_DELTA
+    r1 = op.apply(q, dt, bv, es)
+    fe0 = r1.rhs
+    # stage 1: U1 = u^n + dt*g*F_E(u^n) + dt*g*F_I(U1)
+    U1, fi1 = friction_implicit_stage_solve(q + dt * g_ * fe0, mannings_n,
+                                            dt * g_, op.tiny_h)
+    # stage 2: U2 = u^n + dt*(d*F_E(u^n) + (1-d)*F_E(U1))
+    #               + dt*((1-g)*F_I(U1) + g*F_I(U2))
+    fe1 = op.rhs(U1, dt, bv, es)
+    m2 = q + dt * (d_ * fe0 + (1.0 - d_) * fe1) + dt * (1.0 - g_) * fi1
+    q_new, _ = friction_implicit_stage_solve(m2, mannings_n, dt * g_,
+                                             op.tiny_h)
+    return q_new, r1
+
+
+def _beuler_step(op: SWEOperator, lin_op: SWEOperator, q, dt, bv, es):
+    """One backward-Euler step (rdycore_tpu/timestepping.py:83-119): R(u) =
+    u - u^n - dt*F(u) driven to zero by `newton_beuler_solve`, F the
+    operator's rhs on the kernels, its JVPs through `lin_op` (the
+    linearization twin). Returns the new q and the first `apply`'s
+    RHSResult (the step's diagnostics, at u^n)."""
+    r1 = op.apply(q, dt, bv, es)
+    q_new = newton_beuler_solve(
+        lambda u: op.rhs(u, dt, bv, es),
+        lambda u: lin_op.rhs(u, dt, bv, es), q, dt)
+    return q_new, r1
+
+
+def jvp(F: Callable, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """J v, J the Jacobian of F at u, by forward-mode AD: the tangent of
+    F on the dual tensor (u, v). The same tangent as torch.func.jvp(F,
+    (u,), (v,))[1], through `torch.autograd.forward_ad` directly, which
+    spends a quarter less host time per operation."""
+    with fwAD.dual_level():
+        return fwAD.unpack_dual(F(fwAD.make_dual(u, v))).tangent
+
+
+def lstsq_min_norm(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The minimum-norm least-squares solution x of H x = b for GMRES's
+    (m + 1) x m upper Hessenberg H, by Givens rotations and back
+    substitution in plain tensor operations on H's device: the answer of
+    jnp.linalg.lstsq (SVD, singular values below eps * max(H's shape) *
+    sigma_max taken as zero), without torch.linalg.svd's read-back of its
+    error code on CUDA. Arnoldi's Hessenberg is rank-deficient only where
+    it broke down (a zero residual, an exact Krylov space): every column
+    after the breakdown is zero, so its pivot is exactly zero, while every
+    other pivot lies between H's smallest and largest singular values. A
+    pivot below eps * max(H's shape) * the largest pivot is taken as zero
+    and its unknown set to zero, which is the minimum-norm answer there."""
+    m = H.shape[1]
+    rows, g = list(H), list(b)
+    for j in range(m):
+        a, c_ = rows[j][j], rows[j + 1][j]
+        r = torch.hypot(a, c_)
+        nz = r > 0.0
+        r_safe = torch.where(nz, r, 1.0)
+        cos = torch.where(nz, a / r_safe, 1.0)
+        sin = torch.where(nz, c_ / r_safe, 0.0)
+        rows[j], rows[j + 1] = (cos * rows[j] + sin * rows[j + 1],
+                                cos * rows[j + 1] - sin * rows[j])
+        g[j], g[j + 1] = (cos * g[j] + sin * g[j + 1],
+                          cos * g[j + 1] - sin * g[j])
+    piv = torch.stack([rows[j][j] for j in range(m)])
+    cut = torch.finfo(H.dtype).eps * max(H.shape) * piv.abs().max()
+    keep = piv.abs() > cut
+    piv_safe = torch.where(keep, piv, 1.0)
+    x = [None] * m
+    for j in reversed(range(m)):
+        acc = g[j]
+        if j + 1 < m:
+            acc = acc - torch.dot(rows[j][j + 1:], torch.stack(x[j + 1:]))
+        x[j] = torch.where(keep[j], acc / piv_safe[j], 0.0)
+    return torch.stack(x)
+
+
+def newton_beuler_solve(F: Callable, F_lin: Callable, q: torch.Tensor,
+                        dt) -> torch.Tensor:
+    """Newton-GMRES core of the backward-Euler step
+    (rdycore_tpu/timestepping.py:122-188): drives R(u) = u - q - dt*F(u)
+    to zero from u = q with NEWTON_ITERS Newton iterations, each one
+    GMRES(KRYLOV_M) cycle (modified Gram-Schmidt Arnoldi, global inner
+    products) on (I - dt*J) du = -R, J v by forward-mode AD through F_lin
+    (`jvp`), then backtracking over alpha in (1, 1/2, 1/4) that keeps the
+    candidate of least residual norm (a NaN norm compares False, so a
+    diverged candidate is dropped). Shared by the unstructured path and
+    the raster (`ops/structured.make_fused_structured_stepper`). Every
+    branch is a torch.where: nothing is read back to the host. The sizes
+    are read at the call (the JAX package's 6 and 16)."""
+    newton_iters, krylov_m = NEWTON_ITERS, KRYLOV_M
+
+    def gdot(a, b):
+        return torch.sum(a * b)
+
+    def res_norm(u):
+        R = u - q - dt * F(u)
+        return R, torch.sqrt(gdot(R, R))
+
+    def gmres(Av, b):
+        beta = torch.sqrt(gdot(b, b))
+        V = [b / torch.where(beta > 0.0, beta, 1.0)]
+        cols = []
+        for j in range(krylov_m):
+            w = Av(V[j])
+            col = []
+            for i in range(j + 1):
+                hij = gdot(w, V[i])
+                col.append(hij)
+                w = w - hij * V[i]
+            hn = torch.sqrt(gdot(w, w))
+            col.append(hn)
+            cols.append(torch.stack(
+                col + [hn.new_zeros(())] * (krylov_m - 1 - j)))
+            V.append(w / torch.where(hn > 0.0, hn, 1.0))
+        H = torch.stack(cols, dim=1)  # [m + 1, m]
+        e1 = torch.cat([beta[None], beta.new_zeros(krylov_m)])
+        y = lstsq_min_norm(H, e1)
+        dq = V[0] * y[0]
+        for j in range(1, krylov_m):
+            dq = dq + y[j] * V[j]
+        return dq
+
+    u = q
+    for _ in range(newton_iters):
+        R, rn = res_norm(u)
+
+        def Av(v, u=u):
+            return v - dt * jvp(F_lin, u, v)
+
+        dq = gmres(Av, -R)
+        best_q, best_n = u, rn
+        for alpha in (1.0, 0.5, 0.25):
+            q_c = u + alpha * dq
+            _, n_c = res_norm(q_c)
+            take = n_c < best_n
+            best_q = torch.where(take, q_c, best_q)
+            best_n = torch.where(take, n_c, best_n)
+        u = best_q
+    return u
+
+
 def make_interval_advancer(
     op: SWEOperator,
     scheme: str = TEMPORAL_EULER,
@@ -100,13 +274,27 @@ def make_interval_advancer(
     Returns advance(q, t0, dt, n_steps, t_end, bnd_values, ext_src)
     -> IntervalResult, all of it on q's device.
     """
-    if scheme not in (TEMPORAL_EULER, TEMPORAL_SSPRK2, TEMPORAL_SSPRK3,
-                      TEMPORAL_RK4):
-        raise NotImplementedError(
-            f"temporal scheme '{scheme}' is not ported yet (ROADMAP queue 1 "
-            "item 13: IMEX and implicit schemes)"
-        )
+    if scheme not in SCHEMES:
+        raise ValueError(f"unknown temporal scheme '{scheme}'")
     stages = _FUSED_STEP_STAGES.get(scheme)
+    base_op = op
+    if scheme == TEMPORAL_ARK_IMEX:
+        # the explicit part has no friction: the DIRK stages own it. Tracer
+        # rows advance explicitly (the friction solve passes them through)
+        base_op = dataclasses.replace(op, source_method=SOURCE_NONE)
+    lin_op = linearization_twin(op) if scheme == TEMPORAL_BEULER else None
+
+    def step(q, t, dt, bv, es):
+        """(q_new, the first apply's RHSResult) of an rk4, ark_imex or
+        beuler step."""
+        if scheme == TEMPORAL_ARK_IMEX:
+            return _ark_imex_step(base_op, q, dt, bv, es,
+                                  op.arrays.mannings_n)
+        if scheme == TEMPORAL_BEULER:
+            return _beuler_step(op, lin_op, q, dt, bv, es)
+        return _rk4_step(lambda q_s, t_s, dt_s: op.apply(q_s, dt_s, bv, es),
+                         q, t, dt)
+
     Ei, E = op.num_internal_edges, op.num_edges
 
     def advance(q, t0, dt, n_steps: int, t_end, bnd_values, ext_src):
@@ -140,10 +328,7 @@ def make_interval_advancer(
                                        qA=qq).q_out
                 fb, prim = flux[:, Ei:E], out1.prim
             else:
-                def rhs_fn(q_s, t_s, dt_s):
-                    return op.apply(q_s, dt_s, bnd_values, es)
-
-                q_new, r1 = _rk4_step(rhs_fn, qq, tt, dt_i)
+                q_new, r1 = step(qq, tt, dt_i, bnd_values, es)
                 step_courant = r1.max_courant_per_dt * dt_i
                 bigger = step_courant > cmax
                 cmax = torch.where(bigger, step_courant, cmax)

@@ -34,7 +34,8 @@ fold; NaN, ties, infinities, signed zeros, misaligned slices, 1 to 5.77M
 values, f32 and f64) and counted as one kernel per call by torch.profiler;
 K2 at every tracer count and Riemann option on ragged rasters (a single
 cell, row and column among them) under every wall code, and in 4 strips
-bit for bit the whole raster's launch.
+bit for bit the whole raster's launch. A step of ark_imex and of beuler
+(unstructured, raster, raster MUSCL) makes no synchronizing CUDA call.
 """
 
 import numpy as np
@@ -1010,3 +1011,191 @@ def test_raster_step_tiles_match_plain_version(dev, nt, upwind):
         assert torch.equal(s.owned(got.out),
                            whole.out.reshape(3 + nt, 36, 70)[:, rows])
     assert kernels.swe_raster_step.launches == n + 5
+
+
+# ------------------------------------------------ implicit and IMEX schemes
+def closed_dam_break(dtype, dev):
+    """A 256x176 raster of 1/512 m cells in a closed box (every wall
+    reflecting), the dam break's depths (0.25 m | 0.05 m), Manning 0.018."""
+    mesh = structured_quad(256, 176, 0.0, 0.5, 0.0, 176 / 512)
+    op = build_operator(mesh, mannings_n=np.full(mesh.num_cells, 0.018),
+                        dtype=dtype, device=dev)
+    h = np.where(mesh.cell_centroid[:, 0] < 0.25, 0.25, 0.05)
+    q = torch.zeros((3, mesh.num_cells), dtype=dtype, device=dev)
+    q[0] = torch.as_tensor(h, dtype=dtype)
+    return op, q
+
+
+@pytest.mark.parametrize("scheme", ["beuler", "ark_imex"])
+def test_implicit_step_on_the_kernels_matches_the_twin(dev, scheme):
+    """One step with its residuals on the kernels against the same step on
+    the linearization twin (plain residuals): beuler to 2e-5 relative to
+    1 + |q| at a Courant number of about 2, ark_imex to 1e-4 of each row's
+    largest magnitude; exact launches (beuler: 1 + 24 residuals of K1a and
+    K1b, one K1c; ark_imex: two of K1a and K1b, one K1c)."""
+    from rdycore_tpu_torch.operator import linearization_twin
+    from rdycore_tpu_torch.timestepping import make_interval_advancer
+
+    op, q = closed_dam_break(torch.float32, dev)
+    dt = 0.0025 if scheme == "beuler" else 0.0005
+    bv = op.zero_boundary_values()
+    out = []
+    for o in (op, linearization_twin(op)):
+        kernels.reset_launch_counts()
+        res = make_interval_advancer(o, scheme)(q, 0.0, dt, 1, dt, bv, None)
+        out.append((res, launches()))
+    (rk, lk), (rp, lp) = out
+    assert torch.isfinite(rk.q).all() and float(rk.max_courant) > 0.0
+    if scheme == "beuler":
+        assert float(rk.max_courant) > 1.5
+        assert float(((rk.q - rp.q).abs() / (1.0 + rp.q.abs())).max()) <= 2e-5
+        assert lk == [25, 25, 1, 0, 0, 0, 0, 0, 0]
+    else:
+        for k in range(3):
+            assert rel(rk.q[k], rp.q[k]) <= 1e-4
+        assert lk == [2, 2, 1, 0, 0, 0, 0, 0, 0]
+    assert lp == [0] * len(kernels.KERNELS)
+    assert float(rk.max_courant) == pytest.approx(float(rp.max_courant),
+                                                  rel=1e-5)
+
+
+@pytest.mark.parametrize("path", ["beuler", "ark_imex", "raster beuler",
+                                  "raster beuler+muscl"])
+def test_implicit_interval_reads_nothing_back(dev, path):
+    """A step of the implicit and IMEX schemes reads no device value back
+    to the host: under torch.cuda.set_sync_debug_mode("warn") it warns of
+    no synchronizing operation (an .item(), a nonzero, a blocking copy, a
+    linear-algebra call that checks its error code). The unstructured
+    path on closed_dam_break's 256x176 box, and raster beuler at first
+    and second order on the same box; the interval's time, dt and end
+    are device tensors, and a first step outside the mode builds the
+    kernels."""
+    import warnings
+
+    from rdycore_tpu_torch.timestepping import make_interval_advancer
+
+    f32 = torch.float32
+    dt = 0.0025 if "beuler" in path else 0.0005
+    t0, dt_, t1 = (torch.tensor(x, dtype=f32, device=dev)
+                   for x in (0.0, dt, dt))
+    if path.startswith("raster"):
+        d = {"numerics": {"temporal": "beuler", "precision": "single",
+                          "edge_flux_backend": "fused_structured",
+                          "second_order": path.endswith("muscl")},
+             "time": {"stop": dt, "time_step": dt},
+             "logging": {"level": "none"}}
+        mesh = structured_quad(256, 176, 0.0, 0.5, 0.0, 176 / 512)
+        sim = Simulation(config_from_dict(d).validate(), mesh=mesh,
+                         device=dev)
+        st = sim._structured
+        assert st["kind"] == "fused" and st["scheme"] == "beuler"
+        q = torch.zeros((3, mesh.num_cells), dtype=f32, device=dev)
+        q[0] = torch.as_tensor(np.where(
+            mesh.cell_centroid[:, 0] < 0.25, 0.25, 0.05), dtype=f32)
+        bc_vals = {side: sim.boundary_values[:, cols].to(f32)
+                   for side, cols in st["side_cols"].items()}
+
+        def interval():
+            return st["adv"](q, t0, dt_, 1, t1, bc_vals=bc_vals)
+    else:
+        op, q = closed_dam_break(f32, dev)
+        adv = make_interval_advancer(op, path, accumulate=False,
+                                     ext_sources=False)
+        bv = op.zero_boundary_values()
+
+        def interval():
+            return adv(q, t0, dt_, 1, t1, bv, None)
+
+    interval()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = interval()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = [f"{w.filename}:{w.lineno}: {w.message}" for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert not syncs, "\n".join(syncs)
+    assert torch.isfinite(res.q).all() and float(res.max_courant) > 0.0
+
+
+def test_least_squares_on_the_card_for_singular_hessenbergs(dev):
+    """`newton_beuler_solve`'s minimum-norm least-squares solve on the
+    card: a zero Hessenberg (beta = 0), a rank-1 one (h_10 = 0) and a
+    general one, finite and equal to the CPU's; and Newton on a fixed point
+    and on a Krylov space that closes at once, as on the CPU."""
+    from rdycore_tpu_torch.timestepping import (lstsq_min_norm,
+                                                newton_beuler_solve)
+
+    rng = np.random.default_rng(4)
+    rank1 = np.zeros((17, 16))
+    rank1[0, 0] = 1.51
+    for H, b0 in ((np.zeros((17, 16)), 0.0), (rank1, 0.37),
+                  (np.triu(rng.normal(size=(17, 16)), -1), 0.8)):
+        b = np.zeros(17)
+        b[0] = b0
+        y = [lstsq_min_norm(torch.as_tensor(H, device=d),
+                            torch.as_tensor(b, device=d)).cpu()
+             for d in (dev, "cpu")]
+        assert torch.isfinite(y[0]).all()
+        assert torch.allclose(y[0], y[1], rtol=1e-12, atol=1e-14)
+    shape = (3, 17)
+    c = rng.normal(size=shape)
+    closing = c.copy()
+    closing[1, 5] += 0.7
+    for q, lam, kap in ((c.copy(), rng.uniform(0.5, 3, shape),
+                         rng.uniform(0, 2, shape)),
+                        (closing, np.full(shape, 1.7), np.zeros(shape))):
+        u = []
+        for d in (dev, "cpu"):
+            c_, lam_, kap_ = (torch.as_tensor(x, device=d)
+                              for x in (c, lam, kap))
+
+            def F(x):
+                e = x - c_
+                return -lam_ * e - kap_ * e * e * e
+
+            u.append(newton_beuler_solve(
+                F, F, torch.as_tensor(q, device=d),
+                torch.tensor(0.3, dtype=torch.float64, device=d)).cpu())
+        assert torch.isfinite(u[0]).all()
+        assert torch.allclose(u[0], u[1], rtol=0, atol=1e-12)
+
+
+JVP_MESHES = [
+    lambda **kw: structured_quad(256, 176, 0.0, 2.0, 0.0, 1.375, **kw),
+    lambda **kw: structured_tri(128, 88, 0.0, 2.0, 0.0, 1.375, **kw)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mesh", [0, 1])
+def test_twin_jvp_on_the_card(dev, mesh, dtype):
+    """Forward-mode AD through the linearization twin on the card's
+    tensors (a 256x176 raster, and a triangle mesh of as many cells), on a
+    state with dry cells (30% at h = 0): finite, no kernel launched, and
+    the CPU's tangent (1e-12 in f64, 2e-5 in f32)."""
+    from rdycore_tpu_torch.operator import linearization_twin
+    from rdycore_tpu_torch.timestepping import jvp
+
+    op, q, bv, ext = setup(JVP_MESHES[mesh], dtype, dev)
+    v = torch.randn(q.shape, generator=torch.Generator().manual_seed(3),
+                    dtype=dtype).to(dev) * q.abs().clamp_min(1e-3)
+    dt = torch.tensor(0.002, dtype=dtype, device=dev)
+    out = []
+    for d in (dev, "cpu"):
+        twin = linearization_twin(op) if d == dev else linearization_twin(
+            build_operator(JVP_MESHES[mesh](), bc_types={"left": 0,
+                                                         "right": 2,
+                                                         "top": 1},
+                           mannings_n=op.arrays.mannings_n.cpu().numpy(),
+                           dtype=dtype, device="cpu"))
+        kernels.reset_launch_counts()
+        out.append(jvp(lambda x: twin.rhs(x, dt.to(d), bv.to(d),
+                                          ext.to(d)),
+                       q.to(d), v.to(d)).cpu())
+        assert launches() == [0] * len(kernels.KERNELS)
+    assert torch.isfinite(out[0]).all() and float(out[0].abs().max()) > 0
+    assert rel(out[0], out[1]) <= TOL[dtype]
