@@ -156,14 +156,48 @@ Phases, each printing as it goes; any failure exits non-zero:
    difference printed unbounded. Each path's kernels are held against
    their plain versions and timed at its shapes.
 
+10. The MMS driver (`mms.MMSDriver`, what `python -m rdycore_tpu_torch
+   deck.yaml --mms` runs) in f64 on the manufactured solution of
+   tools/torch_mms_decks.py over 4 m x 2.75 m, its base mesh written to an
+   .npz as a user's deck names it, with the launch counts set to 0 just
+   before each study and exact launches over all its levels' steps: a
+   Dirichlet BC on every boundary edge whose values, and the sources on
+   every row, are evaluated on the card at each step's half time, per-cell
+   Manning values. (b) First order (euler) on 128x88 quads refined 4 times
+   to 2,883,584 cells: each level's norms and times, the rates, which must
+   beat the reference's first-order thresholds for h and hu (hv's printed
+   without one); 10 steps of the finest level on the kernels against the
+   plain versions (every row to 1e-10, K1a, K1b and K1c once a step). (c)
+   Second order (MUSCL minmod with the positivity limiter, ssprk2) on
+   structured_tri(64, 44) refined 4 times to 1,441,792 triangles, the
+   rates against the reference's second-order thresholds. (d) Two
+   sediment classes (Roe), 128x88 quads refined 3 times to 720,896, the
+   rates printed beside the first-order thresholds. For each, a step of
+   the finest level split by CUDA events into the analytic forcing and the
+   kernels, and (a) each kernel at the finest level's shapes (K1a with
+   the analytic Dirichlet values, K1b in stage mode with the sources)
+   against its plain version (1e-12) and timed beside its bound. (e)
+   Thacker's bowl (tests/test_thacker.py's deck, tools/torch_thacker.py)
+   on 1696x1696 quads (2,876,416 cells), f64, one period under euler:
+   first order at a Courant number near 0.28 (h >= 0, the mass to 1e-11,
+   the front moved, L1/mean < 0.08, the momenta back near 0); MUSCL with
+   the limiter at that dt, which diverges on the kernels and on the plain
+   versions alike (ROADMAP fault 22), printed unbounded; then first order
+   and MUSCL at half that dt, MUSCL finite and its error at most 1.05
+   times first order's. Exact launches in each run, the cells whose donor
+   factor fell below 1 in each quarter period of each MUSCL run, and the
+   MUSCL path's kernels held and timed at its shapes.
+
 Before the last line it prints the card's name and power limit and a JSON
 line {"kernels": [...]} with one row per kernel and path ("path":
 "unstructured", "raster", "unstructured+tracers", "raster+tracers" (these
 two with "nt": 3), "unstructured+muscl", "raster+muscl",
 "unstructured+hr", "unstructured+bs2002", "unstructured+bs2002+muscl",
 "raster+strips4", "raster+strips4+tracers", "raster+strips4+muscl",
-"unstructured ark_imex", "unstructured beuler", "raster beuler" or "raster
-beuler+muscl", these four with "launches_per_step"; a
+"unstructured ark_imex", "unstructured beuler", "raster beuler", "raster
+beuler+muscl", "unstructured mms", "unstructured mms+muscl", "unstructured
+mms+sediment" or "unstructured thacker+muscl", these eight with
+"launches_per_step", phase 10's with "dtype": "float64"; a
 strip row names its strip [row0, rows, halo_lo, halo_hi]),
 each with that path's own launches, times and bound, and "timers" naming
 the timer of each time ("profiler", or "cuda events" where torch.profiler
@@ -280,6 +314,16 @@ STRIPS = 4  # phase 8: row strips on the one card
 IMEX_STEPS, IMEX_INTERVAL_STEPS = 100, 50
 DT_BEULER = 0.0025
 BEULER_STEPS = 4
+# phase 10: the MMS studies' dt (a Courant number near 0.34 on the finest
+# quads, 1/512 m; 0.28 on the finest triangles, legs of 1/256 m; 0.34 on
+# the sediment ladder's finest quads, 1/256 m) and end time; Thacker's
+# bowl on THACKER_N^2 quads at a Courant number near 0.28 (and half it)
+MMS_DT, MMS_TRI_DT, MMS_SED_DT, MMS_STOP = 5e-4, 2e-4, 1e-3, 0.2
+# the base meshes over 4 m x 2.75 m (128 x 88 quads of 1/32 m; 64 x 44
+# quads of 1/16 m, each split in two triangles) and the refinements of
+# 10b, 10c and 10d: 2,883,584 quads, 1,441,792 triangles, 720,896 quads
+MMS_QUADS, MMS_TRIS, MMS_REFINE = (128, 88), (64, 44), (4, 4, 3)
+THACKER_N, THACKER_DT = 1696, 6.6e-4
 
 
 def log(*args):
@@ -2970,6 +3014,413 @@ def phase_implicit(errs, dev, mesh):
     return rows
 
 
+# ----------------------------------------------------------------- phase 10
+def mms_deck_config(dt, stop, refinements, mesh_file, **deck):
+    """The MMS deck of tools/torch_mms_decks.py (f64) on `mesh_file`."""
+    from rdycore_tpu_torch.config.yaml_input import config_from_dict
+    from tools.torch_mms_decks import mms_deck
+
+    return config_from_dict(mms_deck(mesh_file, dt, stop, refinements,
+                                     **deck)).validate()
+
+
+def stage_table(scheme):
+    """The stage coefficients of a stage-mode scheme."""
+    from rdycore_tpu_torch.timestepping import _FUSED_STEP_STAGES
+
+    return _FUSED_STEP_STAGES[scheme]
+
+
+def mms_step_split(card, path, level, reps=20):
+    """One MMS step at the level's shapes, repeated, split by CUDA events
+    into the analytic forcing (bc_fn and src_fn at the half-step time) and
+    each kernel group of its stages (the edge phase: K1a, with K3a and K3b
+    at second order; K1c; K1b), as the step loop calls them. Returns
+    {part: ms per step}."""
+    op, q = level.op, level.q0
+    stages = stage_table(level.problem.config.numerics.temporal)
+    dt = q.new_full((), level.dt)
+    tt = q.new_full((), 0.25 * level.t_final)
+    cmax = q.new_zeros(())
+    cedge = torch.zeros((), dtype=torch.int32, device=q.device)
+    parts = ("forcing", "edge phase", "K1c", "K1b")
+    spans = {k: [] for k in parts}
+
+    def timed(kind, fn):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = fn()
+        e1.record()
+        spans[kind].append((e0, e1))
+        return out
+
+    def step():
+        t_half = tt + 0.5 * dt
+        bv, es = timed("forcing", lambda: (level.bc_fn(t_half),
+                                           level.src_fn(t_half)))
+        qs = q
+        for i, coeffs in enumerate(stages):
+            flux, courant = timed("edge phase",
+                                  lambda: op.fluxes(qs, bv, dt))
+            if i == 0:
+                timed("K1c", lambda: op.courant_max(courant, dt, cmax,
+                                                    cedge))
+            qA = {"qA": q} if i else {}
+            qs = timed("K1b", lambda: op.cell_stage(
+                flux, qs, dt, es, stage=coeffs, **qA).q_out)
+
+    step()
+    torch.cuda.synchronize()
+    spans = {k: [] for k in parts}
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(reps):
+        step()
+    e1.record()
+    torch.cuda.synchronize()
+    ms = {k: sum(a.elapsed_time(b) for a, b in v) / reps
+          for k, v in spans.items()}
+    ms["step"] = e0.elapsed_time(e1) / reps
+    kern = ms["edge phase"] + ms["K1c"] + ms["K1b"]
+    log(f"  [{card}] {path} step split on {q.shape[1]:,} cells (CUDA "
+        f"events, {reps} steps): {ms['step']:.4f} ms = forcing "
+        f"{ms['forcing']:.4f} + kernels {kern:.4f} (edge phase "
+        f"{ms['edge phase']:.4f}, K1c {ms['K1c']:.4f}, K1b {ms['K1b']:.4f})"
+        f"; forcing {100 * ms['forcing'] / ms['step']:.1f}% of the step")
+    return ms
+
+
+def mms_rows(card, path, op, q, bv, es, dt, launches, per_step, errs,
+             emit_prim=False):
+    """Each kernel of an unstructured stage-mode path (K3a and K3b at
+    second order, K1a, K1b with the sources es, K1c) at its shapes on
+    (q, bv): held against its plain version (1e-12 relative in f64, the
+    Courant fold exact) and timed beside its bound; the rows of `path`."""
+    from rdycore_tpu_torch.ops.kernels import muscl as mk
+    from rdycore_tpu_torch.ops.kernels.cell_stage import swe_cell_stage_plain
+    from rdycore_tpu_torch.ops.kernels.courant import courant_argmax_plain
+    from rdycore_tpu_torch.ops.kernels.edge_flux import swe_edge_flux_plain
+    from rdycore_tpu_torch.ops.swe.muscl import ls_gradients
+
+    a, s, nt = op.arrays, q.element_size(), op.num_tracers
+    upwind = op.riemann == "upwind_roe"
+    kw = dict(tiny_h=op.tiny_h, h_anuga=op.h_anuga,
+              xq2018_threshold=op.xq2018_threshold,
+              source_method=op.source_method, num_sediment=op.num_sediment)
+    stage = dict(stage=(0.0, 1.0, 1.0), emit_prim=emit_prim)
+    run = (q.new_zeros(()), torch.zeros((), dtype=torch.int32,
+                                        device=q.device))
+    pairs, calls = {}, {}
+    gk = gp = None
+    if op.second_order:
+        gk, gp = op.muscl_grad(q), ls_gradients(a, q)
+        pairs["swe_muscl_grad"] = [(gk, gp)]
+        calls["swe_muscl_grad"] = (lambda: op.muscl_grad(q),
+                                   lambda: ls_gradients(a, q), None)
+
+    def edge_plain(grad):
+        return swe_edge_flux_plain(a, q, bv, op.tiny_h, op.h_anuga, upwind,
+                                   grad, op.limiter)
+
+    flux, courant = op.edge_flux(q, bv, gp)
+    fp, cp = edge_plain(gp)
+    pairs["swe_edge_flux"] = [(flux, fp), (courant, cp)]
+    calls["swe_edge_flux"] = (lambda: op.edge_flux(q, bv, gk),
+                              lambda: edge_plain(gk), None)
+    if op.second_order:
+        sk = mk.swe_positivity_drain(a, fp, q[0], dt)
+        sp = mk.positivity_drain_plain(a, fp, q[0], dt)
+        pairs["swe_positivity_drain"] = [(sk, sp)]
+        pairs["swe_positivity_scale"] = [(
+            mk.swe_positivity_scale(a, fp.clone(), sp),
+            mk.positivity_scale_plain(a, fp.clone(), sp))]
+        calls["swe_positivity_drain"] = (
+            lambda: mk.swe_positivity_drain(a, flux, q[0], dt),
+            lambda: mk.positivity_drain_plain(a, flux, q[0], dt), None)
+        calls["swe_positivity_scale"] = (
+            lambda: mk.swe_positivity_scale(a, flux, sk),
+            lambda: mk.positivity_scale_plain(a, flux, sk), None)
+    ok_ = op.cell_stage(fp, q, dt, es, **stage)
+    op_ = swe_cell_stage_plain(a, fp, q, dt, es, **kw, **stage)
+    pairs["swe_cell_stage"] = [(ok_.q_out, op_.q_out)] + (
+        [(ok_.prim, op_.prim)] if emit_prim else [])
+    calls["swe_cell_stage"] = (
+        lambda: op.cell_stage(flux, q, dt, es, **stage),
+        lambda: swe_cell_stage_plain(a, flux, q, dt, es, **kw, **stage),
+        None)
+    mk_, ik = op.courant_max(cp, dt, *run)
+    mp, ip = courant_argmax_plain(cp)
+    calls["courant_argmax"] = (
+        lambda: op.courant_max(courant, dt, *run),
+        lambda: courant_argmax_plain(courant, dt, *run),
+        lambda: torch.max(courant, 0))
+    rel = {k: max(rel_err(g, w) for g, w in v) for k, v in pairs.items()}
+    err = {k: max(abs_err(g, w) for g, w in v) for k, v in pairs.items()}
+    err["courant_argmax"] = abs(float(mk_) - float(mp))
+    exact = float(mk_) == float(mp) and int(ik) == int(ip)
+    log(f"  kernels vs plain at the {path} path's shapes (relative): {rel};"
+        f" Courant fold {'exact' if exact else 'DIFFERS'}")
+    if not (exact and all(v <= TOL[q.dtype] for v in rel.values())):
+        raise SystemExit(f"{path}: a kernel differs from its plain version")
+
+    q_bytes = q.numel() * s
+    base = kernel_bytes(op, q_bytes, s)
+    nbytes = muscl_bytes(op, q_bytes, s) if op.second_order else {}
+    nbytes["swe_edge_flux"] = nbytes.get("swe_edge_flux",
+                                         base["swe_edge_flux"])
+    # K1b's base bytes write q_out and the primitives and read no
+    # sources: add the sources where es is given, drop the primitives
+    # where they are not asked for
+    nbytes["swe_cell_stage"] = (base["swe_cell_stage"]
+                                + (q_bytes if es is not None else 0)
+                                - (0 if emit_prim else q_bytes))
+    nbytes["courant_argmax"] = base["courant_argmax"]
+    C, E, Ei = op.num_cells, op.num_edges, op.num_internal_edges
+    edge_ops = (OPS_PER_EDGE * (E - Ei) + OPS_PER_MUSCL_EDGE * Ei
+                if op.second_order else OPS_PER_EDGE * E)
+    nops = {"swe_muscl_grad": OPS_PER_GRAD_CELL * C,
+            "swe_edge_flux": edge_ops
+            + OPS_PER_TRACER["swe_edge_flux"] * nt * E,
+            "swe_positivity_drain": OPS_PER_DRAIN_CELL * C,
+            "swe_positivity_scale": OPS_PER_SCALE_EDGE * E,
+            "swe_cell_stage": (OPS_PER_CELL + OPS_PER_TRACER[
+                "swe_cell_stage"] * nt) * C,
+            "courant_argmax": OPS_PER_VALUE * E}
+    replaces = (dict(REPLACES, swe_edge_flux=_SLOTTED + ":3180",
+                     swe_cell_stage=_SLOTTED + ":1441")
+                if op.second_order else REPLACES)
+    extra = {"nt": nt} if nt else {}
+    rows = [kernel_row(card, name, path, fns, launches[name],
+                       max(err[name], errs.get(name, 0.0)), nbytes[name],
+                       nops[name], q.dtype, replaces,
+                       launches_per_step=per_step[name], **extra)
+            for name, fns in calls.items()]
+    for row in rows:
+        row["dtype"] = str(q.dtype).replace("torch.", "")
+    return rows
+
+
+def mms_study(card, path, cfg, dev, per_step):
+    """Drive the MMS driver (`MMSDriver`, as `python -m rdycore_tpu_torch
+    deck.yaml --mms` does) over the deck's ladder on the card, with every
+    launch count set to 0 just before: each kernel must have been launched
+    per_step[name] times a step over all levels' steps (a kernel per_step
+    does not name: never). Logs each level's norms and times and the
+    rates; returns (driver, verdict, launches)."""
+    from rdycore_tpu_torch.mms import MMSDriver
+    from rdycore_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    drv = MMSDriver(cfg, device=dev)
+    ok = drv.run(log=lambda *a: log("  " + " ".join(map(str, a))))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    steps = sum(r.n_steps for r in drv.results)
+    check_launches(f"{path} ladder ({steps} steps over "
+                   f"{len(drv.results)} levels)", launches,
+                   {k: n * steps for k, n in per_step.items()})
+    for r in drv.results:
+        log(f"  [{card}] {path} level N = {r.num_cells:,}: {r.n_steps} "
+            f"steps, setup {r.setup_seconds:.2f} s, run {r.run_seconds:.3f}"
+            f" s = {1e3 * r.run_seconds / r.n_steps:.4f} ms/step "
+            f"({r.n_steps * r.num_cells / r.run_seconds:.4e} "
+            f"cell-updates/s, the norms' copy back included)")
+    rates = {k: [float(x) for x in v] for k, v in drv.rates.items()}
+    log(f"  [{card}] {path}: {'PASS' if ok else 'FAIL'}; rates "
+        f"{json.dumps(rates)}; the whole study {wall:.1f} s")
+    return drv, ok, launches
+
+
+def check_plain_steps(path, level, steps=10):
+    """`steps` steps of the level on the kernels, with exact launches
+    (K1a, K1b and K1c once a step at first order), held against the same
+    steps on the plain versions: every row to 1e-10 relative."""
+    from rdycore_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    rk = level.advance(n_steps=steps)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    check_launches(f"{path}, {steps} steps of the finest level", launches,
+                   {k: steps for k in ("swe_edge_flux", "swe_cell_stage",
+                                       "courant_argmax")})
+    rp = level.advance(n_steps=steps, op=plain_operator(level.op))
+    err = rows_rel_err(rk.q, rp.q)
+    log(f"  {steps} steps of the finest level, kernels vs plain versions "
+        f"(worst row): {err:.3e}")
+    if not err <= 1e-10:
+        raise SystemExit(f"{path}: {steps} steps differ from plain: {err}")
+    return rk.q
+
+
+def phase_thacker(card, errs, dev):
+    """Phase 10e: Thacker's bowl (tests/test_thacker.py's deck,
+    `tools/torch_thacker.py`) on THACKER_N^2 quads, f64, one period under
+    euler. First order at dt = THACKER_DT (a Courant number near 0.28): h
+    finite and >= 0, the mass to 1e-11, the front moved, L1/mean < 0.08,
+    the momenta back near 0. MUSCL minmod with the positivity limiter at
+    that dt diverges, on the kernels and on the plain versions alike
+    (ROADMAP fault 22): its run is printed, unbounded. At dt / 2 MUSCL is
+    held to the test's rule against first order at the same dt: finite,
+    its error at most 1.05 times first order's. For each MUSCL run, the
+    cells whose donor factor fell below 1 in each quarter period; exact
+    launches in every run; the MUSCL path's kernels held and timed at its
+    shapes."""
+    from rdycore_tpu_torch.constants import GRAVITY
+    from rdycore_tpu_torch.operator import build_operator
+    from rdycore_tpu_torch.ops import kernels
+    from rdycore_tpu_torch.timestepping import make_interval_advancer
+    from tools.torch_thacker import (ETA0, H0, counting_operator,
+                                     thacker_case, thacker_eta)
+
+    t0 = time.perf_counter()
+    mesh, r2, w, A, T, h0 = thacker_case(THACKER_N)
+    log(f"== phase 10e: Thacker's bowl on {THACKER_N}x{THACKER_N} quads "
+        f"({mesh.num_cells:,} cells), f64, mesh in "
+        f"{time.perf_counter() - t0:.2f} s")
+    area = mesh.cell_area
+    first = {"swe_edge_flux": 1, "swe_cell_stage": 1, "courant_argmax": 1}
+    second = dict(first, swe_muscl_grad=1, swe_positivity_drain=1,
+                  swe_positivity_scale=1)
+
+    def run(second_order, dt):
+        """One period on the kernels: (end state on the card, launches,
+        L1/mean, the operator)."""
+        tag = (f"{'MUSCL' if second_order else 'first order'} at dt {dt} "
+               "s")
+        t0 = time.perf_counter()
+        op = build_operator(mesh, mannings_n=np.zeros(mesh.num_cells),
+                            second_order=second_order, dtype=torch.float64,
+                            device=dev)
+        n_steps = int(np.ceil(T / dt))
+        if second_order:  # one limiter pass a step under euler
+            op = counting_operator(
+                op, mesh.num_cells, 4,
+                lambda k: min(3, int(k * dt / (T / 4))))
+        q0 = torch.zeros((3, mesh.num_cells), dtype=torch.float64,
+                         device=dev)
+        q0[0] = torch.as_tensor(h0, device=dev)
+        t_setup = time.perf_counter() - t0
+        adv = make_interval_advancer(op, "euler")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = adv(q0, q0.new_full((), 0.0), q0.new_full((), dt), n_steps,
+                  q0.new_full((), T), op.zero_boundary_values(),
+                  torch.zeros_like(q0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in kernels.KERNELS}
+        check_launches(f"Thacker bowl, {tag}", launches,
+                       {k: v * n_steps for k, v in
+                        (second if second_order else first).items()})
+        h1 = res.q[0].cpu().numpy()
+        wet = (h0 > 1e-4) | (h1 > 1e-4)
+        l1 = float(np.abs(h1 - h0)[wet].mean() / h0[wet].mean())
+        log(f"  [{card}] {tag}: setup {t_setup:.2f} s, {n_steps} steps to "
+            f"T = {T:.6f} s in {wall:.3f} s = {1e3 * wall / n_steps:.4f} "
+            f"ms/step, {n_steps * mesh.num_cells / wall:.4e} cell-updates/s;"
+            f" finite {bool(torch.isfinite(res.q).all())}, max Courant "
+            f"{float(res.max_courant):.4g}, L1/mean {l1:.6g}, min h "
+            f"{np.nanmin(h1):.3e}")
+        if second_order:
+            cells = [int(c) for c in op.below.sum(dim=1).cpu()]
+            events = [int(e) for e in op.events.cpu()]
+            log(f"  [{card}] {tag}: cells whose donor factor fell below 1 "
+                f"in each quarter period {cells} of {mesh.num_cells:,} "
+                f"(cell-steps {events})")
+        return res.q, launches, l1, op
+
+    q1, _, l1, _ = run(False, THACKER_DT)
+    h1 = q1[0].cpu().numpy()
+    m0, m1 = float((h0 * area).sum()), float((h1 * area).sum())
+    h_mid = np.maximum(thacker_eta(r2, T / 2.0, w, A) - mesh.cell_z, 0.0)
+    moved = int(((h_mid > 0) != (h0 > 0)).sum())
+    hu_max = float(q1[1].abs().max())
+    hu_bound = 0.5 * ETA0 * np.sqrt(GRAVITY * H0) * H0 + 1e-4
+    mass = abs(m1 - m0) / m0
+    log(f"  first order: mass change {mass:.3e} of the initial, {moved} "
+        f"cells change wetness by half a period, max |hu| {hu_max:.3e} "
+        f"(bound {hu_bound:.3e})")
+    if not (np.isfinite(h1).all() and h1.min() >= 0.0 and mass <= 1e-11
+            and moved > 50 and l1 < 0.08 and hu_max < hu_bound):
+        raise SystemExit("Thacker bowl at first order failed")
+    del q1
+    run(True, THACKER_DT)  # ROADMAP fault 22: printed, unbounded
+
+    dt = THACKER_DT / 2
+    _, _, l1_first, _ = run(False, dt)
+    q, launches, l1_muscl, op = run(True, dt)
+    if not (bool(torch.isfinite(q).all()) and l1_muscl <= 1.05 * l1_first):
+        raise SystemExit(f"Thacker bowl with MUSCL at dt {dt} failed: "
+                         f"L1/mean {l1_muscl} against first order's "
+                         f"{l1_first}")
+    return mms_rows(card, "unstructured thacker+muscl", op, q,
+                    op.zero_boundary_values(), None, q.new_full((), dt),
+                    launches, second, errs, emit_prim=True)
+
+
+def phase_mms(errs, dev):
+    """Phase 10: the MMS driver on the card in f64. (a) and (b): the
+    first-order study on quads to 2,883,584 cells, its rates against the
+    reference's thresholds, 10 steps of its finest level against the plain
+    versions, its step split into kernels and forcing, and its kernels at
+    the finest level's shapes; (c) the second-order study (MUSCL minmod,
+    positivity limiter, ssprk2) on triangles to 1,441,792 cells; (d) two
+    sediment classes to 720,896 quads; (e) Thacker's bowl."""
+    import tempfile
+
+    from rdycore_tpu_torch.mesh import save_mesh_npz
+    from tools.torch_mms_decks import base_mesh
+
+    card = nvidia_smi_line()
+    rows, splits = [], {}
+    first = {"swe_edge_flux": 1, "swe_cell_stage": 1, "courant_argmax": 1}
+    second = {k: 2 for k in ("swe_muscl_grad", "swe_edge_flux",
+                             "swe_positivity_drain", "swe_positivity_scale",
+                             "swe_cell_stage")}
+    second["courant_argmax"] = 1
+    studies = (
+        # (phase, path, base (nx, ny, triangles), refinements, dt, deck,
+        #  launches a step, whether the rates must pass)
+        ("10b", "unstructured mms", (*MMS_QUADS, False), MMS_REFINE[0],
+         MMS_DT, {}, first, True),
+        ("10c", "unstructured mms+muscl", (*MMS_TRIS, True), MMS_REFINE[1],
+         MMS_TRI_DT, dict(second_order=True, temporal="ssprk2"), second,
+         True),
+        ("10d", "unstructured mms+sediment", (*MMS_QUADS, False),
+         MMS_REFINE[2], MMS_SED_DT, dict(num_sediment=2), first, False),
+    )
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, path, (nx, ny, tri), refs, dt, deck, per_step, must in \
+                studies:
+            mesh_file = f"{tmp}/{path.replace(' ', '_')}.npz"
+            save_mesh_npz(base_mesh(nx, ny, tri), mesh_file)
+            cfg = mms_deck_config(dt, MMS_STOP, refs, mesh_file, **deck)
+            cells = (2 if tri else 1) * nx * ny * 4 ** refs
+            log(f"== phase {tag}: the MMS driver, {path}, f64, "
+                f"{nx}x{ny} {'triangle pairs' if tri else 'quads'} refined "
+                f"{refs} times (to {cells:,} cells), dt {dt} s, t "
+                f"{MMS_STOP} s, {cfg.numerics.temporal}")
+            drv, ok, launches = mms_study(card, path, cfg, dev, per_step)
+            if must and not ok:
+                raise SystemExit(f"{path}: the rates miss the thresholds")
+            level = drv.last_level
+            q = level.q0
+            if tag == "10b":
+                q = check_plain_steps(path, level)
+            splits[path] = mms_step_split(card, path, level)
+            t = q.new_full((), 0.5 * level.t_final)
+            rows += mms_rows(card, path, level.op, q, level.bc_fn(t),
+                             level.src_fn(t), q.new_full((), level.dt),
+                             launches, per_step, errs)
+            del drv, level, q
+    rows += phase_thacker(card, errs, dev)
+    log(f"  [{card}] MMS step splits (ms): {json.dumps(splits)}")
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -2998,6 +3449,7 @@ def main():
     rows += phase_strips(args.steps, dev, mesh)
     rows += phase_implicit(errs, dev, mesh)
     del mesh
+    rows += phase_mms(errs, dev)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi_line())
     print(json.dumps({"kernels": rows}))

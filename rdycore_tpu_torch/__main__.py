@@ -3,12 +3,15 @@
 
 Usage:
     python -m rdycore_tpu_torch <config.yaml> [--cpu] [--dt SECONDS]
-                                [--f32|--f64] [--output-dir DIR]
+                                [--f32|--f64] [--output-dir DIR] [--mms]
 
 It runs on the CUDA device, or with --cpu on the CPU (the kernels' plain
-PyTorch versions). The JAX package's options for MMS, forcing datasets,
-AMR and --pause are accepted and exit with status 2, naming the ROADMAP
-item that will port them. Without a CUDA device and without --cpu it fails. A
+PyTorch versions). With --mms the deck's `mms` section runs as the
+reference's rdycore_mms does (`mms.MMSDriver`): its error norms, or its
+convergence rates against their thresholds, exiting 0 on PASS and 1 on
+FAIL. The JAX package's options for forcing datasets, AMR and --pause are
+accepted and exit with status 2, naming the ROADMAP item that will port
+them. Without a CUDA device and without --cpu it fails. A
 fused_structured deck with parallel.n_devices = P > 1 runs in P row
 strips on cuda:0..P-1 (a ConfigError with fewer cards), or on the CPU
 with --cpu. Several strips on one card are asked for through the
@@ -25,7 +28,6 @@ import time
 # The JAX package's CLI options this one lacks, each with the ROADMAP item
 # that will port it: given, they exit non-zero naming it (ROADMAP fault 20)
 _NOT_PORTED_OPTIONS = (
-    ("--mms", dict(action="store_true"), "queue 1 item 8"),
     ("--constant-rain-rate", dict(type=float), "queue 1 item 5d"),
     ("--homogeneous-rain-file", dict(), "queue 1 item 5d"),
     ("--temporally-interpolate-rain", dict(action="store_true"),
@@ -46,6 +48,8 @@ def main(argv=None):
     ap.add_argument("--dt", type=float, default=None, help="override time step [config units]")
     ap.add_argument("--f32", action="store_true", help="force single precision")
     ap.add_argument("--f64", action="store_true", help="force double precision")
+    ap.add_argument("--mms", action="store_true",
+                    help="run as an MMS problem (like rdycore_mms)")
     ap.add_argument(
         "--output-dir", default=None,
         help="override output.directory (outputs normally land next to the "
@@ -75,7 +79,13 @@ def main(argv=None):
     if args.f64:
         cfg.numerics.precision = "double"
 
-    sim = Simulation(cfg, device="cpu" if args.cpu else None)
+    device = "cpu" if args.cpu else None
+    if args.mms:
+        from rdycore_tpu_torch.mms import MMSDriver
+
+        return 0 if MMSDriver(cfg, device=device).run() else 1
+
+    sim = Simulation(cfg, device=device)
     attach_output_monitors(sim)
     sim.log.info(
         f"mesh: {sim.mesh.num_cells} cells, {sim.mesh.num_edges} edges; "

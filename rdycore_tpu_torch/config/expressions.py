@@ -3,8 +3,24 @@
 The reference JIT-compiles YAML math expressions (ICs/BCs/materials/MMS
 solutions, functions of x, y, t) with muparser (yaml_input.c:1237-1330).
 Here we parse with Python's ast module against a whitelist and emit a
-closure over numpy: expressions are evaluated on the host, at cell
-centroids and boundary-edge midpoints, before values go to the device.
+closure over one of two function tables, both behind the one parser and
+validator:
+
+- "numpy" (the default): evaluated on the host, at cell centroids and
+  boundary-edge midpoints, before values go to the device (ICs, BCs,
+  materials);
+- "torch": evaluated on tensors where they lie, so the MMS driver
+  (`mms.py`) evaluates its analytic forcing inside the step loop, on the
+  card, at a time that is a 0-d device tensor (the JAX package traces its
+  jnp closure into the jitted loop). `if ... else` is `torch.where`, `%`
+  keeps Python's floor-mod (`torch.remainder`), cbrt is `ops/math.cbrt`
+  with the sign of its argument. A call whose arguments are all numbers
+  (a constant subexpression, or t given as a float) is taken by numpy's
+  table; a number beside a tensor in a call becomes a 0-d tensor of that
+  tensor's dtype on its device (a fill, not a host copy).
+
+In both, an expression of constants alone (e.g. "0") comes back as a
+Python number: the caller broadcasts it.
 
 Grammar: numbers, + - * / ** unary-, parentheses, the function set below,
 variables x/y/t, and user constants (single capital letters in MMS configs,
@@ -17,6 +33,9 @@ import ast
 from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
+import torch
+
+from ..ops.math import cbrt as _cbrt_nonneg
 
 _FUNCS = {
     "sin": np.sin,
@@ -46,6 +65,41 @@ _FUNCS = {
     "hypot": np.hypot,
 }
 
+
+
+def _torch_cbrt(x):
+    return torch.sign(x) * _cbrt_nonneg(torch.abs(x))
+
+
+_TORCH_FUNCS = {
+    "sin": torch.sin,
+    "cos": torch.cos,
+    "tan": torch.tan,
+    "asin": torch.asin,
+    "acos": torch.acos,
+    "atan": torch.atan,
+    "atan2": torch.atan2,
+    "sinh": torch.sinh,
+    "cosh": torch.cosh,
+    "tanh": torch.tanh,
+    "exp": torch.exp,
+    "log": torch.log,
+    "log2": torch.log2,
+    "log10": torch.log10,
+    "ln": torch.log,
+    "sqrt": torch.sqrt,
+    "cbrt": _torch_cbrt,
+    "abs": torch.abs,
+    "sign": torch.sign,
+    "min": torch.minimum,
+    "max": torch.maximum,
+    "floor": torch.floor,
+    "ceil": torch.ceil,
+    "pow": torch.pow,
+    "hypot": torch.hypot,
+}
+BACKENDS = ("numpy", "torch")
+
 _CONSTS = {"pi": np.pi, "e": np.e, "_pi": np.pi, "_e": np.e}
 
 _ALLOWED_BINOPS = (ast.Add, ast.Sub, ast.Mult, ast.Div, ast.Pow, ast.Mod)
@@ -61,12 +115,19 @@ def compile_expression(
     expr: str,
     constants: Optional[Mapping[str, float]] = None,
     variables: tuple = ("x", "y", "t"),
+    backend: str = "numpy",
 ) -> Callable:
-    """Compile an expression string to fn(x, y, t) (keyword-callable too).
+    """Compile an expression string to fn(x, y, t) (keyword-callable too)
+    over the `backend`'s function table ("numpy" or "torch").
 
     Missing trailing variables may be omitted at call time; they default
     to 0.0 (e.g. pure-spatial expressions evaluated without t).
+    `fn.names` is the set of variables the expression reads: one without
+    "t" gives the same values at every time.
     """
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown expression backend {backend!r} "
+                         f"(one of {BACKENDS})")
     constants = dict(constants or {})
     src = expr.replace("^", "**")
     try:
@@ -86,9 +147,16 @@ def compile_expression(
                 env[name] = kwargs[name]
             else:
                 env[name] = 0.0
-        return _eval(tree.body, env)
+        ref = None
+        if backend == "torch":
+            ref = next((env[n] for n in variables
+                        if isinstance(env[n], torch.Tensor)), None)
+        return _eval(tree.body, env, ref)
 
     fn.expression = expr  # type: ignore[attr-defined]
+    fn.names = frozenset(  # type: ignore[attr-defined]
+        n.id for n in ast.walk(tree.body)
+        if isinstance(n, ast.Name) and n.id in variables)
     return fn
 
 
@@ -140,14 +208,25 @@ def _validate(node, constants, variables, expr):
         )
 
 
-def _eval(node, env):
+def _as_tensor(v, ref):
+    """v, a number made a 0-d tensor of ref's dtype on its device (a fill:
+    no copy from the host)."""
+    if isinstance(v, torch.Tensor):
+        return v
+    return torch.full((), v, dtype=ref.dtype, device=ref.device)
+
+
+def _eval(node, env, ref=None):
+    """The value of node in env; ref is None over numpy, or a tensor among
+    the variables over torch (where numbers beside tensors take its dtype
+    and device)."""
     if isinstance(node, ast.Constant):
         return node.value
     if isinstance(node, ast.Name):
         return env[node.id]
     if isinstance(node, ast.BinOp):
-        a = _eval(node.left, env)
-        b = _eval(node.right, env)
+        a = _eval(node.left, env, ref)
+        b = _eval(node.right, env, ref)
         if isinstance(node.op, ast.Add):
             return a + b
         if isinstance(node.op, ast.Sub):
@@ -161,11 +240,11 @@ def _eval(node, env):
         if isinstance(node.op, ast.Mod):
             return a % b
     if isinstance(node, ast.UnaryOp):
-        v = _eval(node.operand, env)
+        v = _eval(node.operand, env, ref)
         return -v if isinstance(node.op, ast.USub) else +v
     if isinstance(node, ast.Compare):
-        a = _eval(node.left, env)
-        b = _eval(node.comparators[0], env)
+        a = _eval(node.left, env, ref)
+        b = _eval(node.comparators[0], env, ref)
         op = node.ops[0]
         if isinstance(op, ast.Lt):
             return a < b
@@ -179,10 +258,19 @@ def _eval(node, env):
             return a == b
         return a != b
     if isinstance(node, ast.IfExp):
-        return np.where(
-            _eval(node.test, env), _eval(node.body, env), _eval(node.orelse, env)
-        )
+        test = _eval(node.test, env, ref)
+        if ref is None:
+            return np.where(test, _eval(node.body, env, ref),
+                            _eval(node.orelse, env, ref))
+        if not isinstance(test, torch.Tensor):
+            return _eval(node.body if test else node.orelse, env, ref)
+        return torch.where(test, _as_tensor(_eval(node.body, env, ref), ref),
+                           _as_tensor(_eval(node.orelse, env, ref), ref))
     if isinstance(node, ast.Call):
-        f = _FUNCS[node.func.id]
-        return f(*[_eval(a, env) for a in node.args])
+        args = [_eval(a, env, ref) for a in node.args]
+        if ref is None:
+            return _FUNCS[node.func.id](*args)
+        if not any(isinstance(a, torch.Tensor) for a in args):
+            return float(_FUNCS[node.func.id](*args))
+        return _TORCH_FUNCS[node.func.id](*[_as_tensor(a, ref) for a in args])
     raise ExpressionError(f"unexpected node {type(node).__name__}")

@@ -1,11 +1,12 @@
 from .core import MAX_CELL_EDGES, Mesh, build_mesh, load_mesh_npz, save_mesh_npz
-from .generate import structured_quad, structured_tri
+from .generate import refine_uniform, structured_quad, structured_tri
 
 __all__ = [
     "MAX_CELL_EDGES",
     "Mesh",
     "build_mesh",
     "load_mesh_npz",
+    "refine_uniform",
     "save_mesh_npz",
     "structured_quad",
     "structured_tri",

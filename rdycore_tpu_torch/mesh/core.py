@@ -104,6 +104,21 @@ class Mesh:
         self.cell_centroid[:, 2] = z
         self.cell_z = z.copy()
 
+    def with_vertex_elevations(self, z: np.ndarray) -> "Mesh":
+        """A copy whose vertices lie at bed elevations z [NV], with the
+        geometry that reads them (centroid z, bed slopes, cell_z) made anew
+        as `build_mesh` makes it. The edges do not read z: the result
+        equals `build_mesh` on the new points, but for natural ids, which
+        stay, and the labels, which are not resolved again."""
+        points = self.points.copy()
+        points[:, 2] = np.asarray(z, dtype=np.float64)
+        cv, nv = self.cell_vertices, self.cell_num_vertices
+        _, centroids = _polygon_areas_centroids(points, cv, nv)
+        dz_dx, dz_dy = _cell_slopes(points, cv, nv, centroids)
+        return dataclasses.replace(
+            self, points=points, cell_centroid=centroids, cell_dz_dx=dz_dx,
+            cell_dz_dy=dz_dy, cell_z=_vertex_mean_z(points, cv, nv))
+
 
 def save_mesh_npz(mesh: "Mesh", path: str) -> None:
     """Save a mesh in the native .npz format (points + connectivity +
@@ -209,6 +224,15 @@ def _polygon_areas_centroids(points, cell_vertices, cell_num_vertices):
     with np.errstate(divide="ignore", invalid="ignore"):
         cz = zw / np.maximum(wsum, 1e-300) + zmean / 3.0
     return np.abs(areas), np.stack([cx, cy, cz], axis=1)
+
+
+def _vertex_mean_z(points, cell_vertices, cell_num_vertices):
+    """Vertex-averaged bed elevation of each cell (HR, swe_petsc.c:
+    1212-1224)."""
+    nv = cell_num_vertices.astype(np.float64)
+    vids = np.where(cell_vertices >= 0, cell_vertices, 0)
+    zmask = (cell_vertices >= 0).astype(np.float64)
+    return (points[vids, 2] * zmask).sum(axis=1) / nv
 
 
 def _triangle_xy_slopes(p0, p1, p2):
@@ -378,11 +402,7 @@ def build_mesh(
     dz_dx, dz_dy = _cell_slopes(
         points, cell_vertices, cell_num_vertices, centroids
     )
-    # vertex-averaged bed elevation (HR, swe_petsc.c:1212-1224)
-    nv = cell_num_vertices.astype(np.float64)
-    vids = np.where(cell_vertices >= 0, cell_vertices, 0)
-    zmask = (cell_vertices >= 0).astype(np.float64)
-    cell_z = (points[vids, 2] * zmask).sum(axis=1) / nv
+    cell_z = _vertex_mean_z(points, cell_vertices, cell_num_vertices)
 
     # --- edge extraction ---------------------------------------------------
     left, right, lslot, rslot = _extract_edges(

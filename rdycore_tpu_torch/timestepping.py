@@ -50,7 +50,7 @@ exactly like the reference (rdyadvance.c:303-343).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.autograd.forward_ad as fwAD
@@ -261,15 +261,27 @@ def newton_beuler_solve(F: Callable, F_lin: Callable, q: torch.Tensor,
 def make_interval_advancer(
     op: SWEOperator,
     scheme: str = TEMPORAL_EULER,
+    bc_fn: Optional[Callable] = None,
+    src_fn: Optional[Callable] = None,
     accumulate: bool = True,
     ext_sources: bool = True,
 ):
     """Build a function advancing one coupling interval.
 
+    bc_fn(t) -> [ndof, Eb] Dirichlet values (in the operator's segment
+    order) and src_fn(t) -> [ndof, C] external sources take the place of
+    the interval's bnd_values and ext_src, evaluated once a step at the
+    half-step time t + dt_i / 2 (dt_i the step's, already clamped to the
+    interval's end) and held over the step's stages: the MMS driver's
+    analytic forcing, as the reference re-applies it in a TS PreStep hook
+    (rdymms.c:139-151) and the JAX package inside its step loop
+    (timestepping.py:227-243). Each is called with a 0-d tensor on q's
+    device and must read nothing back to the host.
+
     accumulate=False drops the per-step time-averaged/boundary-flux
     accumulators; zero-valued ones are still returned for a stable result
     shape. ext_sources=False skips the external-source stream (the caller
-    guarantees it is zero).
+    guarantees it is zero; src_fn overrides it).
 
     Returns advance(q, t0, dt, n_steps, t_end, bnd_values, ext_src)
     -> IntervalResult, all of it on q's device.
@@ -311,24 +323,32 @@ def make_interval_advancer(
         asol = torch.zeros_like(q)
         aprim = torch.zeros_like(q)
         atime = torch.zeros((), dtype=dtype, device=dev)
+        bv = bnd_values
         es = ext_src if ext_sources else None
         qq = q
 
         for _ in range(int(n_steps)):
             dt_i = torch.clamp(torch.minimum(dt, t_end - tt), min=0.0)
+            if bc_fn is not None or src_fn is not None:
+                # the step's forcing, frozen across its stages
+                t_half = tt + 0.5 * dt_i
+                if bc_fn is not None:
+                    bv = bc_fn(t_half)
+                if src_fn is not None:
+                    es = src_fn(t_half)
             if stages is not None:
-                flux, courant = op.fluxes(qq, bnd_values, dt_i)
+                flux, courant = op.fluxes(qq, bv, dt_i)
                 op.courant_max(courant, dt_i, cmax, cedge)
                 out1 = op.cell_stage(flux, qq, dt_i, es, stage=stages[0],
                                      emit_prim=accumulate)
                 qs = out1.q_out
                 for coeffs in stages[1:]:
-                    flux_s, _ = op.fluxes(qs, bnd_values, dt_i)
+                    flux_s, _ = op.fluxes(qs, bv, dt_i)
                     qs = op.cell_stage(flux_s, qs, dt_i, es, stage=coeffs,
                                        qA=qq).q_out
                 fb, prim = flux[:, Ei:E], out1.prim
             else:
-                q_new, r1 = step(qq, tt, dt_i, bnd_values, es)
+                q_new, r1 = step(qq, tt, dt_i, bv, es)
                 step_courant = r1.max_courant_per_dt * dt_i
                 bigger = step_courant > cmax
                 cmax = torch.where(bigger, step_courant, cmax)

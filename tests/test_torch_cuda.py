@@ -1199,3 +1199,99 @@ def test_twin_jvp_on_the_card(dev, mesh, dtype):
         assert launches() == [0] * len(kernels.KERNELS)
     assert torch.isfinite(out[0]).all() and float(out[0].abs().max()) > 0
     assert rel(out[0], out[1]) <= TOL[dtype]
+
+
+def mms_level(dtype, dev, nx=32, ny=22, tri=False, **deck):
+    """An MMS level of the manufactured solution of tools/torch_mms_decks.py
+    (a Dirichlet BC on every wall, its values and the sources evaluated on
+    the card each step) on an nx x ny quad (or triangle) mesh."""
+    from rdycore_tpu_torch.mms import MMSProblem, setup_mms_level
+    from tools.torch_mms_decks import base_mesh, mms_deck
+
+    precision = "single" if dtype == torch.float32 else "double"
+    cfg = config_from_dict(mms_deck("unused.npz", 2e-3, 0.02, 0,
+                                    precision=precision, **deck)).validate()
+    return setup_mms_level(MMSProblem(cfg), base_mesh(nx, ny, tri), dtype,
+                           dev)
+
+
+@pytest.mark.parametrize("deck", [
+    dict(), dict(second_order=True, temporal="ssprk2"),
+    dict(num_sediment=2, riemann="upwind_roe"), dict(temporal="rk4")],
+    ids=["euler", "muscl ssprk2", "sediment", "rk4"])
+def test_mms_interval_reads_nothing_back(dev, deck):
+    """An MMS interval evaluates its Dirichlet values and sources on the
+    card at each step's half time and reads nothing back to the host: no
+    synchronizing CUDA call under torch.cuda.set_sync_debug_mode("warn")
+    (a first run outside the mode builds the kernels)."""
+    import warnings
+
+    level = mms_level(torch.float64, dev, **deck)
+    level.advance(n_steps=2)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = level.advance(n_steps=3)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = [f"{w.filename}:{w.lineno}: {w.message}" for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert not syncs, "\n".join(syncs)
+    assert torch.isfinite(res.q).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mms_kernels_match_plain(dev, dtype):
+    """K1a with every boundary edge Dirichlet (the analytic values at the
+    edge midpoints) and K1b in stage mode with the analytic sources on
+    every row and per-cell Manning values, on the 256x176 MMS level, each
+    against its plain version."""
+    level = mms_level(dtype, dev, 256, 176)
+    op, q = level.op, level.q0
+    a = op.arrays
+    assert a.mannings_n.std() > 0 and bool((a.bnd_code == 0).all())
+    t = torch.full((), 0.013, dtype=dtype, device=dev)
+    bv, es = level.bc_fn(t), level.src_fn(t)
+    assert bool((es.abs() > 0).all(dim=1).any())
+    flux, courant = op.edge_flux(q, bv)
+    fp, cp = swe_edge_flux_plain(a, q, bv, op.tiny_h, op.h_anuga)
+    assert rel(flux, fp) <= TOL[dtype] and rel(courant, cp) <= TOL[dtype]
+    dt = torch.full((), 2e-3, dtype=dtype, device=dev)
+    for stage in ((0.0, 1.0, 1.0), (0.5, 0.5, 0.5)):
+        got = op.cell_stage(fp, q, dt, es, stage=stage, qA=q,
+                            emit_prim=True)
+        want = swe_cell_stage_plain(
+            a, fp, q, dt, es, tiny_h=op.tiny_h, h_anuga=op.h_anuga,
+            xq2018_threshold=op.xq2018_threshold,
+            source_method=op.source_method, stage=stage, qA=q,
+            emit_prim=True)
+        assert rel(got.q_out, want.q_out) <= TOL[dtype]
+        assert rel(got.prim, want.prim) <= TOL[dtype]
+
+
+def test_mms_ladder_on_the_card_matches_the_cpu(dev, tmp_path):
+    """A 2-level first-order MMS ladder through `MMSDriver` on the card and
+    on the CPU: the norms of every level and the rates to 1e-10."""
+    from rdycore_tpu_torch.mesh import save_mesh_npz
+    from rdycore_tpu_torch.mms import MMSDriver
+    from tools.torch_mms_decks import base_mesh, mms_deck
+
+    save_mesh_npz(base_mesh(16, 11), str(tmp_path / "base.npz"))
+    cfg = config_from_dict(mms_deck(str(tmp_path / "base.npz"), 5e-3, 0.05,
+                                    1)).validate()
+    runs = {}
+    for where in (dev, "cpu"):
+        drv = MMSDriver(cfg, device=where)
+        drv.run(log=lambda *_: None)
+        runs[str(where)] = drv
+    card, cpu = runs[str(dev)], runs["cpu"]
+    for rc, rh in zip(card.results, cpu.results):
+        for norm in ("L1", "L2", "Linf"):
+            np.testing.assert_allclose(getattr(rc, norm), getattr(rh, norm),
+                                       rtol=1e-10, atol=0)
+    for norm in ("L1", "L2", "Linf"):
+        np.testing.assert_allclose(card.rates[norm], cpu.rates[norm],
+                                   rtol=0, atol=1e-10)

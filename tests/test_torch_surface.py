@@ -99,7 +99,6 @@ def test_unported_members_raise_naming_their_item(sim, name):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--mms"], "item 8"),
     (["--constant-rain-rate", "1e-6"], "item 5d"),
     (["--homogeneous-rain-file", "rain.bin"], "item 5d"),
     (["--temporally-interpolate-rain"], "item 5d"),
