@@ -188,6 +188,28 @@ Phases, each printing as it goes; any failure exits non-zero:
    factor fell below 1 in each quarter period of each MUSCL run, and the
    MUSCL path's kernels held and timed at its shapes.
 
+11. The coupler's path at full size: phase 3-4's mesh written once as an
+   .npz, the dam break with every wall reflecting and the floodplain dry
+   (f32, euler, dt 0.0005 s, coupling intervals of 10 steps) in a raster
+   and an unstructured deck. (a) The JAX package's unchanged C host
+   csrc/test_capi.c, compiled against the port's embedded C API
+   (rdycore_tpu_torch/capi/, `python3-config --embed`), on each deck for
+   40 steps with a binary checkpoint: its three OK lines, exact launches
+   (K2 and K1c, or K1a, K1b and K1c, once a step), the wall ms of a
+   coupling interval split by the bridge's host timers into set source,
+   advance and get fields, and the seconds to write and read the 69 MB
+   checkpoint. Where this machine cannot embed CPython, the same sequence
+   runs through capi_bridge in this process after a line "c_host: not
+   built (<reason>)". (b) Restart: 40 steps with `checkpoint.interval:
+   20` (`CheckpointMonitor` writes step 20 mid-run), then a run from that
+   file through `restart.file` to step 40, bit for bit in q, t and step,
+   on the raster, the raster in 4 strips on the one card and the mesh;
+   each C host path's kernels held against their plain versions and timed
+   at its shapes. (c) Regional Manning values and momentum sources (on the
+   wet reservoir) on the unstructured deck: 10 steps on the kernels
+   against the plain versions (2e-5, every row); `set_regional_manning_n` timed on both decks (the
+   raster rebuilds its backend).
+
 Before the last line it prints the card's name and power limit and a JSON
 line {"kernels": [...]} with one row per kernel and path ("path":
 "unstructured", "raster", "unstructured+tracers", "raster+tracers" (these
@@ -196,8 +218,9 @@ two with "nt": 3), "unstructured+muscl", "raster+muscl",
 "raster+strips4", "raster+strips4+tracers", "raster+strips4+muscl",
 "unstructured ark_imex", "unstructured beuler", "raster beuler", "raster
 beuler+muscl", "unstructured mms", "unstructured mms+muscl", "unstructured
-mms+sediment" or "unstructured thacker+muscl", these eight with
-"launches_per_step", phase 10's with "dtype": "float64"; a
+mms+sediment", "unstructured thacker+muscl", "coupler raster" or
+"coupler unstructured", these ten with "launches_per_step", phase 10's
+with "dtype": "float64", phase 11's with the C host's launches; a
 strip row names its strip [row0, rows, halo_lo, halo_hi]),
 each with that path's own launches, times and bound, and "timers" naming
 the timer of each time ("profiler", or "cuda events" where torch.profiler
@@ -324,6 +347,9 @@ MMS_DT, MMS_TRI_DT, MMS_SED_DT, MMS_STOP = 5e-4, 2e-4, 1e-3, 0.2
 # 10b, 10c and 10d: 2,883,584 quads, 1,441,792 triangles, 720,896 quads
 MMS_QUADS, MMS_TRIS, MMS_REFINE = (128, 88), (64, 44), (4, 4, 3)
 THACKER_N, THACKER_DT = 1696, 6.6e-4
+# phase 11: the C host's steps and coupling interval (in steps), and the
+# restart test's checkpoint step N of 2N
+COUPLER_STEPS, COUPLER_INTERVAL, RESTART_N = 40, 10, 20
 
 
 def log(*args):
@@ -3421,6 +3447,415 @@ def phase_mms(errs, dev):
     return rows
 
 
+# ----------------------------------------------------------------- phase 11
+def coupler_dict(steps, backend, work):
+    """The coupler's dam break (phases 3-4's mesh, reservoir, Manning and
+    dt): every wall reflecting and the floodplain dry, so that the C host's
+    1 um/s of rain lands on cells whose float32 depth holds it; coupling
+    intervals of COUPLER_INTERVAL steps; output (checkpoints) in `work`."""
+    d = dam_break_dict(steps, backend)
+    d["time"]["coupling_interval"] = COUPLER_INTERVAL * DT
+    d["output"] = {"format": "none", "directory": work}
+    d["grid"] = {"file": "coupler.npz"}
+    d["boundaries"], d["boundary_conditions"] = [], []
+    d["flow_conditions"] = [fc for fc in d["flow_conditions"]
+                            if fc["name"] != "outflow"]
+    d["flow_conditions"][1]["height"] = 0.0
+    return d
+
+
+def coupler_config(steps, backend, work, **extra):
+    from rdycore_tpu_torch.config.yaml_input import config_from_dict
+
+    d = coupler_dict(steps, backend, work)
+    d.update(extra)
+    return config_from_dict(d).validate()
+
+
+def c_host_run(host, deck, work, tag):
+    """The unchanged csrc/test_capi.c (or, where no host was built, the
+    same sequence through capi_bridge in this process) on `deck`: its three
+    OK lines, and the bridge's report (host seconds of each call, launches,
+    steps)."""
+    import os
+
+    ckpt = os.path.join(work, f"c_host_{tag}.bin")
+    onedof = os.path.join(work, f"c_host_{tag}_onedof.bin")
+    timings = os.path.join(work, f"c_host_{tag}.jsonl")
+    t0 = time.perf_counter()
+    if host is not None:
+        env = dict(os.environ, RDYTPU_TIMINGS=timings)
+        env.pop("RDYTPU_PLATFORM", None)
+        r = subprocess.run([host, deck, ckpt, onedof], capture_output=True,
+                           text=True, env=env, timeout=600)
+        out, code = r.stdout, r.returncode
+        if code != 0:
+            log(r.stderr[-4000:])
+    else:
+        out, code = bridge_sequence(deck, ckpt, onedof, timings)
+    wall = time.perf_counter() - t0
+    for line in out.splitlines():
+        log(f"  c_host {tag}: {line}")
+    ok = [line for line in out.splitlines() if line.startswith("OK:")]
+    if code != 0 or len(ok) != 3:
+        raise SystemExit(f"c_host on the {tag} deck: exit {code}, "
+                         f"{len(ok)} OK lines")
+    with open(timings) as f:
+        report = json.loads(f.read().splitlines()[-1])
+    return report, wall, os.path.getsize(ckpt)
+
+
+def bridge_sequence(deck, ckpt, onedof, timings):
+    """csrc/test_capi.c's sequence through capi_bridge in this process (for
+    a machine that cannot embed CPython): (stdout, exit code)."""
+    import os
+
+    from rdycore_tpu_torch import capi_bridge as b
+
+    os.environ["RDYTPU_TIMINGS"] = timings
+    lines = []
+    try:
+        h = b.create(deck)
+        n = b.num_cells(h)
+        area = np.frombuffer(b.get_cell_areas(h))
+        vol0 = float(np.sum(np.frombuffer(b.get_height(h)) * area))
+        rain, t_prev, intervals = np.full(n, 1e-6).tobytes(), -1.0, 0
+        while not b.finished(h):
+            b.set_domain_water_source(h, rain)
+            b.advance(h)
+            t = b.time(h)
+            hh = np.frombuffer(b.get_height(h))
+            hu = np.frombuffer(b.get_x_momentum(h))
+            if not (t > t_prev and np.isfinite(hh).all() and hh.min() >= 0
+                    and np.isfinite(hu).all()):
+                return "\n".join(lines), 1
+            t_prev, intervals = t, intervals + 1
+        vol1 = float(np.sum(hh * area))
+        lines.append(f"OK: {intervals} intervals, {b.step(h)} steps, "
+                     f"t={t_prev:g}, volume {vol0:g} -> {vol1:g}")
+        if not vol1 > vol0:
+            return "\n".join(lines), 1
+        b.write_checkpoint(h, ckpt)
+        b.read_checkpoint(h, ckpt)
+        if np.frombuffer(b.get_height(h)).tobytes() != hh.tobytes():
+            return "\n".join(lines), 1
+        lines.append("OK: checkpoint round-trip bitwise")
+        b.write_one_dof_vec(h, onedof, hh.tobytes())
+        q = b.get_solution(h)
+        b.set_initial_conditions(h, q)
+        if (b.read_one_dof_vec(h, onedof) != hh.tobytes()
+                or b.get_height(h) != np.frombuffer(q)[::3].tobytes()):
+            return "\n".join(lines), 1
+        lines.append("OK: one-DOF vec round-trip + set_initial_conditions")
+        b.destroy(h)
+    finally:
+        del os.environ["RDYTPU_TIMINGS"]
+    return "\n".join(lines), 0
+
+
+def coupler_rows(card, path, sim, launches, errs):
+    """The kernels of a coupler path at its shapes, on the final state of a
+    run of its deck, held against their plain versions and timed: K1a, K1b
+    in an euler stage with the primitives and K1c (unstructured), or K2 in
+    that stage and K1c on its tile maxima (raster); the rows of `path`."""
+    from rdycore_tpu_torch.ops.kernels.cell_stage import swe_cell_stage_plain
+    from rdycore_tpu_torch.ops.kernels.courant import courant_argmax_plain
+    from rdycore_tpu_torch.ops.kernels.edge_flux import swe_edge_flux_plain
+    from rdycore_tpu_torch.ops.kernels.raster_step import swe_raster_step_plain
+
+    q = sim.q.to(torch.float32)
+    s, dev = q.element_size(), q.device
+    dt = torch.tensor(DT, dtype=q.dtype, device=dev)
+    stage = dict(stage=(0.0, 1.0, 1.0), emit_prim=True)
+    run = (torch.zeros((), dtype=q.dtype, device=dev),
+           torch.zeros((), dtype=torch.int32, device=dev))
+    replaces = REPLACES
+    if sim._structured is None:
+        op, bv = sim.operator, sim.boundary_values
+        a = op.arrays
+        kw = dict(tiny_h=op.tiny_h, h_anuga=op.h_anuga,
+                  xq2018_threshold=op.xq2018_threshold,
+                  source_method=op.source_method)
+        flux, courant = op.edge_flux(q, bv)
+        fp, cp = swe_edge_flux_plain(a, q, bv, op.tiny_h, op.h_anuga)
+        ok_ = op.cell_stage(flux, q, dt, None, **stage)
+        op_ = swe_cell_stage_plain(a, flux, q, dt, None, **kw, **stage)
+        values = courant
+        pairs = {"swe_edge_flux": [(flux, fp), (courant, cp)],
+                 "swe_cell_stage": [(ok_.q_out, op_.q_out),
+                                    (ok_.prim, op_.prim)]}
+        calls = {
+            "swe_edge_flux": (
+                lambda: op.edge_flux(q, bv),
+                lambda: swe_edge_flux_plain(a, q, bv, op.tiny_h, op.h_anuga),
+                None),
+            "swe_cell_stage": (
+                lambda: op.cell_stage(flux, q, dt, None, **stage),
+                lambda: swe_cell_stage_plain(a, flux, q, dt, None, **kw,
+                                             **stage), None)}
+        nbytes = kernel_bytes(op, q.numel() * s, s)
+        nops = {"swe_edge_flux": OPS_PER_EDGE * op.num_edges,
+                "swe_cell_stage": OPS_PER_CELL * op.num_cells}
+    else:
+        op = sim._structured["op"]
+        geo = (op.dz_dx, op.dz_dy, op.mannings_n)
+        got = op.step(q, dt, **stage)
+        want = swe_raster_step_plain(op.plan, q, *geo, dt, **stage)
+        values = got.cmax
+        pairs = {"swe_raster_step": list(zip(got, want))}
+        calls = {"swe_raster_step": (
+            lambda: op.step(q, dt, **stage),
+            lambda: swe_raster_step_plain(op.plan, q, *geo, dt, **stage),
+            None)}
+        C = q.shape[1]
+        nbytes = {"swe_raster_step": raster_step_bytes(C, 3, values.numel(),
+                                                       s)}
+        nops = {"swe_raster_step": OPS_PER_RASTER_CELL * C}
+        replaces = dict(REPLACES, courant_argmax=REPLACES["swe_raster_step"])
+    mk, ik = op.courant_max(values, dt, *run)
+    mp, ip = courant_argmax_plain(values)
+    rel = {k: max(rel_err(g, w) for g, w in v) for k, v in pairs.items()}
+    err = {k: max(abs_err(g, w) for g, w in v) for k, v in pairs.items()}
+    err["courant_argmax"] = abs(float(mk) - float(mp))
+    exact = float(mk) == float(mp) and int(ik) == int(ip)
+    log(f"  full-size kernels vs plain on the {path} path (relative): {rel};"
+        f" Courant fold {'exact' if exact else 'DIFFERS'}")
+    if not (exact and all(v <= TOL[q.dtype] for v in rel.values())):
+        raise SystemExit(f"full-size {path} kernel check failed")
+    run = (torch.zeros((), dtype=q.dtype, device=dev),
+           torch.zeros((), dtype=torch.int32, device=dev))
+    calls["courant_argmax"] = (lambda: op.courant_max(values, dt, *run),
+                               lambda: courant_argmax_plain(values, dt, *run),
+                               lambda: torch.max(values, 0))
+    nbytes["courant_argmax"] = courant_bytes(values.numel(), s)
+    nops["courant_argmax"] = OPS_PER_VALUE * values.numel()
+    return [kernel_row(card, name, path, fns, launches[name],
+                       max(err[name], errs.get(name, 0.0)), nbytes[name],
+                       nops[name], q.dtype, replaces, launches_per_step=1)
+            for name, fns in calls.items()]
+
+
+def restart_equivalence(tag, backend, dev, mesh, work, per_step,
+                        strips=None):
+    """Run A: 2N steps with checkpoint.interval N (`CheckpointMonitor`
+    writes step N mid-run); run B: restart.file from that checkpoint to
+    step 2N. B must end bit for bit where A does (q, t, step), and A launch
+    each kernel per_step times a step (per strip). Returns run A, its
+    launches and the seconds of A's setup and run, and B's."""
+    import os
+
+    from rdycore_tpu_torch import Simulation
+    from rdycore_tpu_torch.io.writers import attach_output_monitors
+    from rdycore_tpu_torch.ops import kernels
+
+    def make(**extra):
+        cfg = coupler_config(2 * RESTART_N, backend, work, **extra)
+        if strips:
+            cfg.parallel.n_devices = strips
+        return Simulation(cfg, mesh=mesh, device=dev,
+                          strip_devices=[dev] * strips if strips else None)
+
+    prefix = f"restart_{tag.replace(' ', '_')}"
+    t0 = time.perf_counter()
+    a = make(checkpoint={"format": "binary", "interval": RESTART_N,
+                         "prefix": prefix})
+    attach_output_monitors(a)
+    kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    a.run()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    check_launches(f"coupler {tag} run A ({2 * RESTART_N} steps)", launches,
+                   {k: n * (strips or 1) * 2 * RESTART_N
+                    for k, n in per_step.items()})
+    ckpt = os.path.join(work, f"{prefix}.rdycore.r.{RESTART_N:04d}.bin")
+    t3 = time.perf_counter()
+    b = make(restart={"file": ckpt})
+    t4 = time.perf_counter()
+    if not (b.restarted and b.step == RESTART_N):
+        raise SystemExit(f"{tag}: the restart is at step {b.step}")
+    b.run()
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    same = (a.step == b.step == 2 * RESTART_N and a.t == b.t
+            and torch.equal(a.q, b.q))
+    log(f"  coupler {tag}: run A {2 * RESTART_N} steps with a mid-run "
+        f"checkpoint at step {RESTART_N} (setup {t1 - t0:.2f} s, run "
+        f"{t2 - t1:.3f} s); run B from {os.path.basename(ckpt)} (setup and "
+        f"restore {t4 - t3:.2f} s, run {t5 - t4:.3f} s); B against A (q, t "
+        f"{b.t!r}, step {b.step}): {'bit for bit' if same else 'DIFFERENT'}")
+    if not same:
+        raise SystemExit(f"coupler {tag}: the restart differs from run A")
+    del b
+    return a, launches
+
+
+def phase_coupler(errs, dev, mesh):
+    """Phase 11: the coupler's path at full size. (a) The JAX package's
+    unchanged C host csrc/test_capi.c linked against the port's embedded C
+    API (rdycore_tpu_torch/capi/) on the raster and the unstructured deck:
+    its OK lines, exact launches, the host ms of each part of a coupling
+    interval and the seconds to write and read the binary checkpoint. (b)
+    Restart from a mid-run checkpoint bit for bit on the raster, the raster
+    in 4 strips on the one card and the unstructured mesh. (c) The regional
+    Manning and momentum setters on the unstructured deck: 10 steps on the
+    kernels against the plain versions; `set_regional_manning_n` timed on
+    the raster, whose Manning plane it rebuilds."""
+    import os
+    import shutil
+
+    from rdycore_tpu_torch.capi import build
+    from rdycore_tpu_torch.mesh import save_mesh_npz
+
+    card = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "output",
+                        "chip_smoke_coupler")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    log(f"== phase 11: the coupler's path, dam break on {mesh.num_cells:,} "
+        f"cells (every wall reflecting, dry floodplain), f32, euler, dt {DT} "
+        f"s, coupling intervals of {COUPLER_INTERVAL} steps")
+    t0 = time.perf_counter()
+    save_mesh_npz(mesh, os.path.join(work, "coupler.npz"))
+    log(f"  mesh written once as .npz in {time.perf_counter() - t0:.2f} s")
+    decks = {}
+    for tag, backend in (("raster", "fused_structured"),
+                         ("unstructured", "xla")):
+        decks[tag] = os.path.join(work, f"coupler_{tag}.yaml")
+        with open(decks[tag], "w") as f:  # JSON is YAML
+            json.dump(coupler_dict(COUPLER_STEPS, backend, work), f)
+
+    log("== phase 11a: the unchanged C host csrc/test_capi.c against the "
+        "port's embedded C API")
+    host = None
+    try:
+        cflags, ldflags = build.embed_flags()
+        log(f"  {build.python_config()} --embed: {' '.join(cflags)} | "
+            f"{' '.join(ldflags)}; sys.prefix {sys.prefix} (base "
+            f"{sys.base_prefix})")
+        t0 = time.perf_counter()
+        host = build.build_host(os.path.join("csrc", "test_capi.c"))
+        log(f"  built the shim and the host in {time.perf_counter() - t0:.2f}"
+            f" s: {host}")
+    except build.EmbedUnavailable as e:
+        log(f"c_host: not built ({e}); the same sequence runs through "
+            "capi_bridge in this process")
+    torch.cuda.empty_cache()  # room for the host's own process
+    per_step = {"raster": {"swe_raster_step": 1, "courant_argmax": 1},
+                "unstructured": {"swe_edge_flux": 1, "swe_cell_stage": 1,
+                                 "courant_argmax": 1}}
+    c_host = {}
+    for tag in ("raster", "unstructured"):
+        report, wall, size = c_host_run(host, decks[tag], work, tag)
+        tm = report["timers"]
+        n = len(tm["advance"])
+        mean_ms = {k: 1e3 * sum(v) / len(v) for k, v in tm.items()}
+        split = {
+            "set_source_ms": mean_ms["set_domain_water_source"],
+            "advance_ms": mean_ms["advance"],
+            "advance_ms_after_the_first": 1e3 * sum(tm["advance"][1:])
+            / max(n - 1, 1),
+            "get_fields_ms": mean_ms["get_height"]
+            + mean_ms["get_x_momentum"],
+        }
+        c_host[tag] = dict(split, intervals=n, wall_s=wall,
+                           checkpoint_bytes=size,
+                           write_checkpoint_s=tm["write_checkpoint"][0],
+                           read_checkpoint_s=tm["read_checkpoint"][0],
+                           python=report["python"])
+        log(f"  [{card}] c_host {tag}: {n} coupling intervals of "
+            f"{COUPLER_INTERVAL} steps, wall ms per interval: set source "
+            f"{split['set_source_ms']:.3f}, advance {split['advance_ms']:.3f}"
+            f" ({split['advance_ms_after_the_first']:.3f} after the first), "
+            f"get fields (h, hu) {split['get_fields_ms']:.3f}; checkpoint of "
+            f"{size:,} bytes written in {tm['write_checkpoint'][0]:.3f} s, "
+            f"read in {tm['read_checkpoint'][0]:.3f} s; the host process "
+            f"{wall:.2f} s; embedded Python {report['python']}")
+        check_launches(f"c_host {tag} ({report['steps']} steps)",
+                       report["launches"],
+                       {k: v * report["steps"]
+                        for k, v in per_step[tag].items()})
+        c_host[tag]["launches"] = report["launches"]
+    log(f"  [{card}] c_host: {json.dumps(c_host)}")
+
+    log(f"== phase 11b: restart from a mid-run checkpoint, bit for bit "
+        f"({2 * RESTART_N} steps, checkpoint at {RESTART_N})")
+    rows = []
+    for tag, backend, strips in (("raster", "fused_structured", None),
+                                 (f"raster+strips{STRIPS}",
+                                  "fused_structured", STRIPS),
+                                 ("unstructured", "xla", None)):
+        key = tag.split("+")[0]
+        sim, _ = restart_equivalence(tag, backend, dev, mesh, work,
+                                     per_step[key], strips)
+        if strips is None:  # the rows of the C host's paths, its launches
+            rows += coupler_rows(card, f"coupler {tag}", sim,
+                                 c_host[tag]["launches"], errs)
+        del sim
+
+    log("== phase 11c: regional Manning and momentum sources on the "
+        "unstructured deck, 10 steps against the plain versions")
+    from rdycore_tpu_torch import Simulation
+
+    def setters(sim):
+        """Manning values on the floodplain; momentum sources on the wet
+        reservoir only: on a dry cell (h = 0) a source makes momentum
+        without depth, whose float32 rounding the next steps amplify
+        (1e-3 of the row between f32 and f64 on the CPU, kernels or not),
+        and a y source of 2 m^2/s^2 keeps the hv row well above the
+        rounding of the dam break's fluxes."""
+        n = sim.num_cells
+        rng = np.random.default_rng(11)
+        sim.set_regional_manning_n("floodplain",
+                                   rng.uniform(0.01, 0.05, n // 2))
+        sim.set_regional_momentum_source("reservoir", 0, 0.02)
+        hv_src = np.linspace(-2.0, 2.0, n)
+        hv_src[sim.region_cells["floodplain"]] = 0.0
+        sim.set_momentum_source(2, hv_src)
+
+    runs = []
+    for plain in (False, True):
+        sim = Simulation(coupler_config(10, "xla", work), mesh=mesh,
+                         device=dev)
+        if plain:
+            sim.operator = plain_operator(sim.operator)
+        setters(sim)
+        sim.run()
+        runs.append(sim)
+    torch.cuda.synchronize()
+    worst = rows_rel_err(runs[0].q, runs[1].q)
+    moved = float((runs[0].q[2] != 0).float().mean())  # the reservoir
+    log(f"  10 steps with the setters, kernels vs plain versions (worst row, "
+        f"relative): {worst:.3e} (tolerance {TOL[torch.float32]}); share of "
+        f"cells with hv != 0: {moved:.3f}")
+    if not (worst <= TOL[torch.float32] and runs[0].step == 10
+            and moved >= 0.5):
+        raise SystemExit("coupler setters: the kernels differ from plain")
+    del runs
+    for tag, backend in (("raster", "fused_structured"),
+                         ("unstructured", "xla")):
+        sim = Simulation(coupler_config(10, backend, work), mesh=mesh,
+                         device=dev)
+        times = []
+        for k in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sim.set_regional_manning_n("floodplain", 0.02 + 0.01 * k)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        sim.run()
+        if not np.isfinite(sim.get_solution()).all():
+            raise SystemExit(f"coupler {tag}: not finite after the setter")
+        log(f"  [{card}] set_regional_manning_n on the {tag} deck: "
+            + ", ".join(f"{1e3 * t:.2f}" for t in times) + " ms (3 calls)")
+        del sim
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"  [{card}] phase 11: {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -3448,6 +3883,7 @@ def main():
     rows += phase_wb(args.steps, errs, dev, wb_mesh())
     rows += phase_strips(args.steps, dev, mesh)
     rows += phase_implicit(errs, dev, mesh)
+    rows += phase_coupler(errs, dev, mesh)
     del mesh
     rows += phase_mms(errs, dev)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -4,14 +4,16 @@
 Usage:
     python -m rdycore_tpu_torch <config.yaml> [--cpu] [--dt SECONDS]
                                 [--f32|--f64] [--output-dir DIR] [--mms]
+                                [--pause]
 
 It runs on the CUDA device, or with --cpu on the CPU (the kernels' plain
 PyTorch versions). With --mms the deck's `mms` section runs as the
 reference's rdycore_mms does (`mms.MMSDriver`): its error norms, or its
 convergence rates against their thresholds, exiting 0 on PASS and 1 on
-FAIL. The JAX package's options for forcing datasets, AMR and --pause are
-accepted and exit with status 2, naming the ROADMAP item that will port
-them. Without a CUDA device and without --cpu it fails. A
+FAIL. With --pause it prints its process id and waits for Enter before
+setup (to attach a debugger, the reference's -pause). The JAX package's
+options for forcing datasets and AMR are accepted and exit with status 2,
+naming the ROADMAP item that will port them. Without a CUDA device and without --cpu it fails. A
 fused_structured deck with parallel.n_devices = P > 1 runs in P row
 strips on cuda:0..P-1 (a ConfigError with fewer cards), or on the CPU
 with --cpu. Several strips on one card are asked for through the
@@ -37,7 +39,6 @@ _NOT_PORTED_OPTIONS = (
      "queue 1 item 5d"),
     ("--amr-dataset-dir", dict(), "queue 1 item 14"),
     ("--amr-area-threshold", dict(type=float), "queue 1 item 14"),
-    ("--pause", dict(action="store_true"), "queue 1 item 18"),
 )
 
 
@@ -50,6 +51,10 @@ def main(argv=None):
     ap.add_argument("--f64", action="store_true", help="force double precision")
     ap.add_argument("--mms", action="store_true",
                     help="run as an MMS problem (like rdycore_mms)")
+    ap.add_argument(
+        "--pause", action="store_true",
+        help="print the process id and wait for Enter (to attach a "
+             "debugger; the reference's -pause, rdysetup.c:1292-1332)")
     ap.add_argument(
         "--output-dir", default=None,
         help="override output.directory (outputs normally land next to the "
@@ -68,6 +73,11 @@ def main(argv=None):
     from rdycore_tpu_torch.config.yaml_input import load_config
     from rdycore_tpu_torch.io.writers import attach_output_monitors
     from rdycore_tpu_torch.simulation import Simulation
+
+    if args.pause:
+        print(f"rdycore_tpu_torch pid: {os.getpid()} -- press Enter to "
+              "continue", flush=True)
+        input()
 
     cfg = load_config(args.config)
     if args.output_dir is not None:

@@ -18,13 +18,17 @@ src/rdyadvance.c):
         sim.advance()                           #   RDyAdvance(rdy)
 
 plus the E3SM-style coupling surface (src/rdydata.c): get/set arrays in
-natural cell order between coupling intervals.
+natural cell order between coupling intervals, and checkpoints and
+restart (io/checkpoint.py: `checkpoint.interval`, `restart.file`,
+`write_checkpoint`/`read_checkpoint`).
 
 It runs on the CUDA device unless built with device="cpu". Every feature
-outside these paths, and every public member of the JAX package's
-Simulation that this one lacks, raises NotImplementedError naming the
-ROADMAP item that will port it, or the JAX package's own ConfigError where
-that package refuses it too; nothing degrades silently.
+outside these paths, and `rebuild_on_mesh`, the one public member of the
+JAX package's Simulation that this one lacks, raises NotImplementedError
+naming the ROADMAP item that will port it, or the JAX package's own
+ConfigError where that package refuses it too; what needs h5py where it is
+absent is a ConfigError naming h5py (io/hdf5.py); nothing degrades
+silently.
 """
 
 from __future__ import annotations
@@ -39,9 +43,12 @@ import torch
 
 from .config.expressions import compile_expression
 from .config.schema import Config, ConfigError, time_from_seconds, time_to_seconds
+from .config.yaml_input import load_config
 from .constants import N_FLOW_DOF
 from .device import DeviceLike, device_name, resolve_device
-from .io.petsc_binary import read_petsc_vec
+from .io.checkpoint import restore_from_checkpoint, write_checkpoint
+from .io.hdf5 import check_hdf5
+from .io.petsc_binary import read_petsc_vec, write_petsc_vec
 from .logging_ import Logger
 from .mesh.core import Mesh, load_mesh_npz
 from .operator import SWEOperator, build_operator
@@ -103,9 +110,12 @@ def _stub(name: str, item: str, kind=None):
     return kind(stub) if kind else stub
 
 
-_COUPLING = "queue 1 item 18 (the rest of the coupling surface)"
-_CHECKPOINTS = "queue 1 item 5b (checkpoints, restart, HDF5 output)"
 _AMR = "queue 1 item 14"
+
+# the public RDyConditionType of each BC code (include/rdycore.h:133-139:
+# dirichlet 0, neumann 1, reflecting 2, critical-outflow 3, runoff 4)
+_PUBLIC_BC_TYPES = {bc_mod.BC_DIRICHLET: 0, bc_mod.BC_REFLECTING: 2,
+                    bc_mod.BC_CRITICAL_OUTFLOW: 3}
 
 
 def num_tracers(config: Config) -> int:
@@ -166,9 +176,6 @@ def check_slice(config: Config) -> None:
                     "queue 1 item 5c (mesh readers and RCM ordering)")
     if config.ensemble.size:
         _not_ported("ensembles", "queue 1 item 14")
-    if config.restart.file or config.checkpoint.interval:
-        _not_ported("checkpoints and restart",
-                    "queue 1 item 5b (checkpoints, restart, HDF5 output)")
     refuse_on_path(config, path_of(config))
 
 
@@ -250,6 +257,7 @@ class Simulation:
         strip_devices: Optional[List[DeviceLike]] = None,
     ):
         check_slice(config)
+        check_hdf5(config)
         self.device = resolve_device(device)
         self.strip_devices = strip_devices
         self.config = config
@@ -445,6 +453,7 @@ class Simulation:
         intervals = [
             i
             for i in (
+                config.checkpoint.interval,
                 config.output.output_interval
                 if config.output.format != "none"
                 else 0,
@@ -463,9 +472,28 @@ class Simulation:
 
         self.log_domain_statistics()
 
+        # ---- restart (checkpoint.c:259-317) ----
+        if config.restart.file:
+            restore_from_checkpoint(
+                self, config.resolve_path(config.restart.file),
+                config.restart.reinitialize)
+            self.log.info(
+                f"restarted from {config.restart.file} at t = {self.t:.6g} "
+                f"s, step {self.step}")
+
+    @classmethod
+    def from_file(cls, path: str, device: DeviceLike = None,
+                  **overrides) -> "Simulation":
+        """RDyCreate + RDySetup from a YAML deck (`overrides`: dotted config
+        keys to replace)."""
+        return cls(load_config(path, overrides or None), device=device)
+
     # ------------------------------------------------------------- setup bits
     def _tensor(self, x) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x), dtype=self.dtype, device=self.device)
+        """x on the device in the simulation's dtype, C-contiguous (the
+        kernels take nothing else)."""
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=self.dtype,
+                               device=self.device)
 
     def _eval_cells(self, value, cells, t: float = 0.0) -> np.ndarray:
         """Evaluate a number-or-expression at cell centroids."""
@@ -972,42 +1000,8 @@ class Simulation:
         """RDyPerformAMR: adaptive mesh refinement is not ported."""
         _not_ported("adaptive mesh refinement", "queue 1 item 14")
 
-    # ---- the JAX Simulation's members not ported yet (ROADMAP fault 20) ----
+    # ---- the JAX Simulation's member not ported yet (ROADMAP fault 20) ----
     rebuild_on_mesh = _stub("rebuild_on_mesh", _AMR)
-    write_checkpoint = _stub("write_checkpoint", _CHECKPOINTS)
-    read_checkpoint = _stub("read_checkpoint", _CHECKPOINTS)
-    restarted = _stub("restarted", _CHECKPOINTS, property)
-    from_file = _stub("from_file", _COUPLING, classmethod)
-    set_momentum_source = _stub("set_momentum_source", _COUPLING)
-    set_regional_momentum_source = _stub("set_regional_momentum_source",
-                                         _COUPLING)
-    set_regional_manning_n = _stub("set_regional_manning_n", _COUPLING)
-    boundary_names = _stub("boundary_names", _COUPLING, property)
-    get_num_boundary_conditions = _stub("get_num_boundary_conditions",
-                                        _COUPLING)
-    get_boundary_id = _stub("get_boundary_id", _COUPLING)
-    get_boundary_condition_flow_type = _stub(
-        "get_boundary_condition_flow_type", _COUPLING)
-    get_boundary_edge_centers = _stub("get_boundary_edge_centers", _COUPLING)
-    get_boundary_edge_centroids = _stub("get_boundary_edge_centroids",
-                                        _COUPLING)
-    get_boundary_cells = _stub("get_boundary_cells", _COUPLING)
-    get_boundary_cell_centroids = _stub("get_boundary_cell_centroids",
-                                        _COUPLING)
-    get_boundary_cell_natural_ids = _stub("get_boundary_cell_natural_ids",
-                                          _COUPLING)
-    get_num_global_cells = _stub("get_num_global_cells", _COUPLING)
-    convert_time = _stub("convert_time", _COUPLING, staticmethod)
-    get_time_unit = _stub("get_time_unit", _COUPLING)
-    get_version = _stub("get_version", _COUPLING)
-    set_log_file = _stub("set_log_file", _COUPLING)
-    get_build_configuration = _stub("get_build_configuration", _COUPLING)
-    create_prognostic_array = _stub("create_prognostic_array", _COUPLING)
-    create_one_dof_array = _stub("create_one_dof_array", _COUPLING)
-    read_one_dof_vec_from_binary = _stub("read_one_dof_vec_from_binary",
-                                         _COUPLING)
-    write_one_dof_vec_to_binary = _stub("write_one_dof_vec_to_binary",
-                                        _COUPLING)
 
     # ------------------------------------------------------------- coupling API
     # The E3SM-style get/set surface (src/rdydata.c), arrays in natural
@@ -1097,6 +1091,29 @@ class Simulation:
         src[0, self.region_cells[region]] = rate
         self._update_ext_src(src)
 
+    def set_momentum_source(self, comp: int, rate: np.ndarray | float):
+        """A momentum source on every cell into state row `comp` (1 = x
+        momentum, 2 = y momentum), as the JAX package's setter indexes it."""
+        if comp not in (1, 2):
+            raise ValueError(f"comp {comp}: the momentum rows are 1 and 2")
+        src = self.ext_src.cpu().numpy().copy()
+        src[comp, :] = rate
+        self._update_ext_src(src)
+
+    def set_regional_momentum_source(self, region: str, comp: int, rate):
+        """RDySetRegional{X,Y}MomentumSource: comp 0 = x momentum, 1 = y."""
+        if comp not in (0, 1):
+            raise ValueError(f"comp {comp}: 0 (x momentum) or 1 (y momentum)")
+        src = self.ext_src.cpu().numpy().copy()
+        src[1 + comp, self.region_cells[region]] = rate
+        self._update_ext_src(src)
+
+    def set_regional_manning_n(self, region: str, values):
+        """RDySetRegionalManningsN: Manning's n on one region's cells."""
+        n = self.mannings_n.copy()
+        n[self.region_cells[region]] = values
+        self.set_manning_n(n)
+
     def set_flow_dirichlet_boundary_values(
         self, boundary: str, values: np.ndarray
     ):
@@ -1173,12 +1190,136 @@ class Simulation:
     def set_coupling_interval(self, value: float, unit: Optional[str] = None):
         self.coupling_interval = time_to_seconds(value, unit or self.time_unit)
 
+    @staticmethod
+    def convert_time(value: float, unit_from: str, unit_to: str) -> float:
+        """RDyConvertTime (rdyadvance.c:427-432)."""
+        return time_from_seconds(time_to_seconds(value, unit_from), unit_to)
+
+    def get_time_unit(self) -> str:
+        """RDyGetTimeUnit: the deck's time unit."""
+        return self.time_unit
+
+    # ---- version, build and logging (src/rdycore.c, rdysetup.c:1282) ----
+    def get_version(self) -> str:
+        """RDyGetVersion."""
+        from . import __version__
+
+        return __version__
+
+    def get_build_configuration(self) -> str:
+        """RDyGetBuildConfiguration: the package's version, torch's, the
+        device and the dtype."""
+        from . import __version__
+
+        return (f"rdycore_tpu_torch {__version__} (torch {torch.__version__}, "
+                f"device {self.device} ({device_name(self.device)}), dtype "
+                f"{str(self.dtype).removeprefix('torch.')})")
+
+    def set_log_file(self, path: str):
+        """RDySetLogFile: the leveled log goes to `path` from now on."""
+        self.log.close()
+        self.log = Logger(self.config.logging.level, path)
+
+    # ---- checkpoints (RDyWrite/ReadHDF5CheckpointFile, src/checkpoint.c) ----
+    def write_checkpoint(self, path: str):
+        """The state in natural order and {t, dt, step}: `.bin` PETSc
+        binary, else HDF5 (which needs h5py)."""
+        write_checkpoint(self, path)
+
+    def read_checkpoint(self, path: str, reinitialize: bool = False):
+        """Restore the state, and unless `reinitialize` {t, dt, step}."""
+        restore_from_checkpoint(self, path, reinitialize)
+
+    @property
+    def restarted(self) -> bool:
+        """RDyRestarted: whether the deck restarts from a checkpoint."""
+        return bool(self.config.restart.file)
+
+    # ---- arrays shaped like the state, and one-DOF files (rdydata.c) ----
+    def create_prognostic_array(self) -> np.ndarray:
+        """RDyCreatePrognosticVec: zeros [ndof, num_cells]."""
+        return np.zeros((self.ndof, self.mesh.num_cells))
+
+    def create_one_dof_array(self) -> np.ndarray:
+        """RDyCreateOneDOFGlobalVec: zeros [num_cells]."""
+        return np.zeros(self.mesh.num_cells)
+
+    def read_one_dof_vec_from_binary(self, path: str) -> np.ndarray:
+        """RDyReadOneDOFGlobalVecFromBinaryFile (rdydata.c:583-633): a
+        naturally ordered per-cell PETSc binary Vec, in the simulation's cell
+        order."""
+        data = read_petsc_vec(path)
+        if data.size != self.mesh.num_cells:
+            raise ValueError(f"{path}: expected {self.mesh.num_cells} "
+                             f"values, got {data.size}")
+        return data[self.mesh.natural_ids]
+
+    def write_one_dof_vec_to_binary(self, path: str, values: np.ndarray):
+        """RDyWriteOneDOFGlobalVecToBinaryFile (rdydata.c:559-580): per-cell
+        values (simulation cell order) as a naturally ordered PETSc binary
+        Vec."""
+        values = np.asarray(values, dtype=np.float64)
+        if values.shape != (self.mesh.num_cells,):
+            raise ValueError(f"expected shape ({self.mesh.num_cells},), got "
+                             f"{values.shape}")
+        natural = np.empty_like(values)
+        natural[self.mesh.natural_ids] = values
+        write_petsc_vec(path, natural)
+
     # ---- boundary metadata (RDyGetNumBoundaryEdges) ----
     def _segment(self, boundary: str):
         return {s.name: s for s in self.operator.segments}[boundary]
 
     def get_num_boundary_edges(self, boundary: str) -> int:
         return self._segment(boundary).count
+
+    @property
+    def boundary_names(self) -> List[str]:
+        """The boundaries in operator order, the implicit reflecting wall
+        (`__auto_reflecting__`) included."""
+        return [s.name for s in self.operator.segments]
+
+    def get_num_global_cells(self) -> int:
+        """RDyGetNumGlobalCells."""
+        return self.mesh.num_cells
+
+    def get_num_boundary_conditions(self) -> int:
+        """RDyGetNumBoundaryConditions (rdydata.c:18)."""
+        return len(self.operator.segments)
+
+    def get_boundary_id(self, boundary: str) -> int:
+        """RDyGetBoundaryID (rdydata.c:434): the mesh's id of a named
+        boundary; -1 for the implicit reflecting wall."""
+        for b in self.config.boundaries:
+            if b.name == boundary:
+                return b.grid_boundary_id
+        self._segment(boundary)  # KeyError for a name that is no boundary
+        return -1
+
+    def get_boundary_condition_flow_type(self, boundary: str) -> int:
+        """RDyGetBoundaryConditionFlowType: the public RDyConditionType."""
+        return _PUBLIC_BC_TYPES[self._segment(boundary).bc_type]
+
+    def get_boundary_edge_centers(self, boundary: str) -> np.ndarray:
+        """[n, 2] midpoints of the boundary's edges."""
+        seg = self._segment(boundary)
+        return self._bnd_centers[seg.start : seg.start + seg.count]
+
+    def get_boundary_edge_centroids(self, boundary: str) -> np.ndarray:
+        """[n, 3] midpoints of the boundary's edges, bed elevation included
+        (RDyGetBoundaryEdge{X,Y,Z}Centroids)."""
+        ev = self.mesh.edge_vertices[self._segment(boundary).edge_ids]
+        return (self.mesh.points[ev[:, 0]] + self.mesh.points[ev[:, 1]]) / 2.0
+
+    def get_boundary_cells(self, boundary: str) -> np.ndarray:
+        """The cell inside each of the boundary's edges."""
+        return self.mesh.edge_cells[self._segment(boundary).edge_ids, 0]
+
+    def get_boundary_cell_centroids(self, boundary: str) -> np.ndarray:
+        return self.mesh.cell_centroid[self.get_boundary_cells(boundary)]
+
+    def get_boundary_cell_natural_ids(self, boundary: str) -> np.ndarray:
+        return self.mesh.natural_ids[self.get_boundary_cells(boundary)]
 
     # ---- diagnostics ----
     def log_domain_statistics(self):

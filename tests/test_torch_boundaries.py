@@ -22,6 +22,7 @@ from rdycore_tpu.mesh import native as jax_native
 from rdycore_tpu.mesh import structured_quad as jax_structured_quad
 from rdycore_tpu.operator import build_operator as jax_build_operator
 from rdycore_tpu_torch import Simulation, build_operator
+from rdycore_tpu_torch.config.schema import ConfigError
 from rdycore_tpu_torch.config.yaml_input import config_from_dict
 from rdycore_tpu_torch.convert import operator_arrays_from_numpy
 from rdycore_tpu_torch.io.writers import attach_output_monitors
@@ -167,8 +168,10 @@ def test_features_outside_the_slice_raise(numerics, physics):
 
 @pytest.mark.parametrize("section", [
     {"parallel": {"n_devices": 2}},
-    {"restart": {"file": "ckpt.h5"}},
-    {"checkpoint": {"interval": 5}},
+    # checkpoints and restart run since they were ported (held in
+    # tests/test_torch_checkpoint.py); these run modes are still outside
+    {"parallel": {"n_devices": 4}},
+    {"ensemble": {"size": 2, "members": [{"name": "m0"}, {"name": "m1"}]}},
     {"ensemble": {"size": 1, "members": [{"name": "m0"}]}},
 ])
 def test_run_modes_outside_the_slice_raise(section):
@@ -193,15 +196,22 @@ def test_amr_raises(call):
 
 
 @pytest.mark.parametrize("fmt", ["xdmf", "cgns"])
-def test_hdf5_outputs_raise(fmt, tmp_path):
+def test_hdf5_outputs_raise(fmt, tmp_path, monkeypatch):
+    """XDMF and CGNS write HDF5 through h5py (ported with item 5b): where
+    it does not import, they raise a ConfigError naming h5py and the
+    binary format, at setup and in the writer, and switch no format."""
     cfg = config_from_dict({
         "output": {"format": fmt, "directory": str(tmp_path)},
         "time": {"stop": 0.01, "time_step": 0.001},
     }).validate()
-    sim = Simulation(cfg, mesh=structured_quad(4, 3, 0.0, 1.0, 0.0, 1.0),
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="binary"):
+    mesh = structured_quad(4, 3, 0.0, 1.0, 0.0, 1.0)
+    sim = Simulation(cfg, mesh=mesh, device="cpu")
+    monkeypatch.setitem(sys.modules, "h5py", None)  # import h5py fails
+    with pytest.raises(ConfigError, match="h5py.*binary"):
         attach_output_monitors(sim)
+    with pytest.raises(ConfigError, match="h5py.*binary"):
+        Simulation(cfg, mesh=mesh, device="cpu")
+    assert not os.listdir(tmp_path)
 
 
 def test_diffusion_mode_raises():

@@ -36,6 +36,10 @@ K2 at every tracer count and Riemann option on ragged rasters (a single
 cell, row and column among them) under every wall code, and in 4 strips
 bit for bit the whole raster's launch. A step of ark_imex and of beuler
 (unstructured, raster, raster MUSCL) makes no synchronizing CUDA call.
+The JAX package's unchanged C host csrc/test_capi.c, linked against the
+port's embedded C API, runs a coupler's deck on the card with each kernel
+launched once a step, and the bridge's advance reads the device back at
+the end of its interval only.
 """
 
 import numpy as np
@@ -1295,3 +1299,117 @@ def test_mms_ladder_on_the_card_matches_the_cpu(dev, tmp_path):
     for norm in ("L1", "L2", "Linf"):
         np.testing.assert_allclose(card.rates[norm], cpu.rates[norm],
                                    rtol=0, atol=1e-10)
+
+
+def coupler_deck(tmp_path, backend, steps=20, interval_steps=5):
+    """The coupler's dam break on a 256x176 raster of 1/512 m cells, f32,
+    euler, dt 0.0005 s: every wall reflecting and the floodplain dry (so
+    that 1 um/s of rain is held in float32), written as a deck beside its
+    .npz mesh."""
+    import json
+
+    from rdycore_tpu_torch.mesh import save_mesh_npz
+
+    save_mesh_npz(structured_quad(
+        256, 176, 0.0, 0.5, 0.0, 176 / 512,
+        region_fn=lambda cx, cy: np.where(cx < 0.25, 1, 2)),
+        str(tmp_path / "coupler.npz"))
+    dt = 0.0005
+    deck = {
+        "numerics": {"temporal": "euler", "precision": "single",
+                     "edge_flux_backend": backend},
+        "logging": {"level": "none"},
+        "time": {"stop": steps * dt, "time_step": dt,
+                 "coupling_interval": interval_steps * dt},
+        "grid": {"file": "coupler.npz"},
+        "regions": [{"name": "reservoir", "grid_region_id": 1},
+                    {"name": "floodplain", "grid_region_id": 2}],
+        "initial_conditions": [{"region": "reservoir", "flow": "column"},
+                               {"region": "floodplain", "flow": "dry"}],
+        "flow_conditions": [
+            {"name": "column", "type": "dirichlet", "height": 0.25},
+            {"name": "dry", "type": "dirichlet", "height": 0.0}],
+    }
+    path = tmp_path / f"coupler_{backend}.yaml"
+    path.write_text(json.dumps(deck))
+    return str(path)
+
+
+COUPLER_LAUNCHES = {
+    "xla": {"swe_edge_flux": 1, "swe_cell_stage": 1, "courant_argmax": 1},
+    "fused_structured": {"swe_raster_step": 1, "courant_argmax": 1},
+}
+
+
+@pytest.mark.parametrize("backend", sorted(COUPLER_LAUNCHES))
+def test_c_host_runs_the_port_on_the_card(dev, tmp_path, backend):
+    """The JAX package's unchanged C host csrc/test_capi.c, linked against
+    the port's shim, runs a deck on the card (no RDYTPU_PLATFORM): its three
+    OK lines, and each kernel of the path launched once a step."""
+    import json
+    import os
+    import shutil
+    import subprocess
+
+    if not (shutil.which("cc") or shutil.which("gcc")):
+        pytest.skip("no C compiler")
+    from rdycore_tpu_torch.capi import build
+
+    host = build.build_host(os.path.join(os.path.dirname(__file__), "..",
+                                         "csrc", "test_capi.c"))
+    deck = coupler_deck(tmp_path, backend)
+    env = dict(os.environ, RDYTPU_TIMINGS=str(tmp_path / "t.jsonl"))
+    env.pop("RDYTPU_PLATFORM", None)
+    r = subprocess.run([host, deck, str(tmp_path / "c.bin"),
+                        str(tmp_path / "v.bin")], capture_output=True,
+                       text=True, env=env, timeout=300)
+    assert r.returncode == 0, f"\n{r.stdout}\n{r.stderr}"
+    assert sum(line.startswith("OK:") for line in r.stdout.splitlines()) == 3
+    report = json.loads((tmp_path / "t.jsonl").read_text())
+    assert report["device"].startswith("cuda") and report["steps"] == 20
+    want = {k: 20 * n for k, n in COUPLER_LAUNCHES[backend].items()}
+    assert {k: n for k, n in report["launches"].items() if n} == want
+
+
+@pytest.mark.parametrize("backend", sorted(COUPLER_LAUNCHES))
+def test_coupling_loop_syncs_only_at_interval_ends(dev, tmp_path,
+                                                   monkeypatch, backend):
+    """The bridge's advance synchronizes with the device at the start and
+    end of its interval only: under torch.cuda.set_sync_debug_mode("warn")
+    around it, an interval of 8 steps makes as many synchronizing calls as
+    one of 2 (the interval's clock going up, its results coming back). The
+    coupling loop's setters and getters run outside the mode."""
+    import warnings
+
+    from rdycore_tpu_torch import capi_bridge as bridge
+
+    monkeypatch.delenv("RDYTPU_PLATFORM", raising=False)
+    monkeypatch.delenv("RDYTPU_TIMINGS", raising=False)
+    h = bridge.create(coupler_deck(tmp_path, backend, steps=40))
+    try:
+        n = bridge.num_cells(h)
+        rain = np.full(n, 1e-6).tobytes()
+        bridge.set_domain_water_source(h, rain)
+        bridge.advance(h)  # builds and loads the kernels
+        syncs = {}
+        for steps in (2, 8):
+            bridge.set_coupling_interval(h, steps * 0.0005)
+            bridge.set_domain_water_source(h, rain)
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    bridge.advance(h)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            syncs[steps] = [w for w in caught if "called a synchronizing "
+                            "CUDA operation" in str(w.message)]
+            h_bytes = bridge.get_height(h)
+            assert np.isfinite(np.frombuffer(h_bytes)).all()
+        where = {k: [f"{w.filename}:{w.lineno}" for w in v]
+                 for k, v in syncs.items()}
+        assert len(syncs[2]) == len(syncs[8]), where
+        assert bridge.step(h) == 5 + 2 + 8
+    finally:
+        bridge.destroy(h)

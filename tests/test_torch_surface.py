@@ -1,15 +1,16 @@
 """The JAX package's public surface that rdycore_tpu_torch has not ported
 yet (ROADMAP fault 20), checked on the CPU without a JAX compile: every
 public member of the JAX Simulation exists on the port's, and each one the
-port lacks raises NotImplementedError naming its ROADMAP item; every
-option of the JAX CLI is accepted by the port's, and each one it lacks
-exits with status 2 naming its item.
+port lacks (`rebuild_on_mesh`, with AMR) raises NotImplementedError naming
+its ROADMAP item; every option of the JAX CLI is accepted by the port's,
+and each one it lacks exits with status 2 naming its item. The members
+the port has are held against the JAX package's in
+tests/test_torch_coupling_surface.py.
 """
 
 import ast
 import os
 
-import numpy as np
 import pytest
 
 from rdycore_tpu_torch import Simulation
@@ -19,38 +20,9 @@ from rdycore_tpu_torch.mesh import structured_quad
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-ITEM_18 = "ROADMAP queue 1 item 18"
-ITEM_5B = "ROADMAP queue 1 item 5b"
 # member -> (how it is reached, the arguments of a call, its ROADMAP item)
 NOT_PORTED = {
     "rebuild_on_mesh": ("method", (None,), "ROADMAP queue 1 item 14"),
-    "write_checkpoint": ("method", ("x.h5",), ITEM_5B),
-    "read_checkpoint": ("method", ("x.h5",), ITEM_5B),
-    "restarted": ("property", (), ITEM_5B),
-    "from_file": ("classmethod", ("deck.yaml",), ITEM_18),
-    "set_momentum_source": ("method", (np.zeros(12),), ITEM_18),
-    "set_regional_momentum_source": ("method", ("all", 0.0, 0.0), ITEM_18),
-    "set_regional_manning_n": ("method", ("all", 0.02), ITEM_18),
-    "boundary_names": ("property", (), ITEM_18),
-    "get_num_boundary_conditions": ("method", (), ITEM_18),
-    "get_boundary_id": ("method", ("left",), ITEM_18),
-    "get_boundary_condition_flow_type": ("method", ("left",), ITEM_18),
-    "get_boundary_edge_centers": ("method", ("left",), ITEM_18),
-    "get_boundary_edge_centroids": ("method", ("left",), ITEM_18),
-    "get_boundary_cells": ("method", ("left",), ITEM_18),
-    "get_boundary_cell_centroids": ("method", ("left",), ITEM_18),
-    "get_boundary_cell_natural_ids": ("method", ("left",), ITEM_18),
-    "get_num_global_cells": ("method", (), ITEM_18),
-    "convert_time": ("staticmethod", (1.0, "seconds", "hours"), ITEM_18),
-    "get_time_unit": ("method", (), ITEM_18),
-    "get_version": ("method", (), ITEM_18),
-    "set_log_file": ("method", ("log.txt",), ITEM_18),
-    "get_build_configuration": ("method", (), ITEM_18),
-    "create_prognostic_array": ("method", (), ITEM_18),
-    "create_one_dof_array": ("method", (), ITEM_18),
-    "read_one_dof_vec_from_binary": ("method", ("v.bin",), ITEM_18),
-    "write_one_dof_vec_to_binary": ("method", ("v.bin", np.zeros(12)),
-                                    ITEM_18),
 }
 
 
@@ -106,7 +78,6 @@ def test_unported_members_raise_naming_their_item(sim, name):
     (["--homogeneous-bc-file", "right=bc.bin"], "item 5d"),
     (["--amr-dataset-dir", "amr/"], "item 14"),
     (["--amr-area-threshold", "0.2"], "item 14"),
-    (["--pause"], "item 18"),
 ])
 def test_unported_cli_options_exit_naming_their_item(argv, item, capsys):
     with pytest.raises(SystemExit) as exc:
