@@ -144,9 +144,10 @@ Phases, each printing as it goes; any failure exits non-zero:
    the volume budget). (b) beuler (6 Newton iterations of GMRES(16),
    residuals on the kernels, JVPs by forward-mode AD through the twin) on
    phase 3's mesh and dam break with every wall reflecting, dt 0.0025 s (a
-   Courant number of about 2, printed, > 1 required): 4 steps with exact
-   launches (K1a and K1b 25 times a step, K1c once), the first 2 held
-   against the same 2 steps with plain residuals (2e-5 relative to 1 +
+   Courant number of about 2, printed, > 1 required): 2 steps (one
+   coupling interval) with exact launches (K1a and K1b 25 times a step,
+   K1c once), held against the same 2 steps with plain residuals (2e-5
+   relative to 1 +
    |q|), h finite and >= -1e-6, the closed box's volume to 1e-5; one more
    step split by CUDA events into residual kernels, JVPs and glue, with
    its Newton residual norm beside its start. (c) The same on the raster
@@ -210,6 +211,37 @@ Phases, each printing as it goes; any failure exits non-zero:
    against the plain versions (2e-5, every row); `set_regional_manning_n` timed on both decks (the
    raster rebuilds its backend).
 
+12. Mesh files, RCM and the forcing datasets on the valley of
+   tools/torch_flood_files.py: `structured_tri(1448, 996)` over 20.48 km x
+   14.08 km (2,884,416 triangles of legs about 14.1 m), a bed falling to
+   the outlet and rising to the side walls, a parabolic channel; two
+   element blocks (channel, floodplain) and four side sets (three walls
+   and the outlet). (a) It is written as Exodus (CDF-2) and Gmsh 4.1 with
+   its cells and vertices shuffled from a seed (the worst case for
+   locality, not a mesher's order) and read back by the port's readers,
+   the two meshes equal array for array; `build_mesh` on the native
+   builder and on its numpy plain versions, equal array for array; the
+   seconds of each, and of RCM. (b) 200 euler steps (dt 0.25 s, the
+   channel 1 m deep, the floodplain dry, a Dirichlet depth at the outlet)
+   in file order, under `cell_ordering: rcm` and in the generator's order
+   through `run_main_path` (10 steps against the plain versions, exact
+   launches, h >= 0, the volume budget), the three end states by natural
+   id to 1e-5, each order's K1a, K1b and K1c held against their plain
+   versions and timed beside their bounds. (c) The flood through the
+   CLI's `main` (what `python -m rdycore_tpu_torch` runs): the Exodus deck
+   under RCM, two hourly rain rasters (--raster-rain-dir) and the outlet's
+   depth series (--homogeneous-bc-file), coupling intervals of 120 s, to t
+   = 3720 s: exact launches, the Courant number (<= 0.5), h finite and
+   >= 0, the volume change against rain in minus outflow to 1e-3 of the
+   rain, the rain's rate switching at 3600 s, wall seconds split into
+   setup, steps and forcing. (d) The dam break of phases 3-4 as an .npz
+   with every wall reflecting on fused_structured with
+   --constant-rain-rate 2e-3 m/s for 40 steps through the CLI's `main`:
+   the rain in K2's rain plane, exact launches, the state against the
+   plain versions to 1e-4, the volume gained against the rain (within
+   float32's rounding of the reservoir's uniform depth), and K2 with the
+   rain plane held against its plain version and timed.
+
 Before the last line it prints the card's name and power limit and a JSON
 line {"kernels": [...]} with one row per kernel and path ("path":
 "unstructured", "raster", "unstructured+tracers", "raster+tracers" (these
@@ -218,8 +250,9 @@ two with "nt": 3), "unstructured+muscl", "raster+muscl",
 "raster+strips4", "raster+strips4+tracers", "raster+strips4+muscl",
 "unstructured ark_imex", "unstructured beuler", "raster beuler", "raster
 beuler+muscl", "unstructured mms", "unstructured mms+muscl", "unstructured
-mms+sediment", "unstructured thacker+muscl", "coupler raster" or
-"coupler unstructured", these ten with "launches_per_step", phase 10's
+mms+sediment", "unstructured thacker+muscl", "coupler raster",
+"coupler unstructured", "exodus file order", "exodus rcm" or
+"raster+rain", these thirteen with "launches_per_step", phase 10's
 with "dtype": "float64", phase 11's with the C host's launches; a
 strip row names its strip [row0, rows, halo_lo, halo_hi]),
 each with that path's own launches, times and bound, and "timers" naming
@@ -336,7 +369,7 @@ STRIPS = 4  # phase 8: row strips on the one card
 # (1/512 m)) and steps
 IMEX_STEPS, IMEX_INTERVAL_STEPS = 100, 50
 DT_BEULER = 0.0025
-BEULER_STEPS = 4
+BEULER_STEPS = 2  # one coupling interval
 # phase 10: the MMS studies' dt (a Courant number near 0.34 on the finest
 # quads, 1/512 m; 0.28 on the finest triangles, legs of 1/256 m; 0.34 on
 # the sediment ladder's finest quads, 1/256 m) and end time; Thacker's
@@ -507,6 +540,13 @@ def phase_build():
         f"{', '.join(f'{k} {v[0]:.2f} s' for k, v in built.items())})")
     for name, (_, report) in built.items():
         log(f"  ptxas {name}: {' | '.join(ptxas_summary(report))}")
+    from rdycore_tpu_torch.mesh import build as mesh_build
+
+    t0 = time.perf_counter()
+    lib = mesh_build.library()
+    log(f"native mesh library ({mesh_build.compiler()}, "
+        f"{' '.join(mesh_build.FLAGS)}): {lib} in "
+        f"{time.perf_counter() - t0:.2f} s")
 
 
 def ptxas_summary(report):
@@ -3553,11 +3593,13 @@ def bridge_sequence(deck, ckpt, onedof, timings):
     return "\n".join(lines), 0
 
 
-def coupler_rows(card, path, sim, launches, errs):
-    """The kernels of a coupler path at its shapes, on the final state of a
-    run of its deck, held against their plain versions and timed: K1a, K1b
-    in an euler stage with the primitives and K1c (unstructured), or K2 in
-    that stage and K1c on its tile maxima (raster); the rows of `path`."""
+def coupler_rows(card, path, sim, launches, errs, dt=DT, src=None):
+    """The kernels of a path at its shapes (the coupler's, phase 11, and
+    phase 12's), on the final state of a run of its deck, held against
+    their plain versions and timed: K1a, K1b in an euler stage of `dt` with
+    the primitives and K1c (unstructured), or K2 in that stage (with the
+    rain plane `src` [ny, nx] where given) and K1c on its tile maxima
+    (raster); the rows of `path`."""
     from rdycore_tpu_torch.ops.kernels.cell_stage import swe_cell_stage_plain
     from rdycore_tpu_torch.ops.kernels.courant import courant_argmax_plain
     from rdycore_tpu_torch.ops.kernels.edge_flux import swe_edge_flux_plain
@@ -3565,7 +3607,7 @@ def coupler_rows(card, path, sim, launches, errs):
 
     q = sim.q.to(torch.float32)
     s, dev = q.element_size(), q.device
-    dt = torch.tensor(DT, dtype=q.dtype, device=dev)
+    dt = torch.tensor(dt, dtype=q.dtype, device=dev)
     stage = dict(stage=(0.0, 1.0, 1.0), emit_prim=True)
     run = (torch.zeros((), dtype=q.dtype, device=dev),
            torch.zeros((), dtype=torch.int32, device=dev))
@@ -3599,6 +3641,7 @@ def coupler_rows(card, path, sim, launches, errs):
     else:
         op = sim._structured["op"]
         geo = (op.dz_dx, op.dz_dy, op.mannings_n)
+        stage["src"] = src
         got = op.step(q, dt, **stage)
         want = swe_raster_step_plain(op.plan, q, *geo, dt, **stage)
         values = got.cmax
@@ -3609,7 +3652,8 @@ def coupler_rows(card, path, sim, launches, errs):
             None)}
         C = q.shape[1]
         nbytes = {"swe_raster_step": raster_step_bytes(C, 3, values.numel(),
-                                                       s)}
+                                                       s)
+                  + (0 if src is None else C * s)}
         nops = {"swe_raster_step": OPS_PER_RASTER_CELL * C}
         replaces = dict(REPLACES, courant_argmax=REPLACES["swe_raster_step"])
     mk, ik = op.courant_max(values, dt, *run)
@@ -3856,6 +3900,422 @@ def phase_coupler(errs, dev, mesh):
     return rows
 
 
+# ------------------------------------------------------------------ phase 12
+# the valley of tools/torch_flood_files.py: 1448 x 996 squares of legs about
+# 14.1 m, each split in two triangles (2,884,416 cells); dt for a Courant
+# number near 0.3 (printed, at most 0.5 required); 12b's steps and
+# coupling interval; 12c's end (past the rain rasters' switch at hour 1)
+# and coupling interval; 12d's rain on the dam break: 1e-6 m a step, some
+# 67 half-ulps of float32 at the reservoir's 0.25 m
+FLOOD_NX, FLOOD_NY = 1448, 996
+FLOOD_DT = 0.25
+FLOOD_STEPS, FLOOD_INTERVAL_STEPS = 200, 50
+FLOOD_STOP, FLOOD_COUPLING = 3720.0, 120.0
+RAIN_RATE, RAIN_STEPS = 2e-3, 40
+ORDERS = ("exodus file order", "exodus rcm", "generated order")
+
+
+def same_mesh(a, b) -> bool:
+    """Whether two meshes are equal array for array (labels as dicts)."""
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, dict):
+            if x.keys() != y.keys() or not all(
+                    np.array_equal(x[k], y[k]) for k in x):
+                return False
+        elif isinstance(x, np.ndarray):
+            if x.dtype != y.dtype or not np.array_equal(x, y):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+class plain_mesh_builder:
+    """Within it, `build_mesh` takes the numpy plain versions of the native
+    builder's geometry and edges (mesh/core.py)."""
+
+    def __enter__(self):
+        from rdycore_tpu_torch.mesh import core, native
+
+        def geometry(points, cv, nv):
+            area, cen = core._polygon_areas_centroids(points, cv, nv)
+            dzdx, dzdy = core._cell_slopes(points, cv, nv, cen)
+            return area, cen, dzdx, dzdy, core._vertex_mean_z(points, cv, nv)
+
+        self.saved = native, native.cell_geometry, native.extract_edges
+        native.cell_geometry, native.extract_edges = (geometry,
+                                                      core._extract_edges)
+
+    def __exit__(self, *exc):
+        native, native.cell_geometry, native.extract_edges = self.saved
+
+
+def bandwidth(mesh) -> str:
+    """max and mean |left - right| over the interior edges."""
+    ec = mesh.edge_cells[: mesh.num_internal_edges].astype(np.int64)
+    d = np.abs(ec[:, 0] - ec[:, 1])
+    return f"max {int(d.max()):,}, mean {d.mean():.1f}"
+
+
+def timed(what, fn):
+    t0 = time.perf_counter()
+    out = fn()
+    dt = time.perf_counter() - t0
+    log(f"  {what}: {dt:.2f} s")
+    return out, dt
+
+
+def phase_files_read(work):
+    """12a: the valley written as Exodus and Gmsh files, read by the port,
+    the native builder against its numpy plain versions, RCM."""
+    import os
+
+    from rdycore_tpu_torch.mesh import build as native_build
+    from rdycore_tpu_torch.mesh import build_mesh, native, read_gmsh
+    from rdycore_tpu_torch.mesh.core import rcm_reorder
+    from rdycore_tpu_torch.mesh.exodus import read_exodus
+    from tools.torch_flood_files import (
+        generated_with_labels, valley_mesh, write_flood_files)
+
+    card = nvidia_smi_line()
+    log(f"== phase 12a: the valley ({FLOOD_NX}x{FLOOD_NY} squares of two "
+        "triangles over 20.48 km x 14.08 km) as Exodus (CDF-2) and Gmsh 4.1 "
+        "files, cells and vertices shuffled (a worst case, not a mesher's "
+        f"order); card {card}")
+    native._lib = None
+    lib, _ = timed(f"native mesh library ({native_build.compiler()}; built "
+                   "in phase 1, found by the hash of its source, compiler, "
+                   "machine and flags)", native_build.library)
+    log(f"  {lib}")
+    gen, t_gen = timed("generated mesh (structured_tri, native builder)",
+                       lambda: valley_mesh(FLOOD_NX, FLOOD_NY))
+    out, _ = timed("written: Exodus, Gmsh, rain rasters, stage series",
+                   lambda: write_flood_files(work, mesh=gen))
+    paths = out["paths"]
+    for k in ("exodus", "gmsh"):
+        log(f"  {paths[k]}: {os.path.getsize(paths[k]) / 1e6:.1f} MB")
+    exo, t_exo = timed("read_exodus (NetCDF reader + build_mesh)",
+                       lambda: read_exodus(paths["exodus"]))
+    msh, t_msh = timed("read_gmsh (one numpy parse per section + "
+                       "build_mesh)", lambda: read_gmsh(paths["gmsh"]))
+    if not same_mesh(exo, msh):
+        raise SystemExit("the Exodus and Gmsh meshes differ")
+    log(f"  Exodus and Gmsh meshes equal array for array: {exo.num_cells:,} "
+        f"cells, {exo.num_edges:,} edges, regions "
+        f"{sorted(k for k in exo.regions if not k.startswith('__'))}, "
+        f"boundaries {sorted(k for k in exo.boundaries if not k.startswith('__'))}")
+    labels = dict(regions=exo.regions, boundary_edges={
+        k: exo.edge_vertices[v] for k, v in exo.boundaries.items()})
+    built, t_native = timed("build_mesh, native (the file mesh's points, "
+                            "cells and labels)", lambda: build_mesh(
+                                exo.points, exo.cell_vertices, **labels))
+    with plain_mesh_builder():
+        plain, t_plain = timed("build_mesh, numpy plain versions", lambda:
+                               build_mesh(exo.points, exo.cell_vertices,
+                                          **labels))
+    if not (same_mesh(built, plain) and same_mesh(built, exo)):
+        raise SystemExit("native and plain mesh builds differ")
+    log("  native and plain builds equal array for array")
+    perm, t_order = timed("rdy_rcm_order", lambda: native.rcm_order(
+        exo.num_cells, exo.edge_cells[:, 0], exo.edge_cells[:, 1]))
+    rcm, t_rcm = timed("rcm_reorder (order + build_mesh)",
+                       lambda: rcm_reorder(exo))
+    labelled = generated_with_labels(out)
+    log(f"  [{card}] setup s: generate {t_gen:.2f}, read Exodus {t_exo:.2f}, "
+        f"read Gmsh {t_msh:.2f}, build native {t_native:.2f} vs numpy "
+        f"{t_plain:.2f}, RCM {t_order:.2f} + rebuild {t_rcm - t_order:.2f}")
+    log(f"  bandwidth |left - right| over interior edges: file order "
+        f"{bandwidth(exo)}; rcm {bandwidth(rcm)}; generated "
+        f"{bandwidth(labelled)}")
+    return out, exo, labelled
+
+
+def flood_config(steps, ordering, work):
+    from rdycore_tpu_torch.config.yaml_input import config_from_dict
+    from tools.torch_flood_files import flood_deck
+
+    import os
+
+    return config_from_dict(flood_deck(
+        os.path.join(work, "valley.exo"), FLOOD_DT, steps * FLOOD_DT,
+        FLOOD_INTERVAL_STEPS * FLOOD_DT, ordering,
+        series=FLOOD_INTERVAL_STEPS)).validate()
+
+
+def phase_files_order(errs, dev, work, out, exo, labelled):
+    """12b: 200 euler steps of the valley deck in file order, under RCM
+    and in generated order through `run_main_path`, the end states by
+    natural id, and the kernels at each order's shapes."""
+    from rdycore_tpu_torch import Simulation
+
+    card = nvidia_smi_line()
+    log(f"== phase 12b: what cell order costs: {FLOOD_STEPS} euler steps of "
+        f"the valley (channel 1 m deep, floodplain dry, outlet depth "
+        f"{0.8} m), dt {FLOOD_DT} s, f32, {exo.num_cells:,} cells")
+    per_step = {"swe_edge_flux": 1, "swe_cell_stage": 1, "courant_argmax": 1}
+    decks = {ORDERS[0]: ("file", exo), ORDERS[1]: ("rcm", exo),
+             ORDERS[2]: ("file", labelled)}
+    ends, rows = {}, []
+    cperm = out["cperm"]
+    for path in ORDERS:
+        ordering, mesh = decks[path]
+
+        def make_sim(n, plain=False):
+            sim = Simulation(flood_config(n, ordering, work), mesh=mesh,
+                             device=dev)
+            if plain:
+                sim.operator = plain_operator(sim.operator)
+            return sim
+
+        log(f"== phase 12b: {path}")
+        sim, launches = run_main_path(
+            path, make_sim, FLOOD_STEPS, per_step,
+            lambda sim, q0: check_state_and_budget(sim, q0,
+                                                   sim.mesh.cell_area))
+        q = sim.get_solution()
+        # by natural id (file order); the generated order maps through
+        # the shuffle: file cell i is generated cell cperm[i]
+        ends[path] = (q[:, cperm] if path == ORDERS[2]
+                      else q[:, np.argsort(sim.get_natural_ids())])
+        path_rows = coupler_rows(card, path, sim, launches, errs,
+                                 dt=FLOOD_DT)
+        if path != ORDERS[2]:
+            rows += path_rows
+        ms, rate = STEADY[path]
+        log(f"  [{card}] {path}: {ms:.4f} ms/step, {rate:.4e} "
+            "cell-updates/s; per launch "
+            + ", ".join(f"{r['name']} {r['ms']:.4f} ms (bound "
+                        f"{r['bound_ms']:.4f}, {100 * r['bound_ms'] / r['ms']:.1f}%)"
+                        for r in path_rows))
+        del sim
+    for path in ORDERS[1:]:
+        err = rows_rel_err(ends[path], ends[ORDERS[0]])
+        bits = np.array_equal(ends[path], ends[ORDERS[0]])
+        log(f"  end state of {path} against file order, by natural id: "
+            f"worst row {err:.3e} relative, "
+            f"{'bit for bit' if bits else 'not bit for bit'}")
+        if not err <= 1e-5:
+            raise SystemExit(f"{path} differs from file order: {err}")
+    return rows
+
+
+def phase_files_flood(dev, work, out):
+    """12c: the flood run through the CLI's main (what python -m
+    rdycore_tpu_torch runs): RCM, raster rain, the outlet's depth series,
+    to t = 3720 s; h, the volume budget, the rain's hourly switch, wall s
+    split into steps and forcing."""
+    import os
+
+    from rdycore_tpu_torch import Simulation
+    from rdycore_tpu_torch.__main__ import main as cli_main
+    from rdycore_tpu_torch.forcing import Forcing
+    from rdycore_tpu_torch.ops import kernels
+    from tools.torch_flood_files import flood_deck
+
+    card = nvidia_smi_line()
+    paths = out["paths"]
+    deck = os.path.join(work, "flood.yaml")
+    with open(deck, "w") as f:  # JSON is YAML
+        json.dump(flood_deck("valley.exo", FLOOD_DT, FLOOD_STOP,
+                             FLOOD_COUPLING, "rcm",
+                             series=int(FLOOD_COUPLING / FLOOD_DT)), f)
+    argv = [deck, "--raster-rain-dir", paths["rain"],
+            "--homogeneous-bc-file", f"outlet={paths['stage']}"] + (
+                ["--cpu"] if dev.type == "cpu" else [])
+    log(f"== phase 12c: the flood run through the CLI: python -m "
+        f"rdycore_tpu_torch {' '.join(os.path.relpath(a) for a in argv)} "
+        f"(euler, f32, RCM, dt {FLOOD_DT} s, coupling {FLOOD_COUPLING} s, "
+        f"to t = {FLOOD_STOP} s)")
+    rec = {"sim": None, "intervals": [], "apply_s": 0.0, "rate": 0.0}
+    advance, apply = Simulation.advance, Forcing.apply
+
+    def volume(sim):
+        return float((sim.q[0].double() * rec["area"]).sum())
+
+    def timed_apply(self, sim, t):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        apply(self, sim, t)
+        torch.cuda.synchronize()
+        rec["apply_s"] += time.perf_counter() - t0
+        if rec["sim"] is None:
+            rec["sim"] = sim
+            rec["area"] = torch.as_tensor(sim.mesh.cell_area,
+                                          device=sim.q.device)
+            rec["v0"] = volume(sim)
+            rec["t_setup"] = time.perf_counter() - rec["t_start"]
+        rec["rate"] = float((sim.ext_src[0].double() * rec["area"]).sum())
+
+    def timed_advance(self):
+        t_start = self.t
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        advance(self)
+        torch.cuda.synchronize()
+        rec["intervals"].append(dict(
+            t0=t_start, t1=self.t, steps_s=time.perf_counter() - t0,
+            rate=rec["rate"], courant=self.prev_max_courant))
+
+    Simulation.advance, Forcing.apply = timed_advance, timed_apply
+    kernels.reset_launch_counts()
+    rec["t_start"] = time.perf_counter()
+    try:
+        rc = cli_main(argv)
+    finally:
+        Simulation.advance, Forcing.apply = advance, apply
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - rec["t_start"]
+    sim = rec["sim"]
+    if rc != 0 or sim is None:
+        raise SystemExit(f"the CLI returned {rc}")
+    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    check_launches("flood run", launches, {
+        "swe_edge_flux": sim.step, "swe_cell_stage": sim.step,
+        "courant_argmax": sim.step})
+    h = sim.get_height()
+    if not (np.isfinite(sim.get_solution()).all() and h.min() >= 0.0):
+        raise SystemExit(f"flood run: finite "
+                         f"{np.isfinite(sim.get_solution()).all()}, min h "
+                         f"{h.min()}")
+    iv = rec["intervals"]
+    rain = sum(i["rate"] * (i["t1"] - i["t0"]) for i in iv)
+    lens = sim.operator.arrays.bnd_len.cpu().numpy().astype(np.float64)
+    outflow = float(np.sum(sim.bflux_accum[0] * lens))
+    gained = volume(sim) - rec["v0"]
+    budget = abs(gained - (rain - outflow)) / rain
+    before = [i["rate"] for i in iv if i["t1"] <= 3600.0]
+    after = [i["rate"] for i in iv if i["t0"] >= 3600.0]
+    courant = max(i["courant"] for i in iv)
+    steps_s = sum(i["steps_s"] for i in iv)
+    log(f"  {sim.step} steps to t = {sim.t} s in {len(iv)} intervals; max "
+        f"Courant {courant:.4f}; h finite, min {h.min():.3e}, max "
+        f"{h.max():.4f} m")
+    log(f"  rain in {rain:.6e} m^3 (rate {before[0]:.4f} m^3/s to 3600 s, "
+        f"{after[0]:.4f} after: x{after[0] / before[0]:.4f}), outflow "
+        f"{outflow:.6e} m^3, volume change {gained:.6e} m^3; budget error "
+        f"{budget:.3e} of the rain")
+    log(f"  [{card}] CLI wall {wall:.2f} s = setup (read Exodus, RCM, "
+        f"Simulation) {rec['t_setup']:.2f} + steps {steps_s:.2f} "
+        f"({1e3 * steps_s / sim.step:.4f} ms/step, "
+        f"{sim.step * sim.num_cells / steps_s:.4e} cell-updates/s) + forcing "
+        f"{rec['apply_s']:.2f} ({1e3 * rec['apply_s'] / (len(iv) + 1):.1f} "
+        f"ms per interval: the raster and stage setters) + the rest")
+    if not courant <= 0.5:
+        raise SystemExit(f"Courant number {courant} > 0.5")
+    if not budget <= 1e-3:
+        raise SystemExit(f"flood volume budget error {budget} > 1e-3")
+    if not (len(set(before)) == 1 and len(set(after)) == 1
+            and abs(after[0] / before[0] - 0.4) < 0.01):
+        raise SystemExit(f"rain did not switch at 3600 s: {before} {after}")
+    if not outflow > 0.0:
+        raise SystemExit("no outflow through the outlet")
+
+
+def phase_files_rain(errs, dev, work, mesh):
+    """12d: the dam break as an .npz on fused_structured with
+    --constant-rain-rate, 40 steps through the CLI's main against the same
+    run on the plain versions; the rain plane's K2 at full size."""
+    import os
+
+    from rdycore_tpu_torch import Simulation
+    from rdycore_tpu_torch.__main__ import main as cli_main
+    from rdycore_tpu_torch.config.yaml_input import load_config
+    from rdycore_tpu_torch.forcing import ConstantRain, Forcing, attach_forcing
+    from rdycore_tpu_torch.mesh import save_mesh_npz
+    from rdycore_tpu_torch.ops import kernels
+
+    card = nvidia_smi_line()
+    log(f"== phase 12d: rain on the raster: the dam break ({mesh.num_cells:,} "
+        f"cells, every wall reflecting) as .npz on fused_structured, "
+        f"--constant-rain-rate {RAIN_RATE} m/s ({RAIN_RATE * DT:.1e} m a "
+        f"step), {RAIN_STEPS} steps")
+    npz = os.path.join(work, "dam_break.npz")
+    timed("mesh written as .npz", lambda: save_mesh_npz(mesh, npz))
+    d = dam_break_dict(RAIN_STEPS, "fused_structured")
+    d["grid"] = {"file": "dam_break.npz"}
+    # every wall reflecting: the volume gained is the rain's
+    d["boundaries"], d["boundary_conditions"] = [], []
+    d["flow_conditions"] = d["flow_conditions"][:2]
+    d["time"]["coupling_interval"] = 20 * DT
+    deck = os.path.join(work, "rain.yaml")
+    with open(deck, "w") as f:
+        json.dump(d, f)
+    sims = []
+    advance = Simulation.advance
+
+    def keep(self):
+        if not sims:
+            sims.append(self)
+            self.v0 = float(np.sum(self.get_height().astype(np.float64)
+                                   * self.mesh.cell_area))
+        advance(self)
+
+    Simulation.advance = keep
+    kernels.reset_launch_counts()
+    try:
+        rc = cli_main([deck, "--constant-rain-rate", str(RAIN_RATE)]
+                      + (["--cpu"] if dev.type == "cpu" else []))
+    finally:
+        Simulation.advance = advance
+    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    if rc != 0 or not sims:
+        raise SystemExit(f"the CLI returned {rc}")
+    sim = sims[0]
+    check_launches("raster rain run", launches, {
+        "swe_raster_step": RAIN_STEPS, "courant_argmax": RAIN_STEPS,
+        "swe_edge_flux": RAIN_STEPS})
+    st = sim._structured
+    if not (st["kind"] == "fused" and st["with_src"]):
+        raise SystemExit("the rain did not reach K2's rain plane")
+    plain = raster_simulation(RAIN_STEPS, dev, mesh, plain=True,
+                              config=lambda *_: load_config(deck))
+    attach_forcing(plain, Forcing(constant_rain=ConstantRain(RAIN_RATE)))
+    plain.run()
+    err = {"q": rows_rel_err(sim.q, plain.q),
+           "bflux_accum": rows_rel_err(sim.bflux_accum, plain.bflux_accum)}
+    area = sim.mesh.cell_area
+    v0, v1 = sim.v0, float(np.sum(sim.get_height().astype(np.float64) * area))
+    rain = RAIN_RATE * area.sum() * sim.t
+    budget = abs((v1 - v0) - rain) / rain
+    # the reservoir's depth is uniform, so each step's float32 rounding of
+    # h + rain is the same on all its cells: up to half an ulp of its depth
+    # against the rain of a step
+    bound = 0.5 * float(np.spacing(np.float32(H_RESERVOIR))) / (
+        RAIN_RATE * DT)
+    log(f"  {RAIN_STEPS} steps on the kernels vs the plain versions (worst "
+        f"row): {err}; rain {rain:.6e} m^3, volume change {v1 - v0:.6e} "
+        f"(walls closed): budget error {budget:.3e} of the rain (float32 "
+        f"rounding bound {bound:.3e})")
+    if not (all(v <= 1e-4 for v in err.values()) and budget <= bound):
+        raise SystemExit("raster rain run check failed")
+    plan = st["op"].plan
+    src = sim.ext_src[0].reshape(plan.ny, plan.nx).to(torch.float32)
+    return coupler_rows(card, "raster+rain", sim, launches, errs, src=src)
+
+
+def phase_files(errs, dev, dam_mesh):
+    """Phase 12: mesh files, RCM, the native builder and the forcing
+    datasets on the valley's Exodus and Gmsh files (12a-12c) and rain on
+    the raster (12d)."""
+    import os
+    import shutil
+
+    t_phase = time.perf_counter()
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "output",
+                        "chip_smoke_files")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out, exo, labelled = phase_files_read(work)
+    rows = phase_files_order(errs, dev, work, out, exo, labelled)
+    del exo, labelled
+    phase_files_flood(dev, work, out)
+    rows += phase_files_rain(errs, dev, work, dam_mesh)
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -3884,6 +4344,7 @@ def main():
     rows += phase_strips(args.steps, dev, mesh)
     rows += phase_implicit(errs, dev, mesh)
     rows += phase_coupler(errs, dev, mesh)
+    rows += phase_files(errs, dev, mesh)
     del mesh
     rows += phase_mms(errs, dev)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -4,16 +4,20 @@
 Usage:
     python -m rdycore_tpu_torch <config.yaml> [--cpu] [--dt SECONDS]
                                 [--f32|--f64] [--output-dir DIR] [--mms]
-                                [--pause]
+                                [--pause] [forcing options]
 
 It runs on the CUDA device, or with --cpu on the CPU (the kernels' plain
 PyTorch versions). With --mms the deck's `mms` section runs as the
 reference's rdycore_mms does (`mms.MMSDriver`): its error norms, or its
 convergence rates against their thresholds, exiting 0 on PASS and 1 on
 FAIL. With --pause it prints its process id and waits for Enter before
-setup (to attach a debugger, the reference's -pause). The JAX package's
-options for forcing datasets and AMR are accepted and exit with status 2,
-naming the ROADMAP item that will port them. Without a CUDA device and without --cpu it fails. A
+setup (to attach a debugger, the reference's -pause). The forcing options
+(--constant-rain-rate, --homogeneous-rain-file with
+--temporally-interpolate-rain, --raster-rain-dir, --homogeneous-bc-file
+BOUNDARY=FILE) apply their datasets before every coupling interval, as the
+JAX package's CLI does (forcing.py). The JAX package's AMR options are
+accepted and exit with status 2, naming the ROADMAP item that will port
+them. Without a CUDA device and without --cpu it fails. A
 fused_structured deck with parallel.n_devices = P > 1 runs in P row
 strips on cuda:0..P-1 (a ConfigError with fewer cards), or on the CPU
 with --cpu. Several strips on one card are asked for through the
@@ -23,6 +27,7 @@ library: Simulation(cfg, strip_devices=["cuda:0"] * P).
 from __future__ import annotations
 
 import argparse
+import datetime
 import os
 import sys
 import time
@@ -30,13 +35,6 @@ import time
 # The JAX package's CLI options this one lacks, each with the ROADMAP item
 # that will port it: given, they exit non-zero naming it (ROADMAP fault 20)
 _NOT_PORTED_OPTIONS = (
-    ("--constant-rain-rate", dict(type=float), "queue 1 item 5d"),
-    ("--homogeneous-rain-file", dict(), "queue 1 item 5d"),
-    ("--temporally-interpolate-rain", dict(action="store_true"),
-     "queue 1 item 5d"),
-    ("--raster-rain-dir", dict(), "queue 1 item 5d"),
-    ("--homogeneous-bc-file", dict(metavar="BOUNDARY=FILE"),
-     "queue 1 item 5d"),
     ("--amr-dataset-dir", dict(), "queue 1 item 14"),
     ("--amr-area-threshold", dict(type=float), "queue 1 item 14"),
 )
@@ -60,6 +58,15 @@ def main(argv=None):
         help="override output.directory (outputs normally land next to the "
              "config file)",
     )
+    # forcing options (the F90/E3SM driver's -rain / -bc dataset options,
+    # driver/main.F90:197-338)
+    ap.add_argument("--constant-rain-rate", type=float, default=None,
+                    help="[m/s]")
+    ap.add_argument("--homogeneous-rain-file", default=None)
+    ap.add_argument("--temporally-interpolate-rain", action="store_true")
+    ap.add_argument("--raster-rain-dir", default=None)
+    ap.add_argument("--homogeneous-bc-file", default=None,
+                    metavar="BOUNDARY=FILE")
     for opt, kw, item in _NOT_PORTED_OPTIONS:
         ap.add_argument(opt, **kw, help=f"not ported yet (ROADMAP {item})")
     args = ap.parse_args(argv)
@@ -71,6 +78,7 @@ def main(argv=None):
         ap.exit(2, "rdycore_tpu_torch: " + "; ".join(refused) + "\n")
 
     from rdycore_tpu_torch.config.yaml_input import load_config
+    from rdycore_tpu_torch.forcing import attach_forcing
     from rdycore_tpu_torch.io.writers import attach_output_monitors
     from rdycore_tpu_torch.simulation import Simulation
 
@@ -97,6 +105,13 @@ def main(argv=None):
 
     sim = Simulation(cfg, device=device)
     attach_output_monitors(sim)
+    if (
+        args.constant_rain_rate is not None
+        or args.homogeneous_rain_file
+        or args.raster_rain_dir
+        or args.homogeneous_bc_file
+    ):
+        attach_forcing(sim, cli_forcing(args, cfg, sim))
     sim.log.info(
         f"mesh: {sim.mesh.num_cells} cells, {sim.mesh.num_edges} edges; "
         f"dt = {sim.dt:.6g} s, t_final = {sim.t_final:.6g} s; "
@@ -115,6 +130,42 @@ def main(argv=None):
         f"({sim.step * sim.mesh.num_cells / max(wall, 1e-9):.3g} cell-updates/s)"
     )
     return 0
+
+
+def cli_forcing(args, cfg, sim):
+    """The Forcing the forcing options ask for, as the JAX CLI builds it:
+    raster rain starts at time.date, else at 2017-08-26."""
+    from rdycore_tpu_torch.forcing import (
+        ConstantRain,
+        Forcing,
+        HomogeneousDataset,
+        RasterDataset,
+    )
+
+    forcing = Forcing()
+    if args.constant_rain_rate is not None:
+        forcing.constant_rain = ConstantRain(args.constant_rain_rate)
+    if args.homogeneous_rain_file:
+        forcing.homogeneous_rain = HomogeneousDataset(
+            cfg.resolve_path(args.homogeneous_rain_file),
+            temporally_interpolate=args.temporally_interpolate_rain,
+        )
+    if args.raster_rain_dir:
+        start = (
+            datetime.datetime.strptime(cfg.time.date, "%Y-%m-%d")
+            if cfg.time.date
+            else datetime.datetime(2017, 8, 26)
+        )
+        forcing.raster_rain = RasterDataset(
+            directory=args.raster_rain_dir,
+            start_date=start,
+            mesh_xy=sim.mesh.cell_centroid[:, :2],
+        )
+    if args.homogeneous_bc_file:
+        bname, _, fname = args.homogeneous_bc_file.partition("=")
+        forcing.homogeneous_bc[bname] = HomogeneousDataset(
+            cfg.resolve_path(fname))
+    return forcing
 
 
 if __name__ == "__main__":

@@ -16,10 +16,15 @@ compute path consumes:
   edge fluxes into a *gather* per cell -- the "pull" form with a
   deterministic, partition-independent summation order and no atomics.
 
-This is the NumPy code of rdycore_tpu/mesh/core.py without its native
-(C++) accelerator; the edge order reproduces that accelerator's (edges in
-order of first appearance over cells and their vertex slots), so edge ids
-agree with the JAX package's.
+`build_mesh` takes the cell geometry and the edges from the port's native
+builder (mesh/native.py, mesh/csrc/mesh_builder.cpp, compiled at first
+use), as rdycore_tpu/mesh/core.py takes them from its own; it raises where
+that library cannot be built. The numpy functions below
+(`_polygon_areas_centroids`, `_cell_slopes`, `_vertex_mean_z`,
+`_extract_edges`) are its plain versions, held against it array for array
+by the tests; no path calls them. Edges are numbered in order of first
+appearance over cells and their vertex slots, so edge ids agree with the
+JAX package's.
 
 Geometry matches the reference:
 - cell areas are 2-D projected polygon areas
@@ -34,6 +39,8 @@ import dataclasses
 from typing import Dict, Optional
 
 import numpy as np
+
+from . import native
 
 MAX_CELL_EDGES = 4  # triangles and quads only, like the reference
 
@@ -112,12 +119,49 @@ class Mesh:
         stay, and the labels, which are not resolved again."""
         points = self.points.copy()
         points[:, 2] = np.asarray(z, dtype=np.float64)
-        cv, nv = self.cell_vertices, self.cell_num_vertices
-        _, centroids = _polygon_areas_centroids(points, cv, nv)
-        dz_dx, dz_dy = _cell_slopes(points, cv, nv, centroids)
+        _, centroids, dz_dx, dz_dy, cell_z = native.cell_geometry(
+            points, self.cell_vertices, self.cell_num_vertices)
         return dataclasses.replace(
             self, points=points, cell_centroid=centroids, cell_dz_dx=dz_dx,
-            cell_dz_dy=dz_dy, cell_z=_vertex_mean_z(points, cv, nv))
+            cell_dz_dy=dz_dy, cell_z=cell_z)
+
+
+def reorder_cells(mesh: "Mesh", perm: np.ndarray) -> "Mesh":
+    """Reorder cells by `perm` (new index i holds old cell perm[i]).
+
+    Natural ids travel with the cells, so checkpoints and the coupling
+    surface's natural order stay stable under reordering -- the DMPlex
+    global-to-natural analogue.
+    """
+    perm = np.asarray(perm)
+    C = mesh.num_cells
+    if perm.shape != (C,) or not np.array_equal(
+            np.sort(perm), np.arange(C)):
+        raise ValueError("perm must be a permutation of range(num_cells)")
+    inverse = np.argsort(perm)
+    return build_mesh(
+        mesh.points,
+        mesh.cell_vertices[perm],
+        mesh.cell_num_vertices[perm],
+        regions={
+            name: np.sort(inverse[ids]).astype(np.int32)
+            for name, ids in mesh.regions.items()
+        },
+        boundary_edges={
+            name: mesh.edge_vertices[eids]
+            for name, eids in mesh.boundaries.items()
+        },
+        natural_ids=mesh.natural_ids[perm],
+    )
+
+
+def rcm_reorder(mesh: "Mesh") -> "Mesh":
+    """Reverse Cuthill-McKee cell reordering (bandwidth reduction), by the
+    native builder's `rcm_order` only."""
+    perm = native.rcm_order(
+        mesh.num_cells, mesh.edge_cells[:, 0], mesh.edge_cells[:, 1]
+    )
+    return reorder_cells(mesh, perm)
 
 
 def save_mesh_npz(mesh: "Mesh", path: str) -> None:
@@ -352,9 +396,9 @@ def _orient_ccw(points, cell_vertices, cell_num_vertices):
         signed += x[a] * y[b] - x[b] * y[a]
     flip = signed < 0
     out = cell_vertices.copy()
-    for i in np.nonzero(flip)[0]:
-        nv = cell_num_vertices[i]
-        out[i, :nv] = cell_vertices[i, :nv][::-1]
+    for nv in np.unique(cell_num_vertices[flip]):
+        sel = flip & (cell_num_vertices == nv)
+        out[sel, :nv] = cell_vertices[sel, :nv][:, ::-1]
     return out
 
 
@@ -396,16 +440,12 @@ def build_mesh(
     C = cell_vertices.shape[0]
     cell_vertices = _orient_ccw(points, cell_vertices, cell_num_vertices)
 
-    areas, centroids = _polygon_areas_centroids(
+    areas, centroids, dz_dx, dz_dy, cell_z = native.cell_geometry(
         points, cell_vertices, cell_num_vertices
     )
-    dz_dx, dz_dy = _cell_slopes(
-        points, cell_vertices, cell_num_vertices, centroids
-    )
-    cell_z = _vertex_mean_z(points, cell_vertices, cell_num_vertices)
 
     # --- edge extraction ---------------------------------------------------
-    left, right, lslot, rslot = _extract_edges(
+    left, right, lslot, rslot = native.extract_edges(
         points.shape[0], cell_vertices, cell_num_vertices
     )
     n_unique = len(left)

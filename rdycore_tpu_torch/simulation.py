@@ -50,7 +50,9 @@ from .io.checkpoint import restore_from_checkpoint, write_checkpoint
 from .io.hdf5 import check_hdf5
 from .io.petsc_binary import read_petsc_vec, write_petsc_vec
 from .logging_ import Logger
-from .mesh.core import Mesh, load_mesh_npz
+from .mesh.core import Mesh, load_mesh_npz, rcm_reorder
+from .mesh.exodus import read_exodus
+from .mesh.gmsh import read_gmsh
 from .operator import SWEOperator, build_operator
 from .ops.kernels.raster_step import StructuredPlan
 from .ops.structured import (
@@ -171,9 +173,6 @@ def check_slice(config: Config) -> None:
             "correction there (ROADMAP fault 18); use "
             "hydrostatic_reconstruction"
         )
-    if n.cell_ordering != "file":
-        _not_ported(f"cell_ordering: {n.cell_ordering}",
-                    "queue 1 item 5c (mesh readers and RCM ordering)")
     if config.ensemble.size:
         _not_ported("ensembles", "queue 1 item 14")
     refuse_on_path(config, path_of(config))
@@ -233,11 +232,12 @@ def refuse_on_path(config: Config, path: str) -> None:
 
 def load_mesh_file(path: str) -> Mesh:
     ext = os.path.splitext(path)[1].lower()
+    if ext == ".msh":
+        return read_gmsh(path)
+    if ext in (".exo", ".e", ".exo2"):
+        return read_exodus(path)
     if ext == ".npz":
         return load_mesh_npz(path)
-    if ext in (".msh", ".exo", ".e", ".exo2"):
-        _not_ported(f"{ext} mesh files",
-                    "queue 1 item 5c (mesh readers and RCM ordering)")
     raise ConfigError(f"unsupported mesh format '{ext}' ({path})")
 
 
@@ -269,10 +269,16 @@ class Simulation:
             mesh_path = config.resolve_path(config.grid.file)
             self.log.detail(f"Loading mesh from {mesh_path}")
             mesh = load_mesh_file(mesh_path)
+        if config.numerics.cell_ordering == "rcm":
+            mesh = rcm_reorder(mesh)
+            self.log.detail("applied RCM cell ordering")
         if config.grid.cell_elevation.file:
             cell_elev = read_petsc_vec(
                 config.resolve_path(config.grid.cell_elevation.file)
             )
+            # the file is in natural cell order; a reordering above must
+            # scatter it (the reference's natural -> global VecScatter,
+            # rdysetup.c:826-831)
             mesh.set_cell_elevations(cell_elev[mesh.natural_ids])
         self.mesh = mesh
 

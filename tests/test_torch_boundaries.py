@@ -6,7 +6,9 @@
 - The kernel wrappers take their plain PyTorch versions for CPU tensors
   (and count no launch).
 - Each feature outside the ported slices raises NotImplementedError, with
-  tracers too.
+  tracers too; `cell_ordering: rcm`, once among them, runs on an Exodus
+  mesh with every unstructured mode and is the JAX package's ConfigError
+  on the raster.
 - `operator_arrays_from_numpy` carries a JAX OperatorArrays across exactly.
 """
 
@@ -17,22 +19,27 @@ import sys
 import numpy as np
 import pytest
 import torch
+import yaml
 
+from rdycore_tpu.config.schema import ConfigError as JaxConfigError
+from rdycore_tpu.config.yaml_input import load_config as jax_load_config
 from rdycore_tpu.mesh import native as jax_native
 from rdycore_tpu.mesh import structured_quad as jax_structured_quad
 from rdycore_tpu.operator import build_operator as jax_build_operator
-from rdycore_tpu_torch import Simulation, build_operator
+from rdycore_tpu.simulation import Simulation as JaxSimulation
+from rdycore_tpu_torch import Simulation, build_operator, load_config, timestepping
 from rdycore_tpu_torch.config.schema import ConfigError
 from rdycore_tpu_torch.config.yaml_input import config_from_dict
 from rdycore_tpu_torch.convert import operator_arrays_from_numpy
 from rdycore_tpu_torch.io.writers import attach_output_monitors
-from rdycore_tpu_torch.mesh import structured_quad
+from rdycore_tpu_torch.mesh import structured_quad, structured_tri
 from rdycore_tpu_torch.operator import bnd_codes
 from rdycore_tpu_torch.ops import kernels
 from rdycore_tpu_torch.ops.kernels.cell_stage import swe_cell_stage_plain
 from rdycore_tpu_torch.ops.kernels.courant import courant_argmax_plain
 from rdycore_tpu_torch.ops.kernels.edge_flux import swe_edge_flux_plain
 from rdycore_tpu_torch.timestepping import make_interval_advancer
+from tools.torch_flood_files import MeshFile, write_exodus
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BC_TYPES = {"left": 0, "right": 2}
@@ -44,6 +51,8 @@ def test_import_pulls_in_no_jax():
         "import rdycore_tpu_torch.convert, rdycore_tpu_torch.io.writers\n"
         "import rdycore_tpu_torch.io.time_series, rdycore_tpu_torch.ops.structured\n"
         "import rdycore_tpu_torch.ops.kernels.raster_step\n"
+        "import rdycore_tpu_torch.forcing, rdycore_tpu_torch.io.netcdf3\n"
+        "import rdycore_tpu_torch.mesh.exodus, rdycore_tpu_torch.mesh.native\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'rdycore_tpu' or "
         "m.startswith('rdycore_tpu.'))\n"
@@ -127,18 +136,16 @@ def test_stage_with_gamma_other_than_beta_is_refused():
 
 
 @pytest.mark.parametrize("numerics, physics", [
-    # second order, beuler and ark_imex run on both paths (ark_imex on the
-    # unstructured one); with a feature still outside the port they raise
-    # for that feature
+    # on the raster paths RCM is a ConfigError in both packages (their
+    # raster detection refuses a reordered mesh)
     ({"edge_flux_backend": "fused_structured", "second_order": True,
       "temporal": "beuler", "cell_ordering": "rcm"}, {}),
     ({"edge_flux_backend": "fused_structured", "temporal": "beuler",
       "cell_ordering": "rcm"}, {"sediment": {"num_classes": 1}}),
     ({"edge_flux_backend": "fused_structured", "temporal": "beuler",
       "cell_ordering": "rcm"}, {}),
-    # well-balancing runs on the unstructured path (BS2002 at second order
-    # too); with a feature still outside the port it raises for that
-    # feature
+    # on the unstructured path RCM runs with every scheme, second order,
+    # well-balancing and tracers
     ({"second_order": True, "temporal": "beuler", "cell_ordering": "rcm"},
      {"flow": {"well_balancing": "bs2002"}}),
     ({"temporal": "ark_imex", "cell_ordering": "rcm"}, {}),
@@ -148,22 +155,49 @@ def test_stage_with_gamma_other_than_beta_is_refused():
      {"flow": {"well_balancing": "hydrostatic_reconstruction"}}),
     ({"temporal": "beuler", "cell_ordering": "rcm"},
      {"flow": {"well_balancing": "bs2002"}}),
-    # tracers run on both paths; with a feature still outside the port
-    # they raise for that feature
     ({"cell_ordering": "rcm"}, {"sediment": {"num_classes": 1},
           "flow": {"well_balancing": "hydrostatic_reconstruction"}}),
     ({"temporal": "ark_imex", "cell_ordering": "rcm"}, {"salinity": True}),
     ({"temporal": "beuler", "cell_ordering": "rcm"},
      {"heat": True, "flow": {"well_balancing": "hydrostatic_reconstruction"}}),
 ])
-def test_features_outside_the_slice_raise(numerics, physics):
-    cfg = config_from_dict({
-        "numerics": numerics, "physics": physics,
-        "time": {"stop": 0.01, "time_step": 0.001},
-    }).validate()
-    mesh = structured_quad(4, 3, 0.0, 1.0, 0.0, 1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Simulation(cfg, mesh=mesh, device="cpu")
+def test_features_outside_the_slice_raise(numerics, physics, tmp_path,
+                                         monkeypatch):
+    """Each of these decks asks for `cell_ordering: rcm`, which raised
+    until the mesh files and RCM were ported. On a mesh read from an
+    Exodus file, the unstructured ones now reorder it and take a step;
+    on fused_structured RCM is the JAX package's ConfigError."""
+    write_exodus(str(tmp_path / "m.exo"), shuffled_mesh_file())
+    path = str(tmp_path / "deck.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump({
+            "numerics": numerics, "physics": physics,
+            "time": {"stop": 0.001, "time_step": 0.001},
+            "grid": {"file": "m.exo"}, "logging": {"level": "none"},
+        }, f)
+    if numerics.get("edge_flux_backend") == "fused_structured":
+        with pytest.raises(JaxConfigError):
+            JaxSimulation(jax_load_config(path))
+        with pytest.raises(ConfigError, match="raster"):
+            Simulation(load_config(path), device="cpu")
+        return
+    monkeypatch.setattr(timestepping, "NEWTON_ITERS", 1)
+    monkeypatch.setattr(timestepping, "KRYLOV_M", 2)
+    sim = Simulation(load_config(path), device="cpu")
+    nat = sim.get_natural_ids()
+    assert not np.array_equal(nat, np.arange(sim.num_cells))
+    assert np.array_equal(np.sort(nat), np.arange(sim.num_cells))
+    sim.run()
+    assert sim.step == 1 and np.isfinite(sim.get_solution()).all()
+
+
+def shuffled_mesh_file():
+    """structured_tri(4, 3) over 1 m x 1 m, its cells shuffled, one block
+    and no side set: an Exodus mesh that RCM reorders."""
+    mesh = structured_tri(4, 3, 0.0, 1.0, 0.0, 1.0)
+    perm = np.random.default_rng(0).permutation(mesh.num_cells)
+    return MeshFile(mesh.points, mesh.cell_vertices[perm],
+                    np.ones(mesh.num_cells, int), {1: "all"}, [])
 
 
 @pytest.mark.parametrize("section", [

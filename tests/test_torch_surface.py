@@ -3,7 +3,8 @@ yet (ROADMAP fault 20), checked on the CPU without a JAX compile: every
 public member of the JAX Simulation exists on the port's, and each one the
 port lacks (`rebuild_on_mesh`, with AMR) raises NotImplementedError naming
 its ROADMAP item; every option of the JAX CLI is accepted by the port's,
-and each one it lacks exits with status 2 naming its item. The members
+each one it lacks (AMR's) exits with status 2 naming its item, and the
+forcing options run. The members
 the port has are held against the JAX package's in
 tests/test_torch_coupling_surface.py.
 """
@@ -11,12 +12,16 @@ tests/test_torch_coupling_surface.py.
 import ast
 import os
 
+import numpy as np
 import pytest
 
 from rdycore_tpu_torch import Simulation
 from rdycore_tpu_torch.__main__ import _NOT_PORTED_OPTIONS, main
 from rdycore_tpu_torch.config.yaml_input import config_from_dict
+from rdycore_tpu_torch.io.petsc_binary import read_petsc_vec
 from rdycore_tpu_torch.mesh import structured_quad
+from tests.test_torch_forcing import box
+from tests.test_torch_forcing_cli import write_datasets
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -71,11 +76,6 @@ def test_unported_members_raise_naming_their_item(sim, name):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--constant-rain-rate", "1e-6"], "item 5d"),
-    (["--homogeneous-rain-file", "rain.bin"], "item 5d"),
-    (["--temporally-interpolate-rain"], "item 5d"),
-    (["--raster-rain-dir", "rain/"], "item 5d"),
-    (["--homogeneous-bc-file", "right=bc.bin"], "item 5d"),
     (["--amr-dataset-dir", "amr/"], "item 14"),
     (["--amr-area-threshold", "0.2"], "item 14"),
 ])
@@ -85,6 +85,32 @@ def test_unported_cli_options_exit_naming_their_item(argv, item, capsys):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert f"{argv[0]} is not ported" in err and f"ROADMAP queue 1 {item}" in err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--constant-rain-rate", "1e-4"],
+    ["--homogeneous-rain-file", "rain.bin"],
+    ["--homogeneous-rain-file", "rain.bin", "--temporally-interpolate-rain"],
+    ["--raster-rain-dir", "{tmp}/rasters"],
+    ["--homogeneous-bc-file", "outlet=stage.bin"],
+])
+def test_forcing_cli_options_run(argv, tmp_path):
+    """The forcing options, refused until they were ported, run a deck
+    and change its end state (held against the JAX CLI in
+    tests/test_torch_forcing_cli.py)."""
+    os.makedirs(tmp_path / "rasters")
+    write_datasets(tmp_path)
+    deck = box(tmp_path)
+    with open(deck, "a") as f:
+        f.write("output: {format: binary, output_interval: 20}\n")
+    ends = []
+    for name, extra in (("plain", []), ("forced", argv)):
+        out = str(tmp_path / name)
+        assert main([deck, "--cpu", "--output-dir", out,
+                     *[a.format(tmp=tmp_path) for a in extra]]) == 0
+        last = sorted(f for f in os.listdir(out) if f.endswith(".bin"))[-1]
+        ends.append(read_petsc_vec(os.path.join(out, last)))
+    assert np.isfinite(ends[1]).all() and not np.array_equal(*ends)
 
 
 def cli_options(path):
