@@ -144,16 +144,16 @@ Phases, each printing as it goes; any failure exits non-zero:
    the volume budget). (b) beuler (6 Newton iterations of GMRES(16),
    residuals on the kernels, JVPs by forward-mode AD through the twin) on
    phase 3's mesh and dam break with every wall reflecting, dt 0.0025 s (a
-   Courant number of about 2, printed, > 1 required): 2 steps (one
+   Courant number of about 2, printed, > 1 required): 1 step (one
    coupling interval) with exact launches (K1a and K1b 25 times a step,
-   K1c once), held against the same 2 steps with plain residuals (2e-5
+   K1c once), held against the same step with plain residuals (2e-5
    relative to 1 +
    |q|), h finite and >= -1e-6, the closed box's volume to 1e-5; one more
    step split by CUDA events into residual kernels, JVPs and glue, with
    its Newton residual norm beside its start. (c) The same on the raster
    (K2 in rhs mode 25 times a step, K1c and boundary K1a once; JVPs
    through the plain `structured` operator). (d) The raster at second
-   order (K2 MUSCL in rhs mode, minmod), 2 steps, the kernel-vs-plain
+   order (K2 MUSCL in rhs mode, minmod), 1 step, the kernel-vs-plain
    difference printed unbounded. Each path's kernels are held against
    their plain versions and timed at its shapes.
 
@@ -242,6 +242,34 @@ Phases, each printing as it goes; any failure exits non-zero:
    float32's rounding of the reservoir's uniform depth), and K2 with the
    rain plane held against its plain version and timed.
 
+13. Ensembles, AMR and the profiling harness on phase 3's dam break, its
+   mesh written once as an .npz (phases 11-13 read it). (a) A four-member
+   ensemble on the shared grid through `EnsembleSimulation` (Manning n
+   0.012, 0.018, 0.024, 0.030; members 2 and 3 with a reservoir of 0.20
+   and 0.30 m; f32, euler, dt 0.0005 s, coupling intervals of 50 steps):
+   10 steps of each member on the kernels against 10 on the plain
+   versions (every row of q and of the accumulators, and the Courant
+   number, to relative 1e-4); then 200 steps with the launch counts set to
+   0 just before, K1a, K1b and K1c launched 4 times a step; each member's
+   h finite and >= 0 and its volume budget (1e-4); each member against a
+   solo `Simulation` of its deck (1e-6, its largest difference printed);
+   the members apart; setup seconds, wall ms per interval and ms per
+   member-step beside the solo runs' and phase 3's. (b) AMR twice
+   through the CLI's `main` (`--amr-dataset-dir`, `--amr-area-threshold
+   2e-6`) on phase 3's deck at dt 0.0001 s, intervals of 40 steps, 240
+   steps: minute 0's dataset marks the 256 columns within 0.25 m of the
+   dam (3,976,192 cells after it), minute 2's the 128 within 0.125 m of x
+   = 3 m (4,528,128): each event's cells, the volume across it (1e-6,
+   summed in f64), exact launches, the Courant number (<= 0.5), h finite
+   and >= 0, the volume budget against the outflow over the three meshes
+   (1e-4), 10 steps on the kernels against the plain versions on the final
+   mesh (1e-4); seconds of `refine_marked` and of the rebuild, the peak
+   device memory, ms/step on each mesh; K1a, K1b and K1c held and timed
+   at the mixed mesh's shapes. (c) `profiling.preload` after an interval
+   restores the state bit for bit; `StepTimer`'s steady cell-updates/s
+   beside phase 3's; `profiling.trace` writes a Chrome trace naming K1a,
+   K1b and K1c.
+
 Before the last line it prints the card's name and power limit and a JSON
 line {"kernels": [...]} with one row per kernel and path ("path":
 "unstructured", "raster", "unstructured+tracers", "raster+tracers" (these
@@ -251,8 +279,9 @@ two with "nt": 3), "unstructured+muscl", "raster+muscl",
 "unstructured ark_imex", "unstructured beuler", "raster beuler", "raster
 beuler+muscl", "unstructured mms", "unstructured mms+muscl", "unstructured
 mms+sediment", "unstructured thacker+muscl", "coupler raster",
-"coupler unstructured", "exodus file order", "exodus rcm" or
-"raster+rain", these thirteen with "launches_per_step", phase 10's
+"coupler unstructured", "exodus file order", "exodus rcm", "raster+rain",
+"unstructured ensemble4" or "unstructured amr", these fifteen with
+"launches_per_step", phase 10's
 with "dtype": "float64", phase 11's with the C host's launches; a
 strip row names its strip [row0, rows, halo_lo, halo_hi]),
 each with that path's own launches, times and bound, and "timers" naming
@@ -369,7 +398,7 @@ STRIPS = 4  # phase 8: row strips on the one card
 # (1/512 m)) and steps
 IMEX_STEPS, IMEX_INTERVAL_STEPS = 100, 50
 DT_BEULER = 0.0025
-BEULER_STEPS = 2  # one coupling interval
+BEULER_STEPS = 1  # one coupling interval
 # phase 10: the MMS studies' dt (a Courant number near 0.34 on the finest
 # quads, 1/512 m; 0.28 on the finest triangles, legs of 1/256 m; 0.34 on
 # the sediment ladder's finest quads, 1/256 m) and end time; Thacker's
@@ -956,6 +985,29 @@ def dam_break_mesh(nx=2048, ny=1408):
     return mesh
 
 
+MESH_NPZ = {}  # id of a mesh -> the .npz written of it
+
+
+def dam_break_npz(mesh, link):
+    """Phases 11-13's .npz of the dam-break mesh, written once (some 10 s
+    at full size) into output/chip_smoke_mesh/, and linked as `link`."""
+    import os
+
+    from rdycore_tpu_torch.mesh import save_mesh_npz
+
+    path = MESH_NPZ.get(id(mesh))
+    if path is None:
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "output", "chip_smoke_mesh", "dam_break.npz")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        t0 = time.perf_counter()
+        save_mesh_npz(mesh, path)
+        log(f"  mesh written once as .npz in {time.perf_counter() - t0:.2f} "
+            "s (phases 11-13 read it)")
+        MESH_NPZ[id(mesh)] = path
+    os.symlink(path, link)
+
+
 def check_launches(path, launches, expected):
     """Fail unless the path launched each kernel exactly as expected (a
     kernel that `expected` does not name: never)."""
@@ -993,6 +1045,19 @@ def rows_rel_err(a, b):
     magnitude (a row of zeros in both counts 0)."""
     a, b = torch.as_tensor(a), torch.as_tensor(b)
     return max(rel_err(a[k], b[k]) for k in range(a.shape[0]))
+
+
+def vector_rel_err(a, b):
+    """Like `rows_rel_err`, but the momentum rows (1 and 2) relative to
+    the larger of their two largest magnitudes: where the flow runs along
+    x, hv is float32 rounding noise (1e-9 on phase 13b's mixed mesh, whose
+    triangles break the raster's symmetry) that no row-wise bound fits."""
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    errs = [rel_err(a[k], b[k]) for k in range(a.shape[0])]
+    mom = max(float(b[1:3].double().abs().max()), 1e-30)
+    for k in (1, 2):
+        errs[k] = abs_err(a[k], b[k]) / mom
+    return max(errs)
 
 
 def path_operator(sim):
@@ -2717,7 +2782,7 @@ def imex_dam_break_config(steps, backend="xla", scheme="ark_imex"):
 def closed_dam_break_config(steps, backend="xla", scheme="beuler",
                             second_order=False):
     """Phase 3's dam break with every wall reflecting (a closed box) at
-    dt = DT_BEULER, two steps a coupling interval; second order: MUSCL
+    dt = DT_BEULER, coupling intervals of two steps; second order: MUSCL
     minmod with the positivity limiter."""
     from rdycore_tpu_torch.config.yaml_input import config_from_dict
 
@@ -2751,12 +2816,12 @@ def check_closed_box(sim, q0, area):
 
 def run_beuler_path(path, make_sim, steps, per_step, check,
                     plain_bound=2e-5):
-    """Drive a beuler path at full size through `Simulation`: first 2
-    steps with plain residuals (make_sim(n, plain=True): the kernels
-    replaced by their plain versions, the JVPs through the twin either
-    way), kept aside; then every launch count set to 0, and the path on
-    the kernels: its first coupling interval (2 steps), held to the plain
-    run to `plain_bound` relative to 1 + |q| (2e-5: the JAX package's
+    """Drive a beuler path at full size through `Simulation`: its first
+    coupling interval (up to 2 steps) with plain residuals (make_sim(n,
+    plain=True): the kernels replaced by their plain versions, the JVPs
+    through the twin either way), kept aside; then every launch count set
+    to 0, and the path on the kernels: its first coupling interval, held
+    to the plain run to `plain_bound` relative to 1 + |q| (2e-5: the JAX package's
     bound for kernel against XLA residuals; None: printed only), and the
     remaining steps; exact launches per step over all `steps` (the counted
     window holds the path's run alone); then check(sim, q0). Returns the
@@ -2783,7 +2848,7 @@ def run_beuler_path(path, make_sim, steps, per_step, check,
     log(f"  {n_first} steps, kernel residuals vs plain residuals: max "
         f"|dq| / (1 + |q|) {rel:.3e}; Courant {sim.prev_max_courant:.6f} "
         f"vs {c_plain:.6f}")
-    if not (n_first == n_plain == 2
+    if not (n_first == n_plain == min(steps, 2)
             and (plain_bound is None or rel <= plain_bound)):
         raise SystemExit(f"{path}: kernel residuals differ from plain: "
                          f"{rel}")
@@ -3041,8 +3106,8 @@ def phase_implicit(errs, dev, mesh):
                               launches, beuler_step, errs, prim=False)
     del sim, twin
 
-    for tag, second_order, steps in (("raster beuler", False, BEULER_STEPS),
-                                     ("raster beuler+muscl", True, 2)):
+    for tag, second_order in (("raster beuler", False),
+                              ("raster beuler+muscl", True)):
         k2 = "swe_raster_muscl_step" if second_order else "swe_raster_step"
         per_step = {k2: 25, "courant_argmax": 1, "swe_edge_flux": 1}
         order = (" at second order (K2 MUSCL rhs, minmod)" if second_order
@@ -3061,7 +3126,7 @@ def phase_implicit(errs, dev, mesh):
         # kernel against plain residuals can change a line-search choice;
         # that difference is printed, unbounded (ROADMAP item 7)
         sim, launches, wall = run_beuler_path(
-            f"{tag} path", make, steps, per_step,
+            f"{tag} path", make, BEULER_STEPS, per_step,
             lambda sim, q0: check_closed_box(sim, q0, area),
             None if second_order else 2e-5)
         st = sim._structured
@@ -3593,13 +3658,15 @@ def bridge_sequence(deck, ckpt, onedof, timings):
     return "\n".join(lines), 0
 
 
-def coupler_rows(card, path, sim, launches, errs, dt=DT, src=None):
+def coupler_rows(card, path, sim, launches, errs, dt=DT, src=None,
+                 per_step=1):
     """The kernels of a path at its shapes (the coupler's, phase 11, and
-    phase 12's), on the final state of a run of its deck, held against
-    their plain versions and timed: K1a, K1b in an euler stage of `dt` with
-    the primitives and K1c (unstructured), or K2 in that stage (with the
-    rain plane `src` [ny, nx] where given) and K1c on its tile maxima
-    (raster); the rows of `path`."""
+    phases 12's and 13's), on the final state of a run of its deck, held
+    against their plain versions and timed: K1a, K1b in an euler stage of
+    `dt` with the primitives and K1c (unstructured), or K2 in that stage
+    (with the rain plane `src` [ny, nx] where given) and K1c on its tile
+    maxima (raster); the rows of `path`, each kernel launched `per_step`
+    times a step."""
     from rdycore_tpu_torch.ops.kernels.cell_stage import swe_cell_stage_plain
     from rdycore_tpu_torch.ops.kernels.courant import courant_argmax_plain
     from rdycore_tpu_torch.ops.kernels.edge_flux import swe_edge_flux_plain
@@ -3675,7 +3742,8 @@ def coupler_rows(card, path, sim, launches, errs, dt=DT, src=None):
     nops["courant_argmax"] = OPS_PER_VALUE * values.numel()
     return [kernel_row(card, name, path, fns, launches[name],
                        max(err[name], errs.get(name, 0.0)), nbytes[name],
-                       nops[name], q.dtype, replaces, launches_per_step=1)
+                       nops[name], q.dtype, replaces,
+                       launches_per_step=per_step)
             for name, fns in calls.items()]
 
 
@@ -3750,7 +3818,6 @@ def phase_coupler(errs, dev, mesh):
     import shutil
 
     from rdycore_tpu_torch.capi import build
-    from rdycore_tpu_torch.mesh import save_mesh_npz
 
     card = nvidia_smi_line()
     t_phase = time.perf_counter()
@@ -3761,9 +3828,7 @@ def phase_coupler(errs, dev, mesh):
     log(f"== phase 11: the coupler's path, dam break on {mesh.num_cells:,} "
         f"cells (every wall reflecting, dry floodplain), f32, euler, dt {DT} "
         f"s, coupling intervals of {COUPLER_INTERVAL} steps")
-    t0 = time.perf_counter()
-    save_mesh_npz(mesh, os.path.join(work, "coupler.npz"))
-    log(f"  mesh written once as .npz in {time.perf_counter() - t0:.2f} s")
+    dam_break_npz(mesh, os.path.join(work, "coupler.npz"))
     decks = {}
     for tag, backend in (("raster", "fused_structured"),
                          ("unstructured", "xla")):
@@ -4222,7 +4287,6 @@ def phase_files_rain(errs, dev, work, mesh):
     from rdycore_tpu_torch.__main__ import main as cli_main
     from rdycore_tpu_torch.config.yaml_input import load_config
     from rdycore_tpu_torch.forcing import ConstantRain, Forcing, attach_forcing
-    from rdycore_tpu_torch.mesh import save_mesh_npz
     from rdycore_tpu_torch.ops import kernels
 
     card = nvidia_smi_line()
@@ -4230,8 +4294,7 @@ def phase_files_rain(errs, dev, work, mesh):
         f"cells, every wall reflecting) as .npz on fused_structured, "
         f"--constant-rain-rate {RAIN_RATE} m/s ({RAIN_RATE * DT:.1e} m a "
         f"step), {RAIN_STEPS} steps")
-    npz = os.path.join(work, "dam_break.npz")
-    timed("mesh written as .npz", lambda: save_mesh_npz(mesh, npz))
+    dam_break_npz(mesh, os.path.join(work, "dam_break.npz"))
     d = dam_break_dict(RAIN_STEPS, "fused_structured")
     d["grid"] = {"file": "dam_break.npz"}
     # every wall reflecting: the volume gained is the rain's
@@ -4316,6 +4379,441 @@ def phase_files(errs, dev, dam_mesh):
     return rows
 
 
+# ----------------------------------------------------------------- phase 13
+# (a) the four-member ensemble on phase 3's deck: each member's Manning n,
+# and the reservoir depth ("column") of the members that override it; the
+# run's steps and coupling interval (in steps)
+ENSEMBLE_N = (0.012, 0.018, 0.024, 0.030)
+ENSEMBLE_COLUMN = (None, None, 0.20, 0.30)
+ENSEMBLE_STEPS, ENSEMBLE_INTERVAL = 200, 50
+# (b) AMR through the CLI on phase 3's deck: dt (the Courant number stays
+# <= 0.5 on the quad fans: a small fan triangle's diagonal edge has 4
+# sqrt(2) times a quad's edge-to-area ratio, 0.45 in the 0.25 m reservoir),
+# steps, coupling interval (in steps), the area
+# threshold (the base cells are 3.81e-6 m^2, their red children 9.5e-7: a
+# cell refines at most once), the columns each minute's dataset marks
+# (minute, x centre, half width [m]) and the cells after each event
+AMR_DT, AMR_STEPS, AMR_INTERVAL = 0.0001, 240, 40
+AMR_THRESHOLD = 2e-6
+AMR_BANDS = ((0, 2.0, 0.25), (2, 3.0, 0.125))
+AMR_CELLS = (3_976_192, 4_528_128)
+# (c) profiling: phase 3's deck for this many steps (coupling intervals of
+# 200 steps: one before `preload`, one inside it, three under StepTimer)
+PROFILE_STEPS = 800
+K1 = ("swe_edge_flux", "swe_cell_stage", "courant_argmax")
+
+
+def ensemble_dict(steps, npz):
+    """Phase 3's deck on the mesh file `npz` with an ensemble section: each
+    member overrides material "smooth" with its Manning n, and members 2
+    and 3 flow condition "column" with their reservoir depth; coupling
+    intervals of ENSEMBLE_INTERVAL steps."""
+    d = dam_break_dict(steps)
+    d["grid"] = {"file": npz}
+    d["time"]["coupling_interval"] = ENSEMBLE_INTERVAL * DT
+    members = []
+    for i, (n, h) in enumerate(zip(ENSEMBLE_N, ENSEMBLE_COLUMN)):
+        m = {"name": f"member_{i}", "materials": [
+            {"name": "smooth", "properties": {"manning": {"value": n}}}]}
+        if h is not None:
+            m["flow_conditions"] = [{"name": "column", "type": "dirichlet",
+                                     "height": h, "x_momentum": 0,
+                                     "y_momentum": 0}]
+        members.append(m)
+    d["ensemble"] = {"size": len(members), "members": members}
+    return d
+
+
+def step_errors(a, b):
+    """Relative differences of two runs' (Simulations') q, accumulators
+    (worst row) and Courant numbers."""
+    r = {"q": rows_rel_err(a.q, b.q)}
+    for name in ("bflux_accum", "accum_sol", "accum_prim"):
+        r[name] = rows_rel_err(getattr(a, name), getattr(b, name))
+    ca, cb = a.prev_max_courant, b.prev_max_courant
+    r["courant"] = abs(ca - cb) / max(abs(cb), 1e-30)
+    return r
+
+
+def phase_ensemble(errs, dev, npz):
+    """13a: the four-member ensemble on a shared grid through
+    `EnsembleSimulation`: 10 steps on the kernels against 10 on the plain
+    versions for every member, then ENSEMBLE_STEPS steps with exact
+    launches (K1a, K1b and K1c once a member-step), each member's state
+    and volume budget, each member against its solo Simulation, the
+    members apart from one another; the rows of "unstructured
+    ensemble4"."""
+    import dataclasses
+
+    from rdycore_tpu_torch import Simulation
+    from rdycore_tpu_torch.config.yaml_input import config_from_dict
+    from rdycore_tpu_torch.ensemble import EnsembleSimulation, member_config
+    from rdycore_tpu_torch.ops import kernels
+    from rdycore_tpu_torch.simulation import load_mesh_file
+    from rdycore_tpu_torch.timestepping import make_interval_advancer
+
+    card = nvidia_smi_line()
+    size = len(ENSEMBLE_N)
+
+    def cfg(steps):
+        return config_from_dict(ensemble_dict(steps, npz)).validate()
+
+    log(f"== phase 13a: a {size}-member ensemble (Manning n {ENSEMBLE_N}, "
+        f"reservoir {[h or H_RESERVOIR for h in ENSEMBLE_COLUMN]} m) on a "
+        f"shared grid, phase 3's deck, f32, euler, dt {DT} s, coupling "
+        f"intervals of {ENSEMBLE_INTERVAL} steps")
+    t0 = time.perf_counter()
+    ens = EnsembleSimulation(cfg(ENSEMBLE_STEPS), device=dev)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    # 10 steps of each member on the kernels, as the ensemble's advancer
+    # takes them, against 10 on the plain versions through the ensemble
+    plain = EnsembleSimulation(cfg(10), device=dev)
+    for m in plain.members:
+        m.operator = plain_operator(m.operator)
+    plain.run()
+    for i, (m, mp) in enumerate(zip(ens.members, plain.members)):
+        res = make_interval_advancer(m.operator, "euler")(
+            m.q, m.t, m.dt, 10, 10 * m.dt, m.boundary_values, m.ext_src)
+        r = {"q": rows_rel_err(res.q, mp.q)}
+        for name in ("bflux_accum", "accum_sol", "accum_prim"):
+            r[name] = rows_rel_err(getattr(res, name).cpu(),
+                                   getattr(mp, name))
+        cp = mp.prev_max_courant
+        r["courant"] = abs(float(res.max_courant) - cp) / max(abs(cp), 1e-30)
+        log(f"  member {i}: 10 steps, kernels vs plain versions (worst row): "
+            + ", ".join(f"{k} {v:.3e}" for k, v in r.items()))
+        if not (mp.step == 10 and all(v <= 1e-4 for v in r.values())):
+            raise SystemExit(f"ensemble member {i} differs from plain: {r}")
+    del plain, res, mp
+
+    q0 = [m.get_solution().astype(np.float64) for m in ens.members]
+    kernels.reset_launch_counts()
+    walls = []
+    while not ens.finished:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ens.advance()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    check_launches(f"ensemble's {ENSEMBLE_STEPS} steps", launches,
+                   {k: size * ENSEMBLE_STEPS for k in K1})
+    area = ens.members[0].mesh.cell_area
+    for i, m in enumerate(ens.members):
+        log(f"  member {i}: step {m.step}, t {m.t:.6f} s, max Courant "
+            f"{m.prev_max_courant:.4f}")
+        if m.step != ENSEMBLE_STEPS:
+            raise SystemExit(f"member {i} took {m.step} steps")
+        check_state_and_budget(m, q0[i], area)
+    apart = [rows_rel_err(m.q, ens.members[0].q) for m in ens.members[1:]]
+    log(f"  members 1-{size - 1} against member 0 (worst row): "
+        + ", ".join(f"{v:.3e}" for v in apart))
+    if not min(apart) > 1e-3:
+        raise SystemExit("the ensemble's members do not differ")
+    mesh = load_mesh_file(npz)
+    solo_err, solo_walls = [], []
+    for i, m in enumerate(ens.members):
+        solo = Simulation(member_config(cfg(ENSEMBLE_STEPS), i), device=dev,
+                          mesh=dataclasses.replace(mesh))
+        while not solo.finished:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solo.advance()
+            torch.cuda.synchronize()
+            solo_walls.append(time.perf_counter() - t0)
+        solo_err.append(max(rows_rel_err(m.q, solo.q),
+                            rows_rel_err(m.bflux_accum, solo.bflux_accum)))
+        del solo
+    log(f"  each member against its solo Simulation ({ENSEMBLE_STEPS} steps;"
+        f" worst row of q and the boundary fluxes): "
+        + ", ".join(f"{v:.3e}" for v in solo_err))
+    if not max(solo_err) <= 1e-6:
+        raise SystemExit(f"members differ from their solo runs: {solo_err}")
+    steady = walls[1:] or walls
+    interval_ms = 1e3 * sum(steady) / len(steady)
+    member_step = interval_ms / (ENSEMBLE_INTERVAL * size)
+    n = ENSEMBLE_STEPS // ENSEMBLE_INTERVAL
+    solo_steady = [w for k, w in enumerate(solo_walls) if k % n]
+    solo_ms = 1e3 * sum(solo_steady) / len(solo_steady) / ENSEMBLE_INTERVAL
+    phase3_ms = STEADY.get("unstructured main path", (float("nan"),))[0]
+    log(f"  [{card}] setup {t_setup:.2f} s for {size} members; wall ms per "
+        f"interval of {ENSEMBLE_INTERVAL} steps: "
+        + ", ".join(f"{1e3 * w:.2f}" for w in walls)
+        + f" (steady {interval_ms:.2f}); {member_step:.4f} ms per "
+        f"member-step against the solo runs' {solo_ms:.4f} ms/step (the same "
+        f"intervals, the first of each left out) and phase 3's "
+        f"{phase3_ms:.4f} (intervals of 200 steps)")
+    return coupler_rows(card, f"unstructured ensemble{size}", ens.members[0],
+                        launches, errs, per_step=size)
+
+
+def phase_amr(errs, dev, work, mesh):
+    """13b: AMR twice through the CLI's main on phase 3's deck (dt
+    AMR_DT): the datasets of minutes 0 and 2 mark bands of columns; each
+    event's cells, the volume across it, exact launches, the Courant
+    number, h and the volume budget against the outflow over all three
+    meshes, 10 steps on the kernels against the plain versions on the
+    final mesh; the rows of "unstructured amr"."""
+    import datetime
+    import os
+
+    from rdycore_tpu_torch import Simulation, amr
+    from rdycore_tpu_torch.__main__ import main as cli_main
+    from rdycore_tpu_torch.forcing import dataset_filename
+    from rdycore_tpu_torch.io.petsc_binary import write_petsc_vec
+    from rdycore_tpu_torch.ops import kernels
+    from rdycore_tpu_torch.timestepping import make_interval_advancer
+
+    card = nvidia_smi_line()
+    amr_dir = os.path.join(work, "amr")
+    os.makedirs(amr_dir)
+    x = mesh.cell_centroid[:, 0]
+    for minute, centre, half in AMR_BANDS:
+        band = np.abs(x - centre) < half
+        write_petsc_vec(dataset_filename(amr_dir, datetime.datetime(2011, 1, 1)
+                                         + datetime.timedelta(minutes=minute)),
+                        band.astype(np.float64))
+        log(f"  dataset of minute {minute}: {int(band.sum()):,} cells with "
+            f"|x - {centre}| < {half} m")
+    d = dam_break_dict(AMR_STEPS)
+    d["grid"] = {"file": "dam_break.npz"}
+    d["time"].update(stop=AMR_STEPS * AMR_DT, time_step=AMR_DT,
+                     coupling_interval=AMR_INTERVAL * AMR_DT)
+    deck = os.path.join(work, "amr.yaml")
+    with open(deck, "w") as f:  # JSON is YAML
+        json.dump(d, f)
+    argv = [deck, "--amr-dataset-dir", amr_dir, "--amr-area-threshold",
+            str(AMR_THRESHOLD)] + (["--cpu"] if dev.type == "cpu" else [])
+    log(f"== phase 13b: AMR through the CLI: python -m rdycore_tpu_torch "
+        f"{' '.join(os.path.relpath(a) if os.sep in a else a for a in argv)}"
+        f" (phase 3's deck, f32, euler, dt {AMR_DT} s, {AMR_STEPS} steps in "
+        f"intervals of {AMR_INTERVAL})")
+
+    def volume(sim):
+        return float(np.sum(sim.get_height().astype(np.float64)
+                            * sim.mesh.cell_area))
+
+    def outflow(sim):
+        lens = sim.operator.arrays.bnd_len.cpu().numpy().astype(np.float64)
+        return float(np.sum(sim.bflux_accum[0] * lens))
+
+    rec = {"sim": None, "intervals": [], "events": [], "refine_s": [],
+           "rebuild": []}
+    advance, perform = Simulation.advance, Simulation.perform_amr
+    rebuild, refine = Simulation.rebuild_on_mesh, amr.refine_marked
+
+    def first(self):
+        if rec["sim"] is None:
+            rec["sim"], rec["v0"] = self, volume(self)
+
+    def timed_advance(self):
+        first(self)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        advance(self)
+        torch.cuda.synchronize()
+        rec["intervals"].append((self.num_cells, time.perf_counter() - t0,
+                                 self.prev_max_courant))
+
+    def timed_perform(self):
+        first(self)
+        ev = dict(before=self.num_cells, marked=int(self._amr_marked.sum()),
+                  v_before=volume(self), out_before=outflow(self))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        perform(self)
+        torch.cuda.synchronize()
+        ev.update(after=self.num_cells, seconds=time.perf_counter() - t0,
+                  v_after=volume(self))
+        rec["events"].append(ev)
+
+    def timed_refine(m, marked):
+        t0 = time.perf_counter()
+        out = refine(m, marked)
+        rec["refine_s"].append(time.perf_counter() - t0)
+        return out
+
+    def timed_rebuild(self, new_mesh, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rebuild(self, new_mesh, n)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated(self.device) / 1e9
+                if self.device.type == "cuda" else float("nan"))
+        rec["rebuild"].append((time.perf_counter() - t0, peak))
+
+    Simulation.advance, Simulation.perform_amr = timed_advance, timed_perform
+    Simulation.rebuild_on_mesh, amr.refine_marked = timed_rebuild, timed_refine
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = cli_main(argv)
+    finally:
+        Simulation.advance, Simulation.perform_amr = advance, perform
+        Simulation.rebuild_on_mesh, amr.refine_marked = rebuild, refine
+    t_cli = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    sim = rec["sim"]
+    if rc != 0 or sim is None:
+        raise SystemExit(f"the CLI returned {rc}")
+    check_launches(f"AMR run's {AMR_STEPS} steps", launches,
+                   {k: AMR_STEPS for k in K1})
+    for ev, refine_s, (rebuild_s, peak) in zip(
+            rec["events"], rec["refine_s"], rec["rebuild"]):
+        dv = abs(ev["v_after"] - ev["v_before"]) / ev["v_before"]
+        ev["volume_rel"] = dv
+        log(f"  [{card}] event: {ev['marked']:,} cells marked, "
+            f"{ev['before']:,} -> {ev['after']:,} cells; refine_marked "
+            f"{refine_s:.2f} s, rebuild {rebuild_s:.2f} s, perform_amr "
+            f"{ev['seconds']:.2f} s; peak device memory {peak:.2f} GB; "
+            f"volume {ev['v_before']:.9e} -> {ev['v_after']:.9e} m^3 "
+            f"(relative {dv:.2e})")
+    cells = tuple(ev["after"] for ev in rec["events"])
+    if cells != AMR_CELLS or not all(ev["volume_rel"] <= 1e-6
+                                     for ev in rec["events"]):
+        raise SystemExit(f"refinement events: cells {cells}, expected "
+                         f"{AMR_CELLS}, or the volume moved")
+    courant = max(c for _, _, c in rec["intervals"])
+    by_cells = {}
+    for n, wall, _ in rec["intervals"]:
+        by_cells.setdefault(n, []).append(wall)
+    for n, walls in by_cells.items():
+        log(f"  [{card}] {n:,} cells: "
+            + ", ".join(f"{1e3 * w / AMR_INTERVAL:.4f}" for w in walls)
+            + " ms/step (each interval of "
+            f"{AMR_INTERVAL} steps, its read-back included)")
+    log(f"  [{card}] 2,883,584 cells: phase 3's "
+        f"{STEADY.get('unstructured main path', (float('nan'),))[0]:.4f} "
+        f"ms/step (dt {DT} s); the CLI run {t_cli:.2f} s in all; max Courant"
+        f" {courant:.4f}")
+    h = sim.get_height()
+    v1 = volume(sim)
+    out = sum(ev["out_before"] for ev in rec["events"]) + outflow(sim)
+    budget = abs((rec["v0"] - v1) - out) / rec["v0"]
+    log(f"  volume: initial {rec['v0']:.9e} m^3, final {v1:.9e}, lost "
+        f"{rec['v0'] - v1:.6e}, outflow over the three meshes {out:.6e}, "
+        f"budget error {budget:.3e} of the initial volume")
+    if not (sim.step == AMR_STEPS and np.isfinite(sim.get_solution()).all()
+            and h.min() >= 0.0 and budget <= 1e-4 and out > 0.0
+            and courant <= 0.5):
+        raise SystemExit(f"AMR run: step {sim.step}, min h {h.min()}, budget "
+                         f"{budget}, outflow {out}, Courant {courant}")
+    t1 = sim.t + 10 * AMR_DT
+    res, ms = [], []
+    for op in (sim.operator, plain_operator(sim.operator)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res.append(make_interval_advancer(op, "euler")(
+            sim.q, sim.t, AMR_DT, 10, t1, sim.boundary_values, sim.ext_src))
+        torch.cuda.synchronize()
+        ms.append(1e2 * (time.perf_counter() - t0))
+    log(f"  [{card}] 10 steps on the {sim.num_cells:,}-cell mesh without "
+        f"the read-back: {ms[0]:.4f} ms/step on the kernels, {ms[1]:.4f} "
+        "on the plain versions")
+    r = {name: vector_rel_err(getattr(res[0], name), getattr(res[1], name))
+         for name in ("q", "bflux_accum", "accum_sol", "accum_prim")}
+    ck, cp = float(res[0].max_courant), float(res[1].max_courant)
+    r["courant"] = abs(ck - cp) / max(abs(cp), 1e-30)
+    q_max = res[1].q.abs().amax(dim=1).tolist()
+    q_err = (res[0].q - res[1].q).abs().amax(dim=1).tolist()
+    log(f"  10 steps on the {sim.num_cells:,}-cell mesh, kernels vs plain "
+        f"versions (momentum rows against the momentum's scale): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in r.items())
+        + "; q's rows h, hu, hv: largest " + ", ".join(
+            f"{v:.3e}" for v in q_max) + ", largest difference " + ", ".join(
+            f"{v:.3e}" for v in q_err))
+    if not all(v <= 1e-4 for v in r.values()):
+        raise SystemExit(f"AMR mesh: kernels differ from plain: {r}")
+    del res
+    return coupler_rows(card, "unstructured amr", sim, launches, errs,
+                        dt=AMR_DT)
+
+
+def phase_profiling(dev, mesh, work):
+    """13c: profiling.py on phase 3's deck: `preload` after an interval
+    puts the state back bit for bit; `StepTimer`'s steady cell-updates/s
+    beside phase 3's; `trace` writes a Chrome trace naming K1a, K1b and
+    K1c."""
+    import os
+
+    from rdycore_tpu_torch.profiling import StepTimer, preload, trace
+
+    card = nvidia_smi_line()
+    log(f"== phase 13c: profiling.py on phase 3's deck ({PROFILE_STEPS} "
+        "steps, intervals of 200)")
+    sim = unstructured_simulation(PROFILE_STEPS, dev, mesh)
+    sim.advance()
+
+    def state():
+        return (sim.q.clone(), sim.t, sim.step, sim.dt, sim.prev_max_courant,
+                sim.prev_courant_edge, sim.bflux_accum.copy(),
+                sim.accum_sol.copy(), sim.accum_prim.copy(), sim.accum_time)
+
+    before = state()
+    seconds = preload(sim)
+    after = state()
+    same = (torch.equal(before[0], after[0]) and before[1:6] == after[1:6]
+            and all(np.array_equal(a, b) for a, b in zip(before[6:9],
+                                                         after[6:9]))
+            and before[9] == after[9])
+    log(f"  preload: one interval in {seconds:.3f} s; the state after it "
+        f"{'bit for bit' if same else 'DIFFERS from'} the state before (q, "
+        "t, step, dt, Courant number and edge, accumulators)")
+    if not same:
+        raise SystemExit("preload did not restore the state")
+    timer = StepTimer(sim)
+    sim.add_monitor(timer)
+    sim.run()
+    summary = timer.summary()
+    rate = STEADY.get("unstructured main path", (0.0, float("nan")))[1]
+    log(f"  [{card}] StepTimer: {json.dumps(summary)}; phase 3's "
+        f"{rate:.4e} cell-updates/s")
+    if not (sim.step == PROFILE_STEPS and summary["steady_intervals"] >= 2):
+        raise SystemExit(f"StepTimer: {summary}")
+    names = {"K1a": "swe_edge_flux_kernel", "K1b": "swe_cell_stage_kernel",
+             "K1c": "courant_argmax_kernel"}
+    for attempt in range(3):  # a profiler session may drop device records
+        logdir = os.path.join(work, f"trace{attempt}")
+        short = unstructured_simulation(10, dev, mesh)
+        with trace(logdir):
+            short.run()
+        path = os.path.join(logdir, "trace.json")
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        seen = {k: sum(1 for e in events if v in e.get("name", ""))
+                for k, v in names.items()}
+        log(f"  trace(): {os.path.getsize(path):,} bytes, {len(events):,} "
+            f"events; kernel events over 10 steps {seen}")
+        if all(seen.values()):
+            return
+    raise SystemExit("the trace names no K1a, K1b or K1c events")
+
+
+def phase_ensemble_amr(errs, dev, mesh):
+    """Phase 13: a four-member ensemble (13a), AMR twice through the CLI
+    (13b) and the profiling harness (13c), on phase 3's mesh written as an
+    .npz."""
+    import os
+    import shutil
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "output", "chip_smoke_ensemble")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    npz = os.path.join(work, "dam_break.npz")
+    dam_break_npz(mesh, npz)
+    rows = phase_ensemble(errs, dev, npz)
+    rows += phase_amr(errs, dev, work, mesh)
+    phase_profiling(dev, mesh, work)
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(os.path.join(root, "output", "chip_smoke_mesh"),
+                  ignore_errors=True)
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -4345,6 +4843,7 @@ def main():
     rows += phase_implicit(errs, dev, mesh)
     rows += phase_coupler(errs, dev, mesh)
     rows += phase_files(errs, dev, mesh)
+    rows += phase_ensemble_amr(errs, dev, mesh)
     del mesh
     rows += phase_mms(errs, dev)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -5,6 +5,8 @@ Usage:
     python -m rdycore_tpu_torch <config.yaml> [--cpu] [--dt SECONDS]
                                 [--f32|--f64] [--output-dir DIR] [--mms]
                                 [--pause] [forcing options]
+                                [--amr-dataset-dir DIR]
+                                [--amr-area-threshold AREA]
 
 It runs on the CUDA device, or with --cpu on the CPU (the kernels' plain
 PyTorch versions). With --mms the deck's `mms` section runs as the
@@ -15,9 +17,13 @@ setup (to attach a debugger, the reference's -pause). The forcing options
 (--constant-rain-rate, --homogeneous-rain-file with
 --temporally-interpolate-rain, --raster-rain-dir, --homogeneous-bc-file
 BOUNDARY=FILE) apply their datasets before every coupling interval, as the
-JAX package's CLI does (forcing.py). The JAX package's AMR options are
-accepted and exit with status 2, naming the ROADMAP item that will port
-them. Without a CUDA device and without --cpu it fails. A
+JAX package's CLI does (forcing.py). With --amr-dataset-dir, before
+every coupling interval k the PETSc vector of minute k
+(forcing.dataset_filename of time.date, else 2011-01-01, plus k minutes)
+is read where it exists, mapped from the level-0 base mesh onto the
+current mesh, and the cells where it is positive and whose area exceeds
+--amr-area-threshold (default 0.125) are refined (amr.py, the reference's
+driver/amr.c). Without a CUDA device and without --cpu it fails. A
 fused_structured deck with parallel.n_devices = P > 1 runs in P row
 strips on cuda:0..P-1 (a ConfigError with fewer cards), or on the CPU
 with --cpu. Several strips on one card are asked for through the
@@ -31,14 +37,6 @@ import datetime
 import os
 import sys
 import time
-
-# The JAX package's CLI options this one lacks, each with the ROADMAP item
-# that will port it: given, they exit non-zero naming it (ROADMAP fault 20)
-_NOT_PORTED_OPTIONS = (
-    ("--amr-dataset-dir", dict(), "queue 1 item 14"),
-    ("--amr-area-threshold", dict(type=float), "queue 1 item 14"),
-)
-
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="rdycore_tpu_torch")
@@ -67,15 +65,10 @@ def main(argv=None):
     ap.add_argument("--raster-rain-dir", default=None)
     ap.add_argument("--homogeneous-bc-file", default=None,
                     metavar="BOUNDARY=FILE")
-    for opt, kw, item in _NOT_PORTED_OPTIONS:
-        ap.add_argument(opt, **kw, help=f"not ported yet (ROADMAP {item})")
+    # AMR driver options (driver/amr.c: time-stamped refinement rasters)
+    ap.add_argument("--amr-dataset-dir", default=None)
+    ap.add_argument("--amr-area-threshold", type=float, default=0.125)
     args = ap.parse_args(argv)
-    refused = [f"{opt} is not ported to rdycore_tpu_torch yet (ROADMAP "
-               f"{item})" for opt, _, item in _NOT_PORTED_OPTIONS
-               if getattr(args, opt[2:].replace("-", "_")) not in (None,
-                                                                   False)]
-    if refused:
-        ap.exit(2, "rdycore_tpu_torch: " + "; ".join(refused) + "\n")
 
     from rdycore_tpu_torch.config.yaml_input import load_config
     from rdycore_tpu_torch.forcing import attach_forcing
@@ -117,9 +110,12 @@ def main(argv=None):
         f"dt = {sim.dt:.6g} s, t_final = {sim.t_final:.6g} s; "
         f"device {sim.device}"
     )
+    amr_next = amr_driver(args, cfg) if args.amr_dataset_dir else None
     t0 = time.time()
     prev_t = sim.t
     while not sim.finished:
+        if amr_next is not None:
+            amr_next(sim)
         sim.advance()
         if not sim.t > prev_t:
             raise RuntimeError("time did not advance")  # main.c sanity check
@@ -130,6 +126,42 @@ def main(argv=None):
         f"({sim.step * sim.mesh.num_cells / max(wall, 1e-9):.3g} cell-updates/s)"
     )
     return 0
+
+
+def amr_driver(args, cfg):
+    """The AMR driver's step before each coupling interval
+    (driver/amr.c:205-226): it reads the dataset of the next minute, one
+    minute per interval from time.date (else 2011-01-01), where the file
+    exists; the dataset lives on the level-0 base mesh and reaches the
+    current mesh through `sim.amr_base_map`; the cells it marks are
+    refined."""
+    import numpy as np
+
+    from rdycore_tpu_torch.amr import mark_cells_from_raster
+    from rdycore_tpu_torch.forcing import dataset_filename
+    from rdycore_tpu_torch.io.petsc_binary import read_petsc_vec
+
+    start = (datetime.datetime.strptime(cfg.time.date, "%Y-%m-%d")
+             if cfg.time.date else datetime.datetime(2011, 1, 1))
+    minute = [0]
+
+    def amr_next(sim):
+        date = start + datetime.timedelta(minutes=minute[0])
+        minute[0] += 1
+        path = dataset_filename(args.amr_dataset_dir, date)
+        if not os.path.exists(path):
+            return
+        vals = read_petsc_vec(path)
+        base_map = getattr(sim, "amr_base_map", None)
+        if base_map is None:
+            base_map = np.arange(sim.mesh.num_cells)
+        marked = mark_cells_from_raster(vals[base_map], sim.mesh.cell_area,
+                                        args.amr_area_threshold)
+        if marked.any():
+            sim.mark_cells_for_amr(marked)
+            sim.perform_amr()
+
+    return amr_next
 
 
 def cli_forcing(args, cfg, sim):

@@ -6,6 +6,12 @@
   fluxes through that boundary (time_series.c:298-393,464-506).
 - observations.dat: solution sampled at chosen cells by natural id
   (time_series.c:119-251,395-448).
+
+Across a mesh rebuild (AMR) the accumulators start again from zero on the
+new mesh, as in the JAX package; `before_rebuild` writes the boundary
+fluxes since the last line first, so that the lines still add up to the
+whole run's fluxes (the JAX package's monitor keeps the old mesh's
+accumulator and fails at its next line, ROADMAP fault 26).
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ class TimeSeriesMonitor:
         self._bflux_written_header = False
         self._obs_written_header = False
         self._last_bflux_accum = np.zeros_like(sim.bflux_accum)
+        self._last_bflux_step = sim.step
 
     def __call__(self, sim: "Simulation"):
         if self.bflux_interval and sim.step % self.bflux_interval == 0:
@@ -45,10 +52,19 @@ class TimeSeriesMonitor:
         ):
             self._write_observations(sim)
 
+    def before_rebuild(self, sim: "Simulation"):
+        """The mesh is about to be rebuilt: write the boundary fluxes of the
+        steps since the last line; the next line counts from zero."""
+        if self.bflux_interval and sim.step != self._last_bflux_step:
+            self._write_boundary_fluxes(sim)
+        self._last_bflux_accum = None
+
     def _write_boundary_fluxes(self, sim: "Simulation"):
         lens = sim.operator.arrays.bnd_len.cpu().numpy()
-        delta = sim.bflux_accum - self._last_bflux_accum
+        last = self._last_bflux_accum
+        delta = sim.bflux_accum - (0.0 if last is None else last)
         self._last_bflux_accum = sim.bflux_accum.copy()
+        self._last_bflux_step = sim.step
         with open(self.bflux_path, "a") as f:
             if not self._bflux_written_header:
                 f.write("# time boundary water_flux x_momentum_flux y_momentum_flux\n")

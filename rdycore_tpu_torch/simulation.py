@@ -18,17 +18,18 @@ src/rdyadvance.c):
         sim.advance()                           #   RDyAdvance(rdy)
 
 plus the E3SM-style coupling surface (src/rdydata.c): get/set arrays in
-natural cell order between coupling intervals, and checkpoints and
+natural cell order between coupling intervals, checkpoints and
 restart (io/checkpoint.py: `checkpoint.interval`, `restart.file`,
-`write_checkpoint`/`read_checkpoint`).
+`write_checkpoint`/`read_checkpoint`), and adaptive mesh refinement
+(`mark_cells_for_amr`, `perform_amr`, `rebuild_on_mesh`; amr.py). A deck
+with an `ensemble` section runs its base configuration here, as in the JAX
+package; ensemble.py runs its members.
 
 It runs on the CUDA device unless built with device="cpu". Every feature
-outside these paths, and `rebuild_on_mesh`, the one public member of the
-JAX package's Simulation that this one lacks, raises NotImplementedError
-naming the ROADMAP item that will port it, or the JAX package's own
-ConfigError where that package refuses it too; what needs h5py where it is
-absent is a ConfigError naming h5py (io/hdf5.py); nothing degrades
-silently.
+outside these paths raises NotImplementedError naming the ROADMAP item
+that will port it, or the JAX package's own ConfigError where that
+package refuses it too; what needs h5py where it is absent is a
+ConfigError naming h5py (io/hdf5.py); nothing degrades silently.
 """
 
 from __future__ import annotations
@@ -99,21 +100,6 @@ def _not_ported(feature: str, item: str):
     )
 
 
-def _stub(name: str, item: str, kind=None):
-    """A public member of the JAX package's Simulation that the port lacks:
-    calling it (reading it, for a property) raises NotImplementedError
-    naming its ROADMAP item (fault 20). kind: property, classmethod or
-    staticmethod."""
-    def stub(*args, **kwargs):
-        _not_ported(f"Simulation.{name}", item)
-
-    stub.__name__ = stub.__qualname__ = name
-    stub.__doc__ = f"Not ported to rdycore_tpu_torch yet (ROADMAP {item})."
-    return kind(stub) if kind else stub
-
-
-_AMR = "queue 1 item 14"
-
 # the public RDyConditionType of each BC code (include/rdycore.h:133-139:
 # dirichlet 0, neumann 1, reflecting 2, critical-outflow 3, runoff 4)
 _PUBLIC_BC_TYPES = {bc_mod.BC_DIRICHLET: 0, bc_mod.BC_REFLECTING: 2,
@@ -173,8 +159,6 @@ def check_slice(config: Config) -> None:
             "correction there (ROADMAP fault 18); use "
             "hydrostatic_reconstruction"
         )
-    if config.ensemble.size:
-        _not_ported("ensembles", "queue 1 item 14")
     refuse_on_path(config, path_of(config))
 
 
@@ -998,16 +982,70 @@ class Simulation:
         self.prev_courant_edge = None
         return float(cmax)
 
+    # ---- adaptive mesh refinement (src/rdyamr.c, amr.py) ----
+    def rebuild_on_mesh(self, new_mesh: Mesh, mannings_n: np.ndarray) -> None:
+        """Rebuild the operator and stepper on a new mesh, keeping the time
+        state (t, dt, step, the last Courant number), the monitors, the
+        logger, the devices and every attribute that setup does not make
+        (used by AMR, rdyamr.c:482+: regions/boundaries/operator/TS are
+        reconstructed on the refined mesh). The setup pipeline runs again on
+        `new_mesh`, as the JAX package's `__init__` does, so its errors are
+        that package's (a raster deck: the ConfigError of a mesh that is no
+        raster), and the accumulators start again from zero; it is built
+        whole before it replaces anything, so a failed rebuild leaves the
+        simulation as it was. A monitor with a `before_rebuild(sim)` method
+        is told before the swap (the boundary-flux series writes its
+        partial interval, ROADMAP fault 26). The caller sets the state
+        and sources afterwards (amr.perform_amr). On a CUDA device the
+        log's info line gives the device memory before, after and at peak:
+        the old operator's tensors are alive while the new one is built."""
+        dev = self.device
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = torch.cuda.memory_allocated(dev)
+        new = Simulation(self.config, mesh=new_mesh, device=dev,
+                         strip_devices=self.strip_devices)
+        new.log.close()
+        new.set_manning_n(mannings_n)
+        for mon in self._monitors:
+            if hasattr(mon, "before_rebuild"):
+                mon.before_rebuild(self)
+        keep = dict(t=self.t, dt=self.dt, step=self.step,
+                    prev_max_courant=self.prev_max_courant,
+                    _monitors=self._monitors, log=self.log)
+        self.__dict__.update(new.__dict__)
+        self.__dict__.update(keep)
+        if dev.type == "cuda":
+            gb = 1e-9
+            self.log.info(
+                f"rebuild_on_mesh: {new_mesh.num_cells} cells; device memory "
+                f"{before * gb:.3f} GB before, "
+                f"{torch.cuda.memory_allocated(dev) * gb:.3f} GB after, peak "
+                f"{torch.cuda.max_memory_allocated(dev) * gb:.3f} GB")
+
     def mark_cells_for_amr(self, refine_cell: np.ndarray) -> None:
-        """RDyMarkOwnedCellsForAMR: adaptive mesh refinement is not ported."""
-        _not_ported("adaptive mesh refinement", "queue 1 item 14")
+        """Save per-cell refinement flags for the next perform_amr()
+        (RDyMarkOwnedCellsForAMR, src/rdyamr.c:46-60)."""
+        flags = np.asarray(refine_cell, dtype=bool)
+        if flags.shape != (self.mesh.num_cells,):
+            raise ValueError(
+                f"refine_cell must have shape ({self.mesh.num_cells},)"
+            )
+        self._amr_marked = flags.copy()
 
     def perform_amr(self) -> None:
-        """RDyPerformAMR: adaptive mesh refinement is not ported."""
-        _not_ported("adaptive mesh refinement", "queue 1 item 14")
+        """Refine marked cells, transfer state, rebuild operators
+        (RDyPerformAMR, src/rdyamr.c:482+). Cells must have been marked
+        with mark_cells_for_amr() first."""
+        from .amr import perform_amr
 
-    # ---- the JAX Simulation's member not ported yet (ROADMAP fault 20) ----
-    rebuild_on_mesh = _stub("rebuild_on_mesh", _AMR)
+        marked = getattr(self, "_amr_marked", None)
+        if marked is None:
+            raise RuntimeError(
+                "no cells marked: call mark_cells_for_amr() first"
+            )
+        self._amr_marked = None
+        perform_amr(self, marked)
 
     # ------------------------------------------------------------- coupling API
     # The E3SM-style get/set surface (src/rdydata.c), arrays in natural

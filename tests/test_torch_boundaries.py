@@ -8,7 +8,9 @@
 - Each feature outside the ported slices raises NotImplementedError, with
   tracers too; `cell_ordering: rcm`, once among them, runs on an Exodus
   mesh with every unstructured mode and is the JAX package's ConfigError
-  on the raster.
+  on the raster; a deck with an `ensemble` section, once among them,
+  runs its base deck as the JAX package's Simulation does, and AMR, once
+  refused, raises the JAX package's errors.
 - `operator_arrays_from_numpy` carries a JAX OperatorArrays across exactly.
 """
 
@@ -22,6 +24,7 @@ import torch
 import yaml
 
 from rdycore_tpu.config.schema import ConfigError as JaxConfigError
+from rdycore_tpu.config.yaml_input import config_from_dict as jax_config_from_dict
 from rdycore_tpu.config.yaml_input import load_config as jax_load_config
 from rdycore_tpu.mesh import native as jax_native
 from rdycore_tpu.mesh import structured_quad as jax_structured_quad
@@ -53,6 +56,8 @@ def test_import_pulls_in_no_jax():
         "import rdycore_tpu_torch.ops.kernels.raster_step\n"
         "import rdycore_tpu_torch.forcing, rdycore_tpu_torch.io.netcdf3\n"
         "import rdycore_tpu_torch.mesh.exodus, rdycore_tpu_torch.mesh.native\n"
+        "import rdycore_tpu_torch.ensemble, rdycore_tpu_torch.amr\n"
+        "import rdycore_tpu_torch.profiling\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'rdycore_tpu' or "
         "m.startswith('rdycore_tpu.'))\n"
@@ -205,6 +210,8 @@ def shuffled_mesh_file():
     # checkpoints and restart run since they were ported (held in
     # tests/test_torch_checkpoint.py); these run modes are still outside
     {"parallel": {"n_devices": 4}},
+    # a deck with an ensemble section: Simulation runs its base deck, as
+    # the JAX package's does (the members: tests/test_torch_ensemble.py)
     {"ensemble": {"size": 2, "members": [{"name": "m0"}, {"name": "m1"}]}},
     {"ensemble": {"size": 1, "members": [{"name": "m0"}]}},
 ])
@@ -213,20 +220,43 @@ def test_run_modes_outside_the_slice_raise(section):
         **section, "time": {"stop": 0.01, "time_step": 0.001},
     }).validate()
     mesh = structured_quad(4, 3, 0.0, 1.0, 0.0, 1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Simulation(cfg, mesh=mesh, device="cpu")
+    if "ensemble" not in section:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Simulation(cfg, mesh=mesh, device="cpu")
+        return
+    jax_cfg = jax_config_from_dict({
+        **section, "time": {"stop": 0.01, "time_step": 0.001},
+    }).validate()
+    want = JaxSimulation(jax_cfg, mesh=jax_structured_quad(
+        4, 3, 0.0, 1.0, 0.0, 1.0))
+    sim = Simulation(cfg, mesh=mesh, device="cpu")
+    for s in (sim, want):
+        q = np.zeros((3, 12))
+        q[0] = np.linspace(0.1, 0.5, 12)
+        s.set_solution(q)
+        s.run()
+    assert sim.step == want.step == 10
+    np.testing.assert_allclose(sim.get_solution(), want.get_solution(),
+                               rtol=0, atol=1e-12)
 
 
 @pytest.mark.parametrize("call", [
-    lambda sim: sim.mark_cells_for_amr(np.ones(sim.num_cells, bool)),
+    lambda sim: sim.mark_cells_for_amr(np.ones(3, bool)),
     lambda sim: sim.perform_amr(),
 ])
 def test_amr_raises(call):
+    """AMR runs since it was ported (tests/test_torch_amr*.py); what it
+    raises is the JAX package's: ValueError for marks of the wrong shape,
+    RuntimeError for perform_amr before any mark."""
     cfg = config_from_dict({"time": {"stop": 0.01, "time_step": 0.001}})
     sim = Simulation(cfg.validate(), device="cpu",
                      mesh=structured_quad(4, 3, 0.0, 1.0, 0.0, 1.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
+    with pytest.raises((ValueError, RuntimeError),
+                       match="refine_cell must have shape|no cells marked"):
         call(sim)
+    sim.mark_cells_for_amr(np.ones(sim.num_cells, bool))
+    sim.perform_amr()
+    assert sim.num_cells == 48
 
 
 @pytest.mark.parametrize("fmt", ["xdmf", "cgns"])

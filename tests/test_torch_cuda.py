@@ -39,7 +39,9 @@ bit for bit the whole raster's launch. A step of ark_imex and of beuler
 The JAX package's unchanged C host csrc/test_capi.c, linked against the
 port's embedded C API, runs a coupler's deck on the card with each kernel
 launched once a step, and the bridge's advance reads the device back at
-the end of its interval only.
+the end of its interval only. A four-member ensemble and a refined
+(AMR) dam break at 256 x 176 run on the card as on the CPU, to 1e-5, with
+exact launches.
 """
 
 import numpy as np
@@ -1482,3 +1484,96 @@ def test_raster_rain_on_the_card_matches_the_cpu(dev):
     assert launches()[3] == 20
     gained = float(np.sum(gpu.get_height() * mesh.cell_area)) - v0
     assert gained == pytest.approx(2e-3 * 0.02 * 1.0, rel=1e-3)
+
+
+def dam_break_256(tmp_path, steps=20, members=0):
+    """Phase 13's dam break at 256 x 176 quads of 1/64 m (f32, euler, dt
+    0.0005 s, coupling intervals of 10 steps, boundary fluxes on) from an
+    .npz; with `members`, phase 13a's ensemble section (Manning n 0.012,
+    0.018, ...; members 2 and 3 with a 0.20 and 0.30 m reservoir)."""
+    from rdycore_tpu_torch.mesh import save_mesh_npz
+
+    mesh = structured_quad(256, 176, 0.0, 4.0, 0.0, 2.75, region_fn=lambda
+                           cx, cy: np.where(cx < 2.0, 1, 2))
+    mesh.boundaries["__id_2"] = mesh.boundaries["right"]
+    npz = str(tmp_path / "dam.npz")
+    save_mesh_npz(mesh, npz)
+    d = {
+        "numerics": {"temporal": "euler", "precision": "single"},
+        "time": {"stop": steps * 0.0005, "time_step": 0.0005,
+                 "coupling_interval": 0.005},
+        "logging": {"level": "none"},
+        "output": {"format": "none", "time_series": {"boundary_fluxes": 10}},
+        "grid": {"file": npz},
+        "regions": [{"name": "reservoir", "grid_region_id": 1},
+                    {"name": "floodplain", "grid_region_id": 2}],
+        "surface_composition": [
+            {"region": "reservoir", "material": "smooth"},
+            {"region": "floodplain", "material": "smooth"}],
+        "materials": [{"name": "smooth",
+                       "properties": {"manning": {"value": 0.018}}}],
+        "initial_conditions": [{"region": "reservoir", "flow": "column"},
+                               {"region": "floodplain", "flow": "wet_bed"}],
+        "boundaries": [{"name": "right", "grid_boundary_id": 2}],
+        "boundary_conditions": [{"boundaries": ["right"], "flow": "outflow"}],
+        "flow_conditions": [
+            {"name": "column", "type": "dirichlet", "height": 0.25,
+             "x_momentum": 0, "y_momentum": 0},
+            {"name": "wet_bed", "type": "dirichlet", "height": 0.05,
+             "x_momentum": 0, "y_momentum": 0},
+            {"name": "outflow", "type": "critical-outflow"}],
+    }
+    if members:
+        ms = []
+        for i in range(members):
+            m = {"materials": [{"name": "smooth", "properties": {
+                "manning": {"value": 0.012 + 0.006 * i}}}]}
+            if i >= 2:
+                m["flow_conditions"] = [{
+                    "name": "column", "type": "dirichlet",
+                    "height": 0.1 * i, "x_momentum": 0, "y_momentum": 0}]
+            ms.append(m)
+        d["ensemble"] = {"size": members, "members": ms}
+    return config_from_dict(d).validate(), mesh
+
+
+def test_ensemble_on_the_card_matches_the_cpu(dev, tmp_path):
+    """Phase 13a's four-member ensemble at 256 x 176: 20 steps on the
+    card against the CPU, every member to 1e-5; K1a, K1b and K1c launched
+    once a member-step."""
+    from rdycore_tpu_torch.ensemble import EnsembleSimulation
+
+    cfg, _ = dam_break_256(tmp_path, members=4)
+    ens = [EnsembleSimulation(cfg, device=d) for d in (dev, "cpu")]
+    kernels.reset_launch_counts()
+    for e in ens:
+        e.run()
+    assert launches() == [80, 80, 80, 0, 0, 0, 0, 0, 0]
+    for mg, mc in zip(ens[0].members, ens[1].members):
+        assert mg.step == mc.step == 20
+        assert rel(torch.as_tensor(mg.get_solution()),
+                   torch.as_tensor(mc.get_solution())) <= 1e-5
+        assert rel(torch.as_tensor(mg.bflux_accum),
+                   torch.as_tensor(mc.bflux_accum)) <= 1e-5
+
+
+def test_amr_on_the_card_matches_the_cpu(dev, tmp_path):
+    """The dam break at 256 x 176, the columns within 0.25 m of the dam
+    refined (red quads, their neighbours fans of 5 triangles), then 20
+    steps on the card against the CPU to 1e-5; K1a, K1b and K1c once a
+    step on the mixed mesh."""
+    cfg, mesh = dam_break_256(tmp_path)
+    marked = np.abs(mesh.cell_centroid[:, 0] - 2.0) < 0.25
+    sims = [Simulation(cfg, device=d) for d in (dev, "cpu")]
+    for sim in sims:
+        sim.mark_cells_for_amr(marked)
+        sim.perform_amr()
+        assert sim.num_cells == 45056 + 3 * 32 * 176 + 4 * 2 * 176
+    kernels.reset_launch_counts()
+    for sim in sims:
+        sim.run()
+    gpu, cpu = sims
+    assert gpu.step == cpu.step == 20
+    assert launches() == [20, 20, 20, 0, 0, 0, 0, 0, 0]
+    assert rel(torch.as_tensor(gpu.get_solution()),
+               torch.as_tensor(cpu.get_solution())) <= 1e-5

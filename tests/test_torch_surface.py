@@ -1,12 +1,11 @@
-"""The JAX package's public surface that rdycore_tpu_torch has not ported
-yet (ROADMAP fault 20), checked on the CPU without a JAX compile: every
-public member of the JAX Simulation exists on the port's, and each one the
-port lacks (`rebuild_on_mesh`, with AMR) raises NotImplementedError naming
-its ROADMAP item; every option of the JAX CLI is accepted by the port's,
-each one it lacks (AMR's) exits with status 2 naming its item, and the
-forcing options run. The members
-the port has are held against the JAX package's in
-tests/test_torch_coupling_surface.py.
+"""The JAX package's public surface on rdycore_tpu_torch (ROADMAP fault
+20), checked on the CPU without a JAX compile: every public member of the
+JAX Simulation exists on the port's, and the last one ported
+(`rebuild_on_mesh`, with AMR, item 14) runs; every option of the JAX CLI
+is accepted by the port's, the AMR options (the last ported, item 14) and
+the forcing options run. The members the port has are held against the
+JAX package's in tests/test_torch_coupling_surface.py, AMR in
+tests/test_torch_amr*.py.
 """
 
 import ast
@@ -16,19 +15,18 @@ import numpy as np
 import pytest
 
 from rdycore_tpu_torch import Simulation
-from rdycore_tpu_torch.__main__ import _NOT_PORTED_OPTIONS, main
+from rdycore_tpu_torch.__main__ import main
 from rdycore_tpu_torch.config.yaml_input import config_from_dict
 from rdycore_tpu_torch.io.petsc_binary import read_petsc_vec
-from rdycore_tpu_torch.mesh import structured_quad
+from rdycore_tpu_torch.mesh import refine_uniform, structured_quad
 from tests.test_torch_forcing import box
 from tests.test_torch_forcing_cli import write_datasets
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# member -> (how it is reached, the arguments of a call, its ROADMAP item)
-NOT_PORTED = {
-    "rebuild_on_mesh": ("method", (None,), "ROADMAP queue 1 item 14"),
-}
+# the member ported last, with the ROADMAP item that ported it: until then
+# it raised NotImplementedError naming that item
+PORTED_LAST = {"rebuild_on_mesh": "item 14"}
 
 
 def public_members(path):
@@ -60,31 +58,39 @@ def test_every_public_member_of_the_jax_simulation_exists(sim):
         "rdycore_tpu_torch/simulation.py")}
     # the JAX package's state property q is the port's state attribute
     assert missing == {"q"} and sim.q.shape == (3, 12)
-    assert jax_names - {"q"} >= set(NOT_PORTED)
+    assert jax_names - {"q"} >= set(PORTED_LAST)
 
 
-@pytest.mark.parametrize("name", sorted(NOT_PORTED))
-def test_unported_members_raise_naming_their_item(sim, name):
-    kind, args, item = NOT_PORTED[name]
-    with pytest.raises(NotImplementedError, match=item):
-        if kind == "property":
-            getattr(sim, name)
-        elif kind in ("classmethod", "staticmethod"):
-            getattr(Simulation, name)(*args)
-        else:
-            getattr(sim, name)(*args)
+@pytest.mark.parametrize("name", sorted(PORTED_LAST))
+def test_unported_members_raise_naming_their_item(name):
+    """No member raises naming its item any more: rebuild_on_mesh builds
+    the simulation anew on another mesh, keeping the time state."""
+    cfg = config_from_dict({"time": {"stop": 0.01, "time_step": 0.001},
+                            "logging": {"level": "none"}}).validate()
+    sim = Simulation(cfg, mesh=structured_quad(4, 3, 0.0, 1.0, 0.0, 1.0),
+                     device="cpu")
+    sim.advance()
+    t, step = sim.t, sim.step
+    getattr(sim, name)(refine_uniform(sim.mesh), np.full(48, 0.02))
+    assert sim.num_cells == 48 and sim.q.shape == (3, 48)
+    assert (sim.t, sim.step) == (t, step)
+    assert np.array_equal(sim.get_manning_n(), np.full(48, 0.02))
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--amr-dataset-dir", "amr/"], "item 14"),
+    (["--amr-dataset-dir", "{tmp}/amr"], "item 14"),
     (["--amr-area-threshold", "0.2"], "item 14"),
 ])
-def test_unported_cli_options_exit_naming_their_item(argv, item, capsys):
-    with pytest.raises(SystemExit) as exc:
-        main(["deck.yaml", *argv])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert f"{argv[0]} is not ported" in err and f"ROADMAP queue 1 {item}" in err
+def test_unported_cli_options_exit_naming_their_item(argv, item, tmp_path,
+                                                     capsys):
+    """The AMR options no longer exit naming their item: each runs a deck
+    to its end (a dataset directory without datasets refines nothing;
+    tests/test_torch_amr_cli.py refines with datasets)."""
+    os.makedirs(tmp_path / "amr")
+    deck = box(tmp_path)
+    assert main([deck, "--cpu", *[a.format(tmp=tmp_path) for a in argv]]) \
+        == 0
+    assert f"ROADMAP queue 1 {item}" not in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("argv", [
@@ -123,6 +129,5 @@ def cli_options(path):
 
 
 def test_every_jax_cli_option_is_accepted():
-    port = cli_options("rdycore_tpu_torch/__main__.py") | {
-        opt for opt, _, _ in _NOT_PORTED_OPTIONS}
-    assert cli_options("rdycore_tpu/__main__.py") <= port
+    assert cli_options("rdycore_tpu/__main__.py") <= cli_options(
+        "rdycore_tpu_torch/__main__.py")
