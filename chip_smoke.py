@@ -270,6 +270,34 @@ Phases, each printing as it goes; any failure exits non-zero:
    beside phase 3's; `profiling.trace` writes a Chrome trace naming K1a,
    K1b and K1c.
 
+14. Multi-process runs (parallel/): ranks started with the spawn start
+   method over a FileStore (`parallel.comm.spawn`), each loading the
+   kernel libraries phase 1 built. (a) Phase 3's dam break with
+   `partitioning: auto` (RCM) in 2 ranks sharing the card over gloo (NCCL
+   refuses two ranks on one card; the halo goes through host buffers),
+   one shard each: per rank the mesh and setup seconds, owned, ghost and
+   frontier cells; 10 steps on the kernels against the plain versions
+   (every row to 1e-4); the same 10 steps bit for bit one process on the
+   RCM order (q, t, Courant number and edge, boundary fluxes); a 200-step
+   interval timed between CUDA events (ms/step per rank), the rank's
+   peak device memory, K1a, K1b and
+   K1c launched once a step per rank, h >= 0 and the volume budget; the
+   halo exchange's ms per stage (the transport's under gloo:
+   point-to-point buffers through pinned host memory), beside the same
+   halo by one all-gather (`DistTransport.exchange_gather`, NCCL's; the
+   ghost rows checked equal), timed in the order p2p, all-gather,
+   all-gather, p2p. (b) Phase 6's second-order deck (MUSCL
+   ssprk2, 3 rings of ghosts), 24 steps bit for bit one process on the
+   RCM order, exact launches. (c) Phase 4's raster in one row strip per
+   rank, each strip's buffer kept by its rank across intervals: --steps
+   steps bit for bit phase 4's end state, ms/step and the strip exchange
+   per rank, exact launches (K2, K1c, boundary K1a once a step). (d) One
+   NCCL rank (its Courant pair gathered over NCCL, an exchange with no
+   peer): 10 steps bit for bit one process. Rank 0's kernels (K1a, K1b,
+   K1c; the MUSCL path's K3a, K1a, K3b drain and scale, K1b, K1c; the
+   strip's K2, K1c, K1a) are held against their plain versions at its
+   shapes and timed beside their bounds.
+
 Before the last line it prints the card's name and power limit and a JSON
 line {"kernels": [...]} with one row per kernel and path ("path":
 "unstructured", "raster", "unstructured+tracers", "raster+tracers" (these
@@ -280,8 +308,9 @@ two with "nt": 3), "unstructured+muscl", "raster+muscl",
 beuler+muscl", "unstructured mms", "unstructured mms+muscl", "unstructured
 mms+sediment", "unstructured thacker+muscl", "coupler raster",
 "coupler unstructured", "exodus file order", "exodus rcm", "raster+rain",
-"unstructured ensemble4" or "unstructured amr", these fifteen with
-"launches_per_step", phase 10's
+"unstructured ensemble4", "unstructured amr", "unstructured sharded",
+"unstructured sharded+muscl" or "raster strips, ranks" (these three with
+"ranks"), these eighteen with "launches_per_step", phase 10's
 with "dtype": "float64", phase 11's with the C host's launches; a
 strip row names its strip [row0, rows, halo_lo, halo_hi]),
 each with that path's own launches, times and bound, and "timers" naming
@@ -2592,21 +2621,40 @@ def strip_kernel_rows(card, sim, path, launches, dev, dt, nt=0):
     rows on both sides) of the run's final state, held against its plain
     version there and timed beside its bound: the {"kernels": ...} rows of
     `path`; and the halo exchange of all strips, timed per stage."""
-    from rdycore_tpu_torch.ops.kernels import raster_muscl as rm
-    from rdycore_tpu_torch.ops.kernels.courant import courant_argmax_plain
-    from rdycore_tpu_torch.ops.kernels.edge_flux import swe_edge_flux_plain
-    from rdycore_tpu_torch.ops.kernels.raster_step import swe_raster_step_plain
     from rdycore_tpu_torch.ops.strips import exchange, split_rows
 
     f32 = torch.float32
     ops = sim._structured["op"]
     strips = [o.strip for o in ops]
-    plan = ops[0].plan
-    nx = plan.nx
+    nx = ops[0].plan.nx
     bufs = split_rows(sim.q.to(f32), strips, [dev] * STRIPS, nx)
     op, b, st = ops[1], bufs[1], strips[1]
-    geo = (op.dz_dx, op.dz_dy, op.mannings_n)
     bv = sim.boundary_values.to(f32)[:, op.bnd_idx]
+    extra = dict(strip=list(st), strips=STRIPS, **({"nt": nt} if nt else {}))
+    rows = strip_rows(card, op, b, bv, path, launches, dev, dt, nt, extra)
+    ex_ms, timer = device_time(lambda: exchange(bufs, strips, nx))
+    ex_bytes = sum(2 * 4 * b.shape[0] * (s.halo_lo + s.halo_hi) * nx
+                   for b, s in zip(bufs, strips))
+    log(f"  [{card}] halo exchange on the {path} path ({2 * (STRIPS - 1)} "
+        f"copies of {st.halo_lo} rows of {b.shape[0]} state rows): device "
+        f"{ex_ms:.4f} ms per stage ({timer}), {ex_bytes / 1e6:.3f} MB "
+        f"moved, bound {1e3 * ex_bytes / HBM_BYTES_PER_S:.4f} ms")
+    return rows
+
+
+def strip_rows(card, op, b, bv, path, launches, dev, dt, nt, extra):
+    """The {"kernels": ...} rows of one strip's kernels (`op`, its buffer
+    b and its boundary edges' values bv), each held against its plain
+    version on b and timed beside its bound; `extra` joins each row."""
+    from rdycore_tpu_torch.ops.kernels import raster_muscl as rm
+    from rdycore_tpu_torch.ops.kernels.courant import courant_argmax_plain
+    from rdycore_tpu_torch.ops.kernels.edge_flux import swe_edge_flux_plain
+    from rdycore_tpu_torch.ops.kernels.raster_step import swe_raster_step_plain
+
+    f32 = torch.float32
+    plan, st = op.plan, op.strip
+    nx = plan.nx
+    geo = (op.dz_dx, op.dz_dy, op.mannings_n)
     dt_t = torch.tensor(dt, dtype=f32, device=dev)
     stage = dict(stage=(0.0, 1.0, 1.0), emit_prim=True)
     sz, C = 4, st.rows * nx
@@ -2684,19 +2732,10 @@ def strip_kernel_rows(card, sim, path, launches, dev, dt, nt=0):
     replaces = dict(REPLACES, courant_argmax=_SHARDED,
                     swe_edge_flux=_SLOTTED + ":1254",
                     **{k: _SHARDED for k in kernel_names})
-    extra = dict(strip=list(st), strips=STRIPS, **({"nt": nt} if nt else {}))
     # the strip modes run only here: their own errors
-    rows = [kernel_row(card, name, path, fns, launches[name], err[name],
+    return [kernel_row(card, name, path, fns, launches[name], err[name],
                        nbytes[name], nops[name], f32, replaces, **extra)
             for name, fns in calls.items()]
-    ex_ms, timer = device_time(lambda: exchange(bufs, strips, nx))
-    ex_bytes = sum(2 * sz * b.shape[0] * (s.halo_lo + s.halo_hi) * nx
-                   for b, s in zip(bufs, strips))
-    log(f"  [{card}] halo exchange on the {path} path ({2 * (STRIPS - 1)} "
-        f"copies of {st.halo_lo} rows of {b.shape[0]} state rows): device "
-        f"{ex_ms:.4f} ms per stage ({timer}), {ex_bytes / 1e6:.3f} MB "
-        f"moved, bound {1e3 * ex_bytes / HBM_BYTES_PER_S:.4f} ms")
-    return rows
 
 
 def phase_strips(steps, dev, mesh):
@@ -4814,6 +4853,406 @@ def phase_ensemble_amr(errs, dev, mesh):
     return rows
 
 
+# ----------------------------------------------------------------- phase 14
+RANKS = 2  # 14a-c: ranks sharing the one card, over gloo
+RANK_STEPS = 200  # 14a: the timed interval
+RANK_MUSCL_STEPS = 24  # 14b
+RANK_TIMEOUT = 600.0  # the process group's timeout [s]
+_SHARD_REPLACES = {  # the JAX sharded path's per-shard kernels
+    "swe_edge_flux": _SLOTTED + ":2899", "swe_cell_stage": _SLOTTED + ":2899",
+    "courant_argmax": _SLOTTED + ":2899"}
+_SHARD_MUSCL_REPLACES = {
+    "swe_muscl_grad": _SLOTTED + ":3146", "swe_edge_flux": _SLOTTED + ":3342",
+    "swe_positivity_drain": _SLOTTED + ":1632",
+    "swe_positivity_scale": _SLOTTED + ":1781",
+    "swe_cell_stage": _SLOTTED + ":2342", "courant_argmax": _SLOTTED + ":2342"}
+
+
+def sharded_config(steps, ranks, config=dam_break_config,
+                   partitioning="auto"):
+    """`config`'s deck in `ranks` shards, RCM-banded for the split
+    (parallel.partitioning: auto), or on a mesh ordered already ("none")."""
+    cfg = config(steps)
+    cfg.parallel.n_devices = ranks
+    cfg.parallel.partitioning = partitioning
+    return cfg
+
+
+def rcm_config(steps, config=dam_break_config):
+    """`config`'s deck on one device in the shards' cell order."""
+    cfg = config(steps)
+    cfg.numerics.cell_ordering = "rcm"
+    return cfg
+
+
+def run_state(sim):
+    """`final_state` and the Courant number's edge (collective in a run of
+    several ranks)."""
+    return final_state(sim) + (sim.prev_courant_edge,)
+
+
+def same_run(a, b):
+    return same_state(a[:4], b[:4]) and a[4] == b[4]
+
+
+def events_ms(fn, reps=1):
+    """Milliseconds per call of fn() between CUDA events, after a device
+    synchronization (the host's time where that is longer)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def shard_rows(card, path, op, q, bv, launches, steps, muscl):
+    """The kernels of one shard (`op`, its state q with fresh ghost rows,
+    its boundary values bv) held against their plain versions at the
+    shard's shapes (2e-5 relative, the Courant fold exact) and timed
+    beside their bounds: the {"kernels": ...} rows of `path`."""
+    from rdycore_tpu_torch.ops.kernels import muscl as mk
+    from rdycore_tpu_torch.ops.kernels.cell_stage import swe_cell_stage_plain
+    from rdycore_tpu_torch.ops.kernels.courant import courant_argmax_plain
+    from rdycore_tpu_torch.ops.kernels.edge_flux import swe_edge_flux_plain
+    from rdycore_tpu_torch.ops.swe.muscl import ls_gradients
+
+    dev, a, s = q.device, op.arrays, q.element_size()
+    dt = torch.tensor(DT_MUSCL if muscl else DT, dtype=q.dtype, device=dev)
+    th, ta = op.tiny_h, op.h_anuga
+    kw = dict(tiny_h=th, h_anuga=ta, xq2018_threshold=op.xq2018_threshold,
+              source_method=op.source_method)
+    stage = dict(stage=(0.0, 1.0, 1.0), emit_prim=True)
+    run = (torch.zeros((), dtype=q.dtype, device=dev),
+           torch.zeros((), dtype=torch.int32, device=dev))
+    pairs, calls = {}, {}
+    if muscl:
+        gk, gp = op.muscl_grad(q), ls_gradients(a, q)
+        flux, courant = op.edge_flux(q, bv, gp)
+        fp, cp = swe_edge_flux_plain(a, q, bv, th, ta, grad=gp,
+                                     limiter=op.limiter)
+        sp = mk.positivity_drain_plain(a, fp, q[0], dt)
+        pairs["swe_muscl_grad"] = [(gk, gp)]
+        pairs["swe_positivity_drain"] = [
+            (mk.swe_positivity_drain(a, fp, q[0], dt), sp)]
+        pairs["swe_positivity_scale"] = [
+            (mk.swe_positivity_scale(a, fp.clone(), sp),
+             mk.positivity_scale_plain(a, fp.clone(), sp))]
+        calls["swe_muscl_grad"] = (lambda: op.muscl_grad(q),
+                                   lambda: ls_gradients(a, q), None)
+        calls["swe_edge_flux"] = (
+            lambda: op.edge_flux(q, bv, gk),
+            lambda: swe_edge_flux_plain(a, q, bv, th, ta, grad=gk,
+                                        limiter=op.limiter), None)
+        calls["swe_positivity_drain"] = (
+            lambda: mk.swe_positivity_drain(a, flux, q[0], dt),
+            lambda: mk.positivity_drain_plain(a, flux, q[0], dt), None)
+        calls["swe_positivity_scale"] = (
+            lambda: mk.swe_positivity_scale(a, flux, sp),
+            lambda: mk.positivity_scale_plain(a, flux, sp), None)
+    else:
+        flux, courant = op.edge_flux(q, bv)
+        fp, cp = swe_edge_flux_plain(a, q, bv, th, ta)
+        calls["swe_edge_flux"] = (
+            lambda: op.edge_flux(q, bv),
+            lambda: swe_edge_flux_plain(a, q, bv, th, ta), None)
+    pairs["swe_edge_flux"] = [(flux, fp), (courant, cp)]
+    ok_ = op.cell_stage(fp, q, dt, None, **stage)
+    op_ = swe_cell_stage_plain(a, fp, q, dt, None, **kw, **stage)
+    pairs["swe_cell_stage"] = [(ok_.q_out, op_.q_out), (ok_.prim, op_.prim)]
+    calls["swe_cell_stage"] = (
+        lambda: op.cell_stage(flux, q, dt, None, **stage),
+        lambda: swe_cell_stage_plain(a, flux, q, dt, None, **kw, **stage),
+        None)
+    mk_, ik = op.courant_max(cp, dt, *run)
+    mp, ip = courant_argmax_plain(cp)
+    calls["courant_argmax"] = (
+        lambda: op.courant_max(courant, dt, *run),
+        lambda: courant_argmax_plain(courant, dt, *run),
+        lambda: torch.max(courant, 0))
+    rel = {k: max(rel_err(g, w) for g, w in v) for k, v in pairs.items()}
+    err = {k: max(abs_err(g, w) for g, w in v) for k, v in pairs.items()}
+    err["courant_argmax"] = abs(float(mk_) - float(mp))
+    exact = float(mk_) == float(mp) and int(ik) == int(ip)
+    log(f"  shard kernels vs plain on the {path} path (relative): {rel}; "
+        f"Courant fold {'exact' if exact else 'DIFFERS'}")
+    if not (exact and all(v <= TOL[q.dtype] for v in rel.values())):
+        raise SystemExit(f"{path} shard kernel check failed")
+    C, E, Ei = op.num_cells, op.num_edges, op.num_internal_edges
+    nbytes = kernel_bytes(op, q.numel() * s, s)
+    nops = {"swe_edge_flux": OPS_PER_EDGE * E,
+            "swe_cell_stage": OPS_PER_CELL * C,
+            "courant_argmax": OPS_PER_VALUE * E}
+    replaces = dict(REPLACES, **_SHARD_REPLACES)
+    if muscl:
+        mb = muscl_bytes(op, q.numel() * s, s)
+        nbytes.update({k: mb[k] for k in mb})
+        nops.update(swe_muscl_grad=OPS_PER_GRAD_CELL * C,
+                    swe_edge_flux=OPS_PER_EDGE * (E - Ei)
+                    + OPS_PER_MUSCL_EDGE * Ei,
+                    swe_positivity_drain=OPS_PER_DRAIN_CELL * C,
+                    swe_positivity_scale=OPS_PER_SCALE_EDGE * E)
+        replaces.update(_SHARD_MUSCL_REPLACES)
+    extra = dict(ranks=RANKS, shard_cells=C, launches_per_step={
+        k: v / steps for k, v in launches.items() if v})
+    return [kernel_row(card, name, path, fns, launches[name], err[name],
+                       nbytes[name], nops[name], q.dtype, replaces, **extra)
+            for name, fns in calls.items()]
+
+
+def rank_device():
+    """The card of this rank (spawn made it the current device)."""
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def rank_phase(rank, world, steps):
+    """Phase 14a-c in one of `world` ranks on the one card (gloo): what
+    the parent compares, and rank 0's kernel rows."""
+    import torch.distributed as dist
+
+    from rdycore_tpu_torch import Simulation
+    from rdycore_tpu_torch.ops import kernels
+
+    dev = rank_device()
+    card = nvidia_smi_line()
+    out = {"rank": rank, "rows": []}
+    t0 = time.perf_counter()
+    mesh = dam_break_mesh()
+    out["mesh_s"] = time.perf_counter() - t0
+
+    # (a) phase 3's dam break in shards
+    t0 = time.perf_counter()
+    sim = Simulation(sharded_config(10 + RANK_STEPS, world), mesh=mesh,
+                     device=dev)
+    torch.cuda.synchronize()
+    out["setup_s"] = time.perf_counter() - t0
+    sh = sim._sharded
+    u = sh.units[0]
+    plan = sh.plans[rank]
+    out["ghosts"], out["frontier"] = len(plan.ghosts), plan.frontier
+    out["owned"] = plan.nown
+    q0 = sim.get_solution().astype(np.float64)
+    rmesh = sim.mesh  # RCM's order: the later decks take it as it is
+    plain = Simulation(sharded_config(10, world, partitioning="none"),
+                       mesh=rmesh, device=dev)
+    plain._sharded.ops[u] = plain_operator(plain._sharded.ops[u])
+    sim.coupling_interval = 10 * DT
+    sim.advance()
+    plain.run()
+    err = {"q": rows_rel_err(sim.q, plain.q)}
+    for name in ("bflux_accum", "accum_sol", "accum_prim"):
+        err[name] = rows_rel_err(getattr(sim, name), getattr(plain, name))
+    ck, cp = sim.prev_max_courant, plain.prev_max_courant
+    err["courant"] = abs(ck - cp) / max(abs(cp), 1e-30)
+    out["a_err"] = err
+    out["a10"] = run_state(sim)
+    del plain
+    torch.cuda.reset_peak_memory_stats(dev)
+    sim.coupling_interval = RANK_STEPS * DT
+    kernels.reset_launch_counts()
+    dist.barrier()
+    t0 = time.perf_counter()
+    out["a_ms"] = events_ms(sim.advance) / RANK_STEPS
+    out["a_wall_ms"] = 1e3 * (time.perf_counter() - t0) / RANK_STEPS
+    out["a_launches"] = {k.__name__: k.launches for k in kernels.KERNELS}
+    # this rank's shard, its operator and accumulators: no global array
+    out["a_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    check_state_and_budget(sim, q0, sim.mesh.cell_area)
+    q = sim._qs[u]
+    tr = sh.transport
+    ghosts = torch.arange(plan.nown, plan.nown + len(plan.ghosts),
+                          device=dev)
+    tr.exchange(u, q)
+    want = q.index_select(1, ghosts)
+    q.index_fill_(1, ghosts, -1.0)
+    tr.exchange_gather(q)
+    out["a_gather_same"] = bool(torch.equal(q.index_select(1, ghosts),
+                                            want))
+    times = {"p2p": [], "gather": []}
+    for mode in ("p2p", "gather", "gather", "p2p"):
+        dist.barrier()
+        times[mode].append(events_ms(
+            (lambda: tr.exchange(u, q)) if mode == "p2p"
+            else (lambda: tr.exchange_gather(q)), reps=20))
+    out["a_exchange_ms"] = float(np.mean(times["p2p"]))
+    out["a_gather_ms"] = float(np.mean(times["gather"]))
+    out["a_exchange_runs"] = times
+    if rank == 0:
+        out["rows"] += shard_rows(card, "unstructured sharded", sh.ops[u], q,
+                                  sim._bvs[u], out["a_launches"], RANK_STEPS,
+                                  False)
+    dist.barrier()
+    del sim, q
+
+    # (b) phase 6's second-order deck in shards: three rings of ghosts
+    sim = Simulation(sharded_config(RANK_MUSCL_STEPS, world,
+                                    muscl_dam_break_config, "none"),
+                     mesh=rmesh, device=dev)
+    sh = sim._sharded
+    out["b_rings"] = sh.plans[rank].rings
+    kernels.reset_launch_counts()
+    sim.run()
+    out["b_launches"] = {k.__name__: k.launches for k in kernels.KERNELS}
+    out["b"] = run_state(sim)
+    if rank == 0:
+        out["rows"] += shard_rows(card, "unstructured sharded+muscl",
+                                  sh.ops[u], sim._qs[u], sim._bvs[u],
+                                  out["b_launches"], RANK_MUSCL_STEPS, True)
+    dist.barrier()
+    del sim
+
+    # (c) phase 4's raster in one row strip per rank
+    cfg = dam_break_config(steps, "fused_structured")
+    cfg.parallel.n_devices = world
+    sim = Simulation(cfg, mesh=mesh, device=dev)
+    rs = sim._rank_strip
+    out["c_strip"] = list(rs.strip)
+    kernels.reset_launch_counts()
+    dist.barrier()
+    t0 = time.perf_counter()
+    total = events_ms(sim.run)
+    out["c_wall_ms"] = 1e3 * (time.perf_counter() - t0) / steps
+    out["c_ms"] = total / steps
+    out["c_launches"] = {k.__name__: k.launches for k in kernels.KERNELS}
+    out["c"] = final_state(sim)
+    dist.barrier()
+    out["c_exchange_ms"] = events_ms(lambda: rs.exchange([rs.buf]), reps=20)
+    if rank == 0:
+        op = sim._structured["op"]
+        bv = sim.boundary_values.to(dev, torch.float32)[:, op.bnd_idx.to(dev)]
+        out["rows"] += strip_rows(
+            card, op, rs.buf, bv, "raster strips, ranks", out["c_launches"],
+            dev, DT, 0, dict(strip=list(rs.strip), strips=world, ranks=world,
+                             launches_per_step={
+                                 k: v / steps for k, v in
+                                 out["c_launches"].items() if v}))
+    dist.barrier()
+    return out
+
+
+def nccl_rank(rank, world, backend):
+    """Phase 14d in the one rank of an NCCL group: phase 3's deck, 10
+    steps, its one shard exchanging with no peer and its Courant pair
+    gathered over NCCL."""
+    import torch.distributed as dist
+
+    from rdycore_tpu_torch import Simulation
+
+    sim = Simulation(dam_break_config(10), mesh=dam_break_mesh(),
+                     device=rank_device())
+    if sim._sharded is None or dist.get_backend() != backend:
+        raise SystemExit(f"14d: the {backend} rank did not take the shard "
+                         "path")
+    sim.run()
+    return run_state(sim)
+
+
+def phase_ranks(steps, dev, mesh):
+    """Phase 14: multi-process runs on the one card: (a)-(c) in RANKS
+    ranks over gloo (NCCL refuses two ranks on one card), (d) one NCCL
+    rank. Returns the rows of rank 0's kernels."""
+    import os
+    import tempfile
+
+    from rdycore_tpu_torch import Simulation
+    from rdycore_tpu_torch.mesh.core import rcm_reorder
+    from rdycore_tpu_torch.parallel.comm import spawn
+
+    card = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    log(f"== phase 14: {RANKS} ranks on one card over gloo (14a-c), one "
+        f"NCCL rank (14d); dam break on {mesh.num_cells:,} cells, f32")
+    refs = {}
+    rmesh = rcm_reorder(mesh)  # the shards' cell order
+    for key, steps_, config in (("a", 10, dam_break_config),
+                                ("b", RANK_MUSCL_STEPS,
+                                 muscl_dam_break_config)):
+        ref = Simulation(config(steps_), mesh=rmesh, device=dev)
+        ref.run()
+        refs[key] = run_state(ref)
+        del ref
+    one = Simulation(dam_break_config(10), mesh=mesh, device=dev)
+    one.run()
+    refs["d"] = run_state(one)
+    del one, rmesh
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "output")
+    os.makedirs(base, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=base) as store:
+        t0 = time.perf_counter()
+        got = spawn(rank_phase, RANKS, "gloo", store, args=(steps,),
+                    timeout=RANK_TIMEOUT, device="cuda:0")
+        t_gloo = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got_d = spawn(nccl_rank, 1, "nccl", store, args=("nccl",),
+                      timeout=RANK_TIMEOUT, device="cuda:0")[0]
+        t_nccl = time.perf_counter() - t0
+    bad = []
+    for r in got:
+        k = r["rank"]
+        a_ok = all(v <= 1e-4 for v in r["a_err"].values())
+        same = {key: same_run(r[key], refs[key[0]]) for key in ("a10", "b")}
+        same["c"] = same_state(r["c"], REFERENCE["raster"])
+        log(f"  [{card}] rank {k}: mesh {r['mesh_s']:.2f} s, setup "
+            f"{r['setup_s']:.2f} s (operator on the host, partition, the "
+            f"shard to the card); {r['owned']:,} owned cells, "
+            f"{r['ghosts']:,} ghosts, {r['frontier']:,} frontier cells "
+            f"(MUSCL rings {r['b_rings']})")
+        log(f"  rank {k} 14a: 10 steps, kernels vs plain (worst row) "
+            + ", ".join(f"{n} {v:.3e}" for n, v in r["a_err"].items())
+            + f"; against one process on the RCM order (q, t, Courant "
+            f"number and edge, boundary fluxes): "
+            f"{'bit for bit' if same['a10'] else 'DIFFERENT'}")
+        log(f"  [{card}] rank {k} 14a: {RANK_STEPS}-step interval "
+            f"{r['a_ms']:.4f} ms/step between CUDA events "
+            f"({r['a_wall_ms']:.4f} ms wall), peak device memory "
+            f"{r['a_peak_gb']:.3f} GB; exchange "
+            f"{r['a_exchange_ms']:.4f} ms per stage (point-to-point "
+            f"{r['a_exchange_runs']['p2p']}), one all-gather "
+            f"{r['a_gather_ms']:.4f} ({r['a_exchange_runs']['gather']}; "
+            f"the same ghost rows: {r['a_gather_same']}); launches "
+            f"{r['a_launches']}")
+        log(f"  rank {k} 14b: {RANK_MUSCL_STEPS} second-order steps against "
+            f"one process on the RCM order: "
+            f"{'bit for bit' if same['b'] else 'DIFFERENT'}; launches "
+            f"{r['b_launches']}")
+        log(f"  [{card}] rank {k} 14c: strip {r['c_strip']}, {steps} steps "
+            f"{r['c_ms']:.4f} ms/step between CUDA events "
+            f"({r['c_wall_ms']:.4f} ms wall), exchange "
+            f"{r['c_exchange_ms']:.4f} ms per stage; against phase 4's "
+            f"single strip (q, t, Courant number, boundary fluxes): "
+            f"{'bit for bit' if same['c'] else 'DIFFERENT'}; launches "
+            f"{r['c_launches']}")
+        check_launches(f"rank {k} 14a", r["a_launches"], {
+            "swe_edge_flux": RANK_STEPS, "swe_cell_stage": RANK_STEPS,
+            "courant_argmax": RANK_STEPS})
+        n = RANK_MUSCL_STEPS
+        check_launches(f"rank {k} 14b", r["b_launches"], {
+            "swe_muscl_grad": 2 * n, "swe_edge_flux": 2 * n,
+            "swe_positivity_drain": 2 * n, "swe_positivity_scale": 2 * n,
+            "swe_cell_stage": 2 * n, "courant_argmax": n})
+        check_launches(f"rank {k} 14c", r["c_launches"], {
+            "swe_raster_step": steps, "courant_argmax": steps,
+            "swe_edge_flux": steps})
+        if not (a_ok and all(same.values()) and r["a_gather_same"]):
+            bad.append(k)
+    one_ms = STEADY["unstructured main path"][0]
+    raster_ms = STEADY["raster main path"][0]
+    log(f"  [{card}] one process, one card: unstructured {one_ms:.4f} "
+        f"ms/step, raster {raster_ms:.4f} ms/step (phases 3 and 4)")
+    same_d = same_run(got_d, refs["d"])
+    log(f"  14d: one NCCL rank, 10 steps against one process (q, t, "
+        f"Courant number and edge, boundary fluxes): "
+        f"{'bit for bit' if same_d else 'DIFFERENT'}")
+    log(f"  phase 14: {RANKS} gloo ranks {t_gloo:.1f} s, the NCCL rank "
+        f"{t_nccl:.1f} s, in all {time.perf_counter() - t_phase:.1f} s")
+    if bad or not same_d:
+        raise SystemExit(f"phase 14 failed: ranks {bad}, 14d {same_d}")
+    return got[0]["rows"]
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -4844,6 +5283,7 @@ def main():
     rows += phase_coupler(errs, dev, mesh)
     rows += phase_files(errs, dev, mesh)
     rows += phase_ensemble_amr(errs, dev, mesh)
+    rows += phase_ranks(args.steps, dev, mesh)
     del mesh
     rows += phase_mms(errs, dev)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -27,7 +27,19 @@ driver/amr.c). Without a CUDA device and without --cpu it fails. A
 fused_structured deck with parallel.n_devices = P > 1 runs in P row
 strips on cuda:0..P-1 (a ConfigError with fewer cards), or on the CPU
 with --cpu. Several strips on one card are asked for through the
-library: Simulation(cfg, strip_devices=["cuda:0"] * P).
+library: Simulation(cfg, strip_devices=["cuda:0"] * P). An unstructured
+deck with parallel.n_devices = P > 1 runs in P shards in this process
+(parallel/sharded.py), on cuda:0..P-1 or with --cpu on the CPU.
+
+Several ranks, one shard or row strip each:
+
+    torchrun --standalone --nproc-per-node P -m rdycore_tpu_torch deck.yaml
+
+joins the ranks (`parallel.comm.init_from_env`: NCCL, each rank on the
+card LOCAL_RANK; with --cpu gloo on the CPU) unless a process group
+exists already (a caller that made one calls main() in each rank); the
+deck's parallel.n_devices must be the world size. Rank 0 writes the
+outputs.
 """
 
 from __future__ import annotations
@@ -71,9 +83,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from rdycore_tpu_torch.config.yaml_input import load_config
-    from rdycore_tpu_torch.forcing import attach_forcing
-    from rdycore_tpu_torch.io.writers import attach_output_monitors
-    from rdycore_tpu_torch.simulation import Simulation
 
     if args.pause:
         print(f"rdycore_tpu_torch pid: {os.getpid()} -- press Enter to "
@@ -91,6 +100,31 @@ def main(argv=None):
         cfg.numerics.precision = "double"
 
     device = "cpu" if args.cpu else None
+    joined = False
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        import torch.distributed as dist
+
+        from rdycore_tpu_torch.parallel.comm import init_from_env
+
+        if not dist.is_initialized():
+            init_from_env(cpu=args.cpu)
+            joined = True
+    try:
+        return run_deck(args, cfg, device)
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def run_deck(args, cfg, device) -> int:
+    """Run the deck as main() parsed it: the MMS driver, or the
+    simulation with its outputs and forcing. Returns the exit code."""
+    from rdycore_tpu_torch.forcing import attach_forcing
+    from rdycore_tpu_torch.io.writers import attach_output_monitors
+    from rdycore_tpu_torch.simulation import Simulation
+
     if args.mms:
         from rdycore_tpu_torch.mms import MMSDriver
 

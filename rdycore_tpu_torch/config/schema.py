@@ -392,13 +392,19 @@ class MMS:
 @dataclass
 class Parallel:
     """Multi-device execution (the MPI domain-decomposition replacement).
-    n_devices = 0 -> single device; this package runs one device only.
+    n_devices = 0 -> single device. n_devices = P > 1: the unstructured
+    path in P shards (parallel/sharded.py) and a fused_structured raster
+    in P row strips; one per rank under a process group of P ranks
+    (`torchrun --nproc-per-node P -m rdycore_tpu_torch deck.yaml`),
+    else all P in one process, on cuda:0..P-1 or on the CPU.
 
     partitioning: "auto" applies a graph-aware (RCM-banded) cell ordering
     before the equal-contiguous-block shard split, the analogue of the
     reference's ParMETIS DMPlexDistribute (rdydm.c:116-121): irregular
     meshes get O(bandwidth) frontiers and every ghost stays on shard p+-1
-    (neighbor-only ppermute halo). "none" shards the file order as-is."""
+    (a halo with the neighbouring shards only). "none" shards the file
+    order as-is. axis_name is read and unused (the JAX package's device
+    mesh axis)."""
 
     n_devices: int = 0
     axis_name: str = "mesh"

@@ -156,6 +156,8 @@ class CGNSWriter:
             self._batch = []
 
     def _write_file(self):
+        if not self.sim.is_writer:
+            return
         h5py, mesh = self.h5py, self.sim.mesh
         path = os.path.join(
             self.dir, f"{self.prefix}-{self._batch_first_step}.cgns")

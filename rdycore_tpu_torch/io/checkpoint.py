@@ -13,7 +13,8 @@ and the [ndof, C] dataset `solution`), which needs h5py. E3SM-style names
 takes {t, dt, step} from the file unless restart.reinitialize, which
 keeps the deck's (rdyconfigimpl.h:183-186). Neither the Courant number of
 the last interval nor the accumulators are stored, as in the JAX package:
-a run with adaptive dt does not restart bit for bit.
+a run with adaptive dt does not restart bit for bit. In a run of several
+ranks, rank 0 writes and every rank reads a restart file and scatters it.
 """
 
 from __future__ import annotations
@@ -44,7 +45,11 @@ def _to_natural(sim: "Simulation") -> np.ndarray:
 
 
 def write_checkpoint(sim: "Simulation", path: str) -> None:
+    """Write the checkpoint (the state is gathered on every rank of a run
+    of several; rank 0 writes)."""
     sol = sim.get_solution()[:, _to_natural(sim)]  # [ndof, C] natural order
+    if not sim.is_writer:
+        return
     if path.endswith(".bin"):
         meta = np.array([1.0, sim.t, sim.dt, float(sim.step)])
         with open(path, "wb") as f:

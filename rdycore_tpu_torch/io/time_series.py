@@ -65,6 +65,8 @@ class TimeSeriesMonitor:
         delta = sim.bflux_accum - (0.0 if last is None else last)
         self._last_bflux_accum = sim.bflux_accum.copy()
         self._last_bflux_step = sim.step
+        if not sim.is_writer:
+            return
         with open(self.bflux_path, "a") as f:
             if not self._bflux_written_header:
                 f.write("# time boundary water_flux x_momentum_flux y_momentum_flux\n")
@@ -84,6 +86,8 @@ class TimeSeriesMonitor:
             sol = sim.get_solution()[:, cells]
         else:
             sol = sim.accum_sol[:, cells] / sim.accum_time
+        if not sim.is_writer:
+            return
         with open(self.obs_path, "a") as f:
             if not self._obs_written_header:
                 f.write("# time cell h hu hv\n")

@@ -6,7 +6,9 @@ checkpoints (checkpoint.c) and time series (time_series.c); here monitors
 are per-coupling-interval callbacks on the Simulation. XDMF and CGNS
 (io/cgns.py) write HDF5 through h5py, imported when a file is written;
 where it is absent a deck asking for them fails at setup with a
-ConfigError naming h5py (io/hdf5.py).
+ConfigError naming h5py (io/hdf5.py). In a run of several ranks every
+rank gathers what a file holds (the getters are collective) and rank 0
+alone writes it (`Simulation.is_writer`).
 """
 
 from __future__ import annotations
@@ -197,6 +199,10 @@ class XDMFWriter:
 
     def _write_step(self):
         sim, h5py = self.sim, self.h5py
+        fields = collect_output_fields(sim, self.fields)  # every rank
+        if not sim.is_writer:
+            self._times.append(sim.t)
+            return
         if not self._wrote_grid:
             grid_path = os.path.join(self.dir, f"{self.prefix}.grid.h5")
             with h5py.File(grid_path, "w") as f:
@@ -212,7 +218,7 @@ class XDMFWriter:
         self._opened_batches.add(path)
         with h5py.File(path, mode) as f:
             g = f.require_group(f"{snap}")
-            for name, data in collect_output_fields(sim, self.fields):
+            for name, data in fields:
                 g.create_dataset(name, data=data)
             g.attrs["time"] = sim.t
             g.attrs["step"] = sim.step
@@ -302,4 +308,5 @@ class BinaryWriter:
         path = output_filename(
             sim.config, self.dir, self.prefix, sim.step, sim.t, "bin"
         )
-        write_petsc_vec(path, blocked)
+        if sim.is_writer:
+            write_petsc_vec(path, blocked)

@@ -164,6 +164,22 @@ def rcm_reorder(mesh: "Mesh") -> "Mesh":
     return reorder_cells(mesh, perm)
 
 
+def block_order(mesh: "Mesh", px: int, py: int) -> np.ndarray:
+    """2-D block ordering: the cells sorted into a px x py grid of spatial
+    blocks (cut at centroid quantiles, so the blocks hold equal numbers of
+    cells), block-major, each block in the cells' old order. With the
+    shards' equal contiguous blocks of the cell order (parallel/
+    partition.py) this gives 2-D subdomains, whose ghosts lie on shards
+    that are not neighbours in rank order. Apply with `reorder_cells`."""
+    cx = mesh.cell_centroid[:, 0]
+    cy = mesh.cell_centroid[:, 1]
+    qx = np.quantile(cx, np.linspace(0, 1, px + 1)[1:-1]) if px > 1 else []
+    qy = np.quantile(cy, np.linspace(0, 1, py + 1)[1:-1]) if py > 1 else []
+    block = (np.searchsorted(np.asarray(qy), cy) * px
+             + np.searchsorted(np.asarray(qx), cx))
+    return np.argsort(block, kind="stable")
+
+
 def save_mesh_npz(mesh: "Mesh", path: str) -> None:
     """Save a mesh in the native .npz format (points + connectivity +
     labels; geometry is rebuilt on load)."""

@@ -18,13 +18,22 @@ on each side's current stream and makes the other wait on it.
 
 Halo depth: 1 row at first order, 3 at second order (MUSCL with the
 positivity limiter), as the TPU stepper's HR (:1144-1148).
+
+Under a process group each rank holds one strip (`RankStrip`): its buffer
+stays on the rank's card across intervals, and the halo rows move to and
+from the neighbouring ranks through the run's transport (parallel/comm.
+DistTransport), one buffer of rows each way per strip boundary. The
+whole raster is gathered only where a getter, an output or a checkpoint
+asks for it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import types
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .kernels.raster_step import Strip
@@ -129,3 +138,66 @@ def strip_boundary_edges(bnd, nx: int, strip: Strip, device: torch.device):
     return (dataclasses.replace(bnd, **{k: v.to(device)
                                         for k, v in sub.items()}),
             idx.to(device))
+
+
+def strip_halo(strips: Sequence[Strip], k: int, nx: int):
+    """Strip k's halo as a transport binds it: `send[r]`, the columns of
+    its buffer that strip r's halo rows copy; `recv[r]`, the columns of
+    its halo rows that strip r fills (both in row order)."""
+    s = strips[k]
+
+    def cols(r0, n):  # buffer columns of buffer rows [r0, r0 + n)
+        return np.arange(r0 * nx, (r0 + n) * nx)
+
+    send, recv = {}, {}
+    if s.halo_lo:
+        send[k - 1] = cols(s.halo_lo, strips[k - 1].halo_hi)
+        recv[k - 1] = cols(0, s.halo_lo)
+    if s.halo_hi:
+        above = strips[k + 1].halo_lo
+        send[k + 1] = cols(s.halo_lo + s.rows - above, above)
+        recv[k + 1] = cols(s.halo_lo + s.rows, s.halo_hi)
+    return types.SimpleNamespace(send=send, recv=recv)
+
+
+class RankStrip:
+    """Strip `rank` of the P strips of an nx-wide raster held by this
+    rank: its buffer [ndof, R * nx] on `device` across intervals, its halo
+    moved through `transport` (a DistTransport of P ranks, bound here to
+    the strip's rows)."""
+
+    def __init__(self, strips: Sequence[Strip], nx: int, transport,
+                 device: torch.device):
+        self.rank, self.P = transport.rank, len(strips)
+        self.strip = strips[self.rank]
+        self.nx, self.device, self.transport = nx, device, transport
+        self.buf: Optional[torch.Tensor] = None
+        transport.bind([strip_halo(strips, k, nx)
+                        for k in range(self.P)], {self.rank: 0})
+
+    def exchange(self, bufs: Sequence[torch.Tensor]) -> None:
+        """Refresh the halo rows of this rank's buffer (bufs: [it])."""
+        self.transport.exchange(self.rank, bufs[0])
+
+    def set_state(self, q: torch.Tensor) -> None:
+        """Cut the strip's rows, halo rows included, from the raster's
+        state q [ndof, ny * nx] (every rank holds the same q)."""
+        s, nx = self.strip, self.nx
+        self.buf = q[:, (s.row0 - s.halo_lo) * nx:
+                     (s.row0 + s.rows + s.halo_hi) * nx].contiguous().to(
+                         self.device)
+
+    def owned(self, x: torch.Tensor) -> torch.Tensor:
+        """The owned rows [n, rows * nx] of a strip buffer x."""
+        s = self.strip
+        return x[:, s.halo_lo * self.nx:(s.halo_lo + s.rows) * self.nx]
+
+    def gather(self, x: torch.Tensor, device: torch.device) -> torch.Tensor:
+        """Every rank's [n, w_rank] in rank (row) order, side by side, on
+        `device` (collective)."""
+        return torch.cat(self.transport.all_gather({self.rank: x}, device),
+                         dim=1)
+
+    def gather_state(self, device: torch.device) -> torch.Tensor:
+        """The raster's state [ndof, ny * nx] on `device` (collective)."""
+        return self.gather(self.owned(self.buf), device)

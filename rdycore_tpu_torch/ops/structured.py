@@ -403,6 +403,7 @@ FUSED_SCHEMES = tuple(FUSED_STAGES) + ("rk4",)
 def make_fused_structured_stepper(
     op, scheme: str = "euler", accumulate: bool = False,
     lin_op: Optional[StructuredSWEOperator] = None,
+    exchange_halo: Optional[Callable] = None,
 ) -> Callable[..., IntervalResult]:
     """advance(q [ndof, ny*nx] float32, t0, dt, n_steps, t_end, src=None,
     bc_vals=None, bv_edges=None) -> IntervalResult, all of it float32 on
@@ -435,7 +436,13 @@ def make_fused_structured_stepper(
     K2's rhs mode (K2 MUSCL's with `second_order`) and its JVPs through
     `lin_op`, the first-order `StructuredSWEOperator` in float32 with zero
     Dirichlet ghosts (its external sources the rain plane in row 0), as
-    the JAX package's `lin_op`."""
+    the JAX package's `lin_op`.
+
+    advance.strips(qq, t0, dt, n_steps, t_end, srcs, bcs, bves) runs the
+    interval on strip buffers that stay where they are (advance cuts and
+    gathers around it). With exchange_halo(buffers) the halo rows are
+    refreshed by it instead of between the strips here: the one strip of
+    a rank, its neighbours on other ranks (ops/strips.RankStrip)."""
     if scheme not in FUSED_SCHEMES + ("beuler",):
         raise ValueError(f"fused_structured: unsupported scheme '{scheme}'")
     stages = FUSED_STAGES.get(scheme)
@@ -457,9 +464,18 @@ def make_fused_structured_stepper(
     P = len(ops)
     no_qA = [None] * P
 
-    def advance(q, t0, dt, n_steps, t_end, src=None, bc_vals=None,
-                bv_edges=None):
-        dev, f = q.device, torch.float32
+    halo = exchange_halo
+    if halo is None and P > 1:
+        def halo(states):
+            exchange(states, strips, nx)
+
+    def advance_strips(qq, t0, dt, n_steps, t_end, srcs, bcs, bves):
+        """The interval on the strip buffers qq (one per strip, on its
+        device, halo rows included; srcs, bcs, bves: each strip's rain
+        rows, wall values and boundary values, or Nones). Returns
+        {q: buffers, t, cmax: per strip, bfa: per strip or None, asol:
+        per strip buffer, aprim: per strip owned rows, atime}."""
+        f = torch.float32
 
         def scalar(x, d):
             return torch.as_tensor(x, dtype=f, device=d)
@@ -469,20 +485,9 @@ def make_fused_structured_stepper(
                   for d in uniq]
         cmax = [torch.zeros((), dtype=f, device=d) for d in devs]
         cidx = [torch.zeros((), dtype=torch.int32, device=d) for d in devs]
-        srcs = [None if src is None else
-                src[s.row0:s.row0 + s.rows].to(d)
-                for s, d in zip(strips, devs)]
-        bcs = [strip_wall_values(bc_vals, s, ny, d)
-               for s, d in zip(strips, devs)]
         parts = list(zip(ops, slot, srcs, bcs))
-        qq = split_rows(q, strips, devs, nx)
-        bves = [None] * P
         bfa = asol = aprim = atime = None
         if accumulate:
-            bves = [None if o.bnd is None else
-                    (bv_edges if o.bnd_idx is None
-                     else bv_edges[:, o.bnd_idx.to(bv_edges.device)]).to(d)
-                    for o, d in zip(ops, devs)]
             bfa = [None if o.bnd is None else
                    torch.zeros((ndof, b.shape[1]), dtype=f, device=d)
                    for o, b, d in zip(ops, bves, devs)]
@@ -493,8 +498,8 @@ def make_fused_structured_stepper(
             atime = torch.zeros((), dtype=f, device=devs[0])
 
         def step(states, dts, qA=None, **mode):
-            if P > 1:
-                exchange(states, strips, nx)
+            if halo is not None:
+                halo(states)
             return [o.step(x, dts[k], src=sr, bc_vals=bc, qA=a, **mode)
                     for (o, k, sr, bc), x, a in zip(parts, states,
                                                     qA or no_qA)]
@@ -503,7 +508,7 @@ def make_fused_structured_stepper(
             return [r.out for r in res]
 
         def beuler(o, u0, dt_i, src_s, bc):
-            es3 = torch.zeros((3, ny, nx), dtype=f, device=dev)
+            es3 = torch.zeros((3, ny, nx), dtype=f, device=u0.device)
             if src_s is not None:
                 es3[0] = src_s
 
@@ -553,6 +558,26 @@ def make_fused_structured_stepper(
             for c, x in zip(clocks, dts):
                 c[2] = c[2] + x
             qq = qs
+        return dict(q=qq, t=clocks[0][2], cmax=cmax, bfa=bfa, asol=asol,
+                    aprim=aprim, atime=atime)
+
+    def advance(q, t0, dt, n_steps, t_end, src=None, bc_vals=None,
+                bv_edges=None):
+        dev, f = q.device, torch.float32
+        srcs = [None if src is None else
+                src[s.row0:s.row0 + s.rows].to(d)
+                for s, d in zip(strips, devs)]
+        bcs = [strip_wall_values(bc_vals, s, ny, d)
+               for s, d in zip(strips, devs)]
+        bves = [None] * P
+        if accumulate:
+            bves = [None if o.bnd is None else
+                    (bv_edges if o.bnd_idx is None
+                     else bv_edges[:, o.bnd_idx.to(bv_edges.device)]).to(d)
+                    for o, d in zip(ops, devs)]
+        r = advance_strips(split_rows(q, strips, devs, nx), t0, dt,
+                           n_steps, t_end, srcs, bcs, bves)
+        bfa, asol, aprim = r["bfa"], r["asol"], r["aprim"]
         if accumulate:
             if all(b is None for b in bfa):
                 bfa = None
@@ -568,12 +593,14 @@ def make_fused_structured_stepper(
             asol = gather_rows(asol, strips, nx, dev)
             aprim = torch.cat([a.to(dev) for a in aprim], dim=1) if P > 1 \
                 else aprim[0].to(dev)
+        cmax = r["cmax"]
         return IntervalResult(
-            q=gather_rows(qq, strips, nx, dev), t=clocks[0][2].to(dev),
+            q=gather_rows(r["q"], strips, nx, dev), t=r["t"].to(dev),
             max_courant=(cmax[0] if P == 1 else torch.stack(
                 [m.to(dev) for m in cmax]).amax()),
             courant_edge=None, bflux_accum=bfa, accum_sol=asol,
-            accum_prim=aprim, accum_time=atime,
+            accum_prim=aprim, accum_time=r["atime"],
         )
 
+    advance.strips = advance_strips
     return advance

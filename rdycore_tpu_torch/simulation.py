@@ -25,6 +25,10 @@ restart (io/checkpoint.py: `checkpoint.interval`, `restart.file`,
 with an `ensemble` section runs its base configuration here, as in the JAX
 package; ensemble.py runs its members.
 
+Multi-process runs (parallel.n_devices > 1 under torch.distributed, ROADMAP
+item 16): one shard of the unstructured path, or one raster row strip,
+per rank (`Simulation`'s docstring).
+
 It runs on the CUDA device unless built with device="cpu". Every feature
 outside these paths raises NotImplementedError naming the ROADMAP item
 that will port it, or the JAX package's own ConfigError where that
@@ -41,6 +45,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .config.expressions import compile_expression
 from .config.schema import Config, ConfigError, time_from_seconds, time_to_seconds
@@ -55,6 +60,9 @@ from .mesh.core import Mesh, load_mesh_npz, rcm_reorder
 from .mesh.exodus import read_exodus
 from .mesh.gmsh import read_gmsh
 from .operator import SWEOperator, build_operator
+from .parallel.comm import OwnedAccumulators, transport_for
+from .parallel.partition import partition_stats
+from .parallel.sharded import ShardedSWE, refuse_in_shards
 from .ops.kernels.raster_step import StructuredPlan
 from .ops.structured import (
     FUSED_SCHEMES,
@@ -67,6 +75,7 @@ from .ops.structured import (
     make_fused_structured_stepper,
     make_structured_stepper,
 )
+from .ops.strips import RankStrip, strip_wall_values
 from .ops.swe import boundary as bc_mod
 from .ops.swe.sources import (
     SOURCE_IMPLICIT_XQ2018,
@@ -176,8 +185,6 @@ _PATH_REFUSALS = (
      lambda c: c.physics.flow.well_balancing not in (None, "", "none"), {
          "fused_structured": _CONFIG_ERROR, "structured": _CONFIG_ERROR}),
     ("parallel.n_devices > 1", lambda c: c.parallel.n_devices > 1, {
-        "unstructured": ("parallel.n_devices > 1 on the unstructured path",
-                         "queue 1 item 16"),
         "structured": _CONFIG_ERROR}),
     ("time_series.boundary_fluxes",
      lambda c: bool(c.output.time_series.boundary_fluxes),
@@ -225,15 +232,58 @@ def load_mesh_file(path: str) -> Mesh:
     raise ConfigError(f"unsupported mesh format '{ext}' ({path})")
 
 
+def _accumulator(k: int, doc: str) -> property:
+    """The Simulation attribute of accumulator k of `_accumulators()`: the
+    host array (gathered where shards or rank strips hold it); setting it
+    replaces the array, and their totals with it."""
+
+    def get(self):
+        return self._accumulators()[k]
+
+    def put(self, value):
+        acc = self._accumulators()
+        acc[k] = value
+        if self._owned_accum is not None:
+            self._owned_accum.set(*acc)
+
+    return property(get, put, doc=doc)
+
+
 class Simulation:
-    """A configured simulation: on `device` (CUDA unless "cpu"), and a
-    fused_structured deck with parallel.n_devices = P > 1 in P row strips
-    on cuda:0..P-1 (all on the CPU with device="cpu"), or on the devices
-    `strip_devices` names, one per strip, a card as often as wanted. The
-    state, sources and wall values live whole on `device` between
-    intervals (where the coupling API reads and writes them) and are cut
-    into the strips at the start of each interval and gathered at its end,
-    as the JAX package packs its shards each interval."""
+    """A configured simulation on `device` (CUDA unless "cpu").
+
+    parallel.n_devices = P > 1, in one process: a fused_structured deck
+    runs in P row strips and an unstructured deck in P shards
+    (parallel/sharded.py), on cuda:0..P-1 (all on the CPU with
+    device="cpu"), or on the devices `strip_devices` names, one per strip
+    or shard, a card as often as wanted. The strips' state lives whole on
+    `device` between intervals and is cut into the strips each interval,
+    as the JAX package packs its shards; the shards keep theirs on their
+    devices and `q` is gathered from them when read.
+
+    Under a process group of P ranks (`torchrun`, or
+    `parallel.comm.spawn`), each rank holds one shard, or one row strip
+    whose buffer stays on its card, on `device`; the deck's n_devices
+    must equal the world size, and a one-rank group runs one shard. Then
+    every getter and setter of the state, the sources, the boundary
+    values and the accumulators is collective (each rank calls it, in the
+    same order, with the same values): a getter gathers the owned rows
+    from every rank, a setter scatters to them. Rank 0 (`is_writer`)
+    writes the outputs and checkpoints; every rank reads a restart file.
+
+    In shards (in one process or over ranks) and rank strips the global
+    state, sources and boundary values are host tensors, and the
+    accumulators (`accum_sol`, `accum_prim`, `bflux_accum`) stay on the
+    shards' devices until read. Assign whole arrays (`q`, `ext_src`,
+    `boundary_values`, the accumulators, or the setters): there an
+    in-place change of the gathered array reaches no shard."""
+
+    accum_sol = _accumulator(0, "The time-integrated state [ndof, C] "
+                                "(host, f64).")
+    accum_prim = _accumulator(1, "The time-integrated primitives [ndof, C] "
+                                 "(host, f64).")
+    bflux_accum = _accumulator(2, "The time-integrated boundary fluxes "
+                                  "[ndof, max(Eb, 1)] (host, f64).")
 
     def __init__(
         self, config: Config, mesh: Optional[Mesh] = None,
@@ -245,8 +295,33 @@ class Simulation:
         self.device = resolve_device(device)
         self.strip_devices = strip_devices
         self.config = config
-        self.log = Logger(config.logging.level, config.logging.file)
+        # the run's parallel mode: with a process group, one shard (or row
+        # strip) per rank; without, P shards (strips) in this process
+        self._ranks = dist.is_available() and dist.is_initialized()
+        # the one process that writes the run's files (outputs,
+        # checkpoints, time series, the log file): rank 0 of a group
+        self.is_writer = not self._ranks or dist.get_rank() == 0
+        self.log = Logger(config.logging.level,
+                          config.logging.file if self.is_writer else "")
         self.dtype = config.dtype
+        n_dev = config.parallel.n_devices
+        path = path_of(config)
+        if self._ranks and dist.get_world_size() != max(n_dev, 1):
+            raise ConfigError(
+                f"parallel.n_devices = {n_dev} but the process group has "
+                f"{dist.get_world_size()} ranks; run one rank per device")
+        n_shards = (max(n_dev, 1) if path == "unstructured"
+                    and (n_dev > 1 or self._ranks) else 0)
+        rank_strips = self._ranks and path == "fused_structured" and n_dev > 1
+        self._sharded: Optional[ShardedSWE] = None
+        self._rank_strip = None
+        self._q = self._ext_src = self._bv = self._strip_src = None
+        # where the global state, sources and boundary values live: on the
+        # host when shards or rank strips hold the state on their devices
+        self._home = (torch.device("cpu") if n_shards or rank_strips
+                      else self.device)
+        # the accumulators the shards or rank strips hold on their devices
+        self._owned_accum: Optional[OwnedAccumulators] = None
 
         # ---- mesh (rdysetup.c CreateDM + RDyMeshCreateFromDM) ----
         if mesh is None:
@@ -256,6 +331,16 @@ class Simulation:
         if config.numerics.cell_ordering == "rcm":
             mesh = rcm_reorder(mesh)
             self.log.detail("applied RCM cell ordering")
+        elif (n_dev > 1 and path == "unstructured"
+              and config.parallel.partitioning == "auto"):
+            # the shards are equal contiguous blocks of the cell order:
+            # RCM bands it, so each shard's ghosts lie on its neighbours
+            # (the JAX package's simulation.py:87-103; ParMETIS's place in
+            # the reference, rdydm.c:116-121). Couplers see the reordered
+            # cells; natural ids map them.
+            mesh = rcm_reorder(mesh)
+            self.log.detail(
+                "applied RCM partition ordering (parallel.partitioning: auto)")
         if config.grid.cell_elevation.file:
             cell_elev = read_petsc_vec(
                 config.resolve_path(config.grid.cell_elevation.file)
@@ -376,8 +461,11 @@ class Simulation:
             source_method=_SOURCE_CODES[config.physics.flow.source.method],
             xq2018_threshold=config.physics.flow.source.xq2018_threshold,
             dtype=self.dtype,
-            device=self.device,
+            # in shards or rank strips no device holds the whole operator
+            device="cpu" if n_shards or rank_strips else self.device,
         )
+        if n_shards:
+            self._init_sharded(n_shards)
 
         # ---- uniform-raster paths ----
         self._structured = None
@@ -385,10 +473,13 @@ class Simulation:
             "structured", "fused_structured"
         ):
             self._init_structured_backend()
-        if strip_devices is not None and not (
-                self._structured and self._structured.get("strips")):
-            raise ValueError("strip_devices: only a fused_structured deck "
-                             "with parallel.n_devices > 1 runs in strips")
+        in_process = (self._structured and self._structured.get("strips")
+                      or self._sharded is not None) and not self._ranks
+        if strip_devices is not None and not in_process:
+            raise ValueError(
+                "strip_devices: only a deck with parallel.n_devices > 1 run "
+                "in one process (fused_structured strips or unstructured "
+                "shards) takes devices")
 
         # ---- boundary geometry (edge centers, for BC expressions) ----
         self._bnd_centers = self._boundary_edge_centers()
@@ -454,10 +545,12 @@ class Simulation:
         ]
         self.monitor_stride = math.gcd(*intervals) if intervals else 0
 
-        # accumulated diagnostics for time series / outputs (host, f64)
-        self.bflux_accum = np.zeros((self.ndof, max(self.operator.num_boundary_edges, 1)))
-        self.accum_sol = np.zeros((self.ndof, mesh.num_cells))
-        self.accum_prim = np.zeros((self.ndof, mesh.num_cells))
+        # accumulated diagnostics for time series / outputs (host, f64;
+        # in shards or rank strips gathered from them when read)
+        self._accum = [
+            np.zeros((self.ndof, mesh.num_cells)),
+            np.zeros((self.ndof, mesh.num_cells)),
+            np.zeros((self.ndof, max(self.operator.num_boundary_edges, 1)))]
         self.accum_time = 0.0
 
         self.log_domain_statistics()
@@ -478,12 +571,109 @@ class Simulation:
         keys to replace)."""
         return cls(load_config(path, overrides or None), device=device)
 
+    # ------------------------------------------------------------- shards
+    def _init_sharded(self, n_shards: int):
+        """The unstructured path in n_shards shards (parallel/sharded.py):
+        one per rank of the process group, else all here on the devices of
+        `_strip_device_list`; the operator stays on the host, each shard's
+        part on its device."""
+        refuse_in_shards(self.operator, self.config.numerics.temporal)
+        devices = ([self.device] if self._ranks
+                   else self._strip_device_list(n_shards))
+        self._sharded = sh = ShardedSWE(
+            self.operator, n_shards, transport_for(n_shards, devices))
+        self._owned_accum = sh.accumulators
+        ghosts, frontier = partition_stats(sh.plans)
+        where = (f"{n_shards} ranks over {dist.get_backend()}" if self._ranks
+                 else "one process on " + ", ".join(map(str, devices)))
+        self.log.info(
+            f"parallel: {n_shards} shards of {sh.B} cells ({where}); halo "
+            f"{'neighbours only' if sh.neighbor_only else 'any shard'}")
+        self.log.detail(f"partition: ghosts per shard {ghosts}, frontier "
+                        f"cells per shard {frontier}")
+        cards = {d for d in devices if d.type == "cuda"}
+        if not self._ranks and len(cards) > 1:
+            self.log.warning(
+                f"{n_shards} shards on {len(cards)} cards in one process run "
+                "one thread per card under one interpreter lock: on four "
+                "H100s 12-17 times slower a step than one card (ROADMAP "
+                "item 16b). One rank per card scales: torchrun --standalone "
+                f"--nproc-per-node {n_shards} -m rdycore_tpu_torch deck.yaml")
+
+    @property
+    def q(self) -> torch.Tensor:
+        """The state [ndof, C] on `device`; in shards or rank strips on the
+        host, gathered from them when first read after an interval
+        (collective over the ranks), and setting it scatters it to them."""
+        if self._q is None:
+            self._q = (self._sharded.gather_state(self._qs, self._home)
+                       if self._sharded is not None
+                       else self._rank_strip.gather_state(self._home).to(
+                           self.dtype))
+        return self._q
+
+    @q.setter
+    def q(self, value: torch.Tensor):
+        self._q = value
+        if self._sharded is not None:
+            self._qs = self._sharded.scatter_state(value)
+        elif self._rank_strip is not None:
+            self._rank_strip.set_state(value.to(torch.float32))
+
+    @property
+    def ext_src(self) -> torch.Tensor:
+        """The external sources [ndof, C] on `device` (in shards or rank
+        strips on the host; set: scattered to the shards, and a rank
+        strip takes its rows at its next interval)."""
+        return self._ext_src
+
+    @ext_src.setter
+    def ext_src(self, value: torch.Tensor):
+        self._ext_src = value
+        self._strip_src = None
+        if self._sharded is not None:
+            self._ess = self._sharded.scatter_state(value)
+
+    @property
+    def boundary_values(self) -> torch.Tensor:
+        """The Dirichlet values [ndof, max(Eb, 1)] on `device` (in shards or
+        rank strips on the host; set: scattered to the shards)."""
+        return self._bv
+
+    @boundary_values.setter
+    def boundary_values(self, value: torch.Tensor):
+        self._bv = value
+        if self._sharded is not None:
+            self._bvs = self._sharded.scatter_boundary(value)
+
+    def _advance_sharded(self, n_steps: int, t_end: float):
+        """n_steps steps of the shards; returns the chunk's (max Courant
+        number, edge id attaining it). The shards' states and accumulators
+        stay on their devices (ROADMAP fault 27: the shards accumulate)."""
+        res = self._advance_fn(self._qs, self.t, self.dt, n_steps, t_end,
+                               self._bvs, self._ess)
+        self._qs = res.qs
+        self._q = None
+        self.t = res.t
+        self.step += int(n_steps)
+        self.accum_time += res.accum_time
+        return res.max_courant, res.courant_edge
+
+    def _accumulators(self) -> list:
+        """[accum_sol, accum_prim, bflux_accum], host f64 arrays: gathered
+        from the shards or rank strips where they hold them (collective
+        over the ranks)."""
+        if self._owned_accum is not None:
+            return self._owned_accum.gather()
+        return self._accum
+
     # ------------------------------------------------------------- setup bits
     def _tensor(self, x) -> torch.Tensor:
-        """x on the device in the simulation's dtype, C-contiguous (the
-        kernels take nothing else)."""
+        """x where the global arrays live (the device, or the host in shards
+        or rank strips) in the simulation's dtype, C-contiguous (the kernels
+        take nothing else)."""
         return torch.as_tensor(np.ascontiguousarray(x), dtype=self.dtype,
-                               device=self.device)
+                               device=self._home)
 
     def _eval_cells(self, value, cells, t: float = 0.0) -> np.ndarray:
         """Evaluate a number-or-expression at cell centroids."""
@@ -649,7 +839,11 @@ class Simulation:
             n_steps = min(n_steps, self.max_steps - self.step)
             t_end = min(t_end, self.t + n_steps * self.dt)
 
-        if self._advance_fn is None and self._structured is None:
+        if self._advance_fn is None and self._sharded is not None:
+            self._advance_fn = self._sharded.make_interval_fn(
+                self._advance_scheme, accumulate=self._needs_accumulators(),
+                ext_sources=self._ext_active)
+        elif self._advance_fn is None and self._structured is None:
             self._advance_fn = make_interval_advancer(
                 self.operator, self._advance_scheme,
                 accumulate=self._needs_accumulators(),
@@ -664,7 +858,9 @@ class Simulation:
             if self._structured is not None:
                 cmax = self._advance_structured(chunk, t_end)
             else:
-                cmax, edge = self._advance_unstructured(chunk, t_end)
+                cmax, edge = (self._advance_sharded(chunk, t_end)
+                              if self._sharded is not None else
+                              self._advance_unstructured(chunk, t_end))
                 if cmax >= max_courant:
                     self.prev_courant_edge = edge
             done += chunk
@@ -822,7 +1018,7 @@ class Simulation:
                         f"edge_flux_backend: {kind}: Dirichlet wall "
                         f"'{side}' is not fully covered by boundary edges"
                     )
-                side_cols[side] = torch.as_tensor(cols, device=self.device)
+                side_cols[side] = torch.as_tensor(cols, device=self._home)
             accum = self._needs_accumulators()
             bnd = None
             if (cfg.output.time_series.boundary_fluxes
@@ -834,7 +1030,34 @@ class Simulation:
                 riemann=cfg.numerics.riemann,
                 second_order=cfg.numerics.second_order,
                 limiter=cfg.numerics.limiter)
-            if n_dev > 1:
+            rank = None
+            if n_dev > 1 and self._ranks:
+                # one strip per rank: this rank's planes on its card
+                rank = dist.get_rank()
+                cpu = torch.device("cpu")
+                devices = [self.device if k == rank else cpu
+                           for k in range(n_dev)]
+                strip_ops = fused_strip_operators(
+                    plan, *(torch.as_tensor(x, dtype=torch.float32)
+                            for x in (dzx, dzy, mann)),
+                    devices, bnd, **options)
+                op = strip_ops[rank]
+                old = self._rank_strip
+                self._rank_strip = RankStrip(
+                    [o.strip for o in strip_ops], nx,
+                    transport_for(n_dev, [self.device]), self.device)
+                if old is not None:  # a rebuild keeps the state
+                    self._rank_strip.buf = old.buf
+                else:  # each strip's rows and boundary edges
+                    self._owned_accum = OwnedAccumulators(
+                        self._rank_strip.transport,
+                        [(np.arange(o.strip.row0 * nx,
+                                    (o.strip.row0 + o.strip.rows) * nx),
+                          np.zeros(0, np.int64) if o.bnd is None
+                          else o.bnd_idx.cpu().numpy())
+                         for o in strip_ops],
+                        self.ndof, ny * nx, self.operator.num_boundary_edges)
+            elif n_dev > 1:
                 # P row strips of ny / P rows (the JAX package's row-strip
                 # sharded stepper), each strip's planes on its device
                 devices = self._strip_device_list(n_dev)
@@ -867,13 +1090,17 @@ class Simulation:
                 kind="fused", nx=nx, ny=ny, op=op, scheme=scheme,
                 with_src=bool(cfg.sources), side_cols=side_cols,
                 accumulate=accum, strips=n_dev > 1, lin_op=lin_op,
-                adv=make_fused_structured_stepper(op, scheme,
-                                                  accumulate=accum,
-                                                  lin_op=lin_op),
+                adv=make_fused_structured_stepper(
+                    op, scheme, accumulate=accum, lin_op=lin_op,
+                    exchange_halo=None if rank is None
+                    else self._rank_strip.exchange),
             )
             where = ("; its plain version on the CPU"
                      if self.device.type == "cpu" else "")
-            if n_dev > 1:
+            if rank is not None:
+                where += (f"; {n_dev} row strips of {ny // n_dev} rows, "
+                          f"strip {rank} on this rank's {self.device}")
+            elif n_dev > 1:
                 where += (f"; {n_dev} row strips of {ny // n_dev} rows on "
                           + ", ".join(map(str, devices)))
             self.log.info(
@@ -958,11 +1185,13 @@ class Simulation:
                 )
                 st["with_src"] = True
             f32 = torch.float32
-            src = (self.ext_src[0].reshape(ny, nx).to(f32)
-                   if st["with_src"] else None)
             bv = self.boundary_values
             bc_vals = {side: bv[:, cols].to(f32)
                        for side, cols in st["side_cols"].items()}
+            if self._rank_strip is not None:
+                return self._advance_rank_strip(n_steps, t_end, bc_vals)
+            src = (self.ext_src[0].reshape(ny, nx).to(f32)
+                   if st["with_src"] else None)
             accum = st["accumulate"]
             res = st["adv"](
                 self.q.to(f32), np.float32(self.t), np.float32(self.dt),
@@ -978,6 +1207,39 @@ class Simulation:
             self.q = res.q.to(self.dtype)
             t_out, cmax = res.t, res.max_courant
         self.t = float(t_out)
+        self.step += int(n_steps)
+        self.prev_courant_edge = None
+        return float(cmax)
+
+    def _advance_rank_strip(self, n_steps: int, t_end: float,
+                            bc_vals) -> float:
+        """n_steps steps of this rank's row strip, its buffer, rain rows
+        and accumulators kept on the card; returns the Courant maximum over
+        the ranks."""
+        st, rs = self._structured, self._rank_strip
+        op, s, dev = st["op"], rs.strip, self.device
+        f32, host = torch.float32, torch.device("cpu")
+        nx, ny = st["nx"], st["ny"]
+        if st["with_src"] and self._strip_src is None:
+            self._strip_src = self.ext_src[0].reshape(ny, nx)[
+                s.row0:s.row0 + s.rows].to(dev, f32)
+        src_s = self._strip_src if st["with_src"] else None
+        bv = self.boundary_values
+        bves = [None]
+        if st["accumulate"] and op.bnd is not None:
+            bves = [bv[:, op.bnd_idx.to(bv.device)].to(f32).to(dev)]
+        r = st["adv"].strips([rs.buf], np.float32(self.t),
+                             np.float32(self.dt), int(n_steps),
+                             np.float32(t_end), [src_s],
+                             [strip_wall_values(bc_vals, s, ny, dev)], bves)
+        rs.buf = r["q"][0]
+        self._q = None
+        cmax = rs.gather(r["cmax"][0].reshape(1, 1), host).max()
+        if st["accumulate"]:
+            self._owned_accum.add(rs.rank, rs.owned(r["asol"][0]),
+                                  r["aprim"][0], r["bfa"][0])
+            self.accum_time += float(r["atime"])
+        self.t = float(r["t"])
         self.step += int(n_steps)
         self.prev_courant_edge = None
         return float(cmax)
@@ -999,6 +1261,9 @@ class Simulation:
         and sources afterwards (amr.perform_amr). On a CUDA device the
         log's info line gives the device memory before, after and at peak:
         the old operator's tensors are alive while the new one is built."""
+        if self._sharded is not None or self._rank_strip is not None:
+            _not_ported("a mesh rebuild (AMR) in shards or rank strips",
+                        "item 16b")
         dev = self.device
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
@@ -1108,7 +1373,11 @@ class Simulation:
     def set_manning_n(self, n: np.ndarray):
         n = np.broadcast_to(np.asarray(n, dtype=np.float64), (self.mesh.num_cells,))
         self.mannings_n = n.copy()
-        self.operator.arrays.mannings_n = self._tensor(self.mannings_n)
+        a = self.operator.arrays
+        a.mannings_n = torch.as_tensor(self.mannings_n, dtype=self.dtype,
+                                       device=a.area.device)
+        if self._sharded is not None:
+            self._sharded.set_cell_field("mannings_n", self.mannings_n)
         # the raster paths hold their own Manning plane: rebuild them
         if self._structured is not None:
             self._init_structured_backend()

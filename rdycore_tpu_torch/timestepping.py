@@ -49,6 +49,7 @@ exactly like the reference (rdyadvance.c:303-343).
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Callable, NamedTuple, Optional
 
@@ -94,6 +95,9 @@ class IntervalResult(NamedTuple):
     accum_sol: torch.Tensor  # [ndof, C] sum of dt * q (time-averaged output)
     accum_prim: torch.Tensor  # [ndof, C] sum of dt * primitives
     accum_time: torch.Tensor  # total time accumulated
+    # with an exchange hook: the step (0-based) whose Courant number is
+    # max_courant, for the shards' MAXLOC (parallel/sharded.py)
+    courant_step: Optional[torch.Tensor] = None
 
 
 def _rk4_step(rhs_fn: Callable, q, t, dt):
@@ -265,6 +269,7 @@ def make_interval_advancer(
     src_fn: Optional[Callable] = None,
     accumulate: bool = True,
     ext_sources: bool = True,
+    exchange: Optional[Callable[[torch.Tensor], None]] = None,
 ):
     """Build a function advancing one coupling interval.
 
@@ -283,6 +288,13 @@ def make_interval_advancer(
     shape. ext_sources=False skips the external-source stream (the caller
     guarantees it is zero; src_fn overrides it).
 
+    exchange(q) is the one hook of a shard's loop (parallel/sharded.py): it
+    fills the ghost rows of a stage's state q in place before every edge
+    phase of the operator (each stage of every scheme; rk4's and
+    ark_imex's evaluations alike). With it the result also carries
+    `courant_step`, the step of the Courant maximum, so that the shards'
+    maxima combine into the single-device one and its edge.
+
     Returns advance(q, t0, dt, n_steps, t_end, bnd_values, ext_src)
     -> IntervalResult, all of it on q's device.
     """
@@ -294,6 +306,9 @@ def make_interval_advancer(
         # the explicit part has no friction: the DIRK stages own it. Tracer
         # rows advance explicitly (the friction solve passes them through)
         base_op = dataclasses.replace(op, source_method=SOURCE_NONE)
+    track = exchange is not None
+    if track:
+        op, base_op = (with_exchange(o, exchange) for o in (op, base_op))
     lin_op = linearization_twin(op) if scheme == TEMPORAL_BEULER else None
 
     def step(q, t, dt, bv, es):
@@ -318,6 +333,7 @@ def make_interval_advancer(
         dt, t_end, tt = scalar(dt), scalar(t_end), scalar(t0)
         cmax = torch.zeros((), dtype=dtype, device=dev)
         cedge = torch.zeros((), dtype=torch.int32, device=dev)
+        cstep = cedge.clone() if track else None
         bfa = torch.zeros((op.ndof, max(op.num_boundary_edges, 1)),
                           dtype=dtype, device=dev)
         asol = torch.zeros_like(q)
@@ -327,7 +343,7 @@ def make_interval_advancer(
         es = ext_src if ext_sources else None
         qq = q
 
-        for _ in range(int(n_steps)):
+        for i in range(int(n_steps)):
             dt_i = torch.clamp(torch.minimum(dt, t_end - tt), min=0.0)
             if bc_fn is not None or src_fn is not None:
                 # the step's forcing, frozen across its stages
@@ -338,7 +354,10 @@ def make_interval_advancer(
                     es = src_fn(t_half)
             if stages is not None:
                 flux, courant = op.fluxes(qq, bv, dt_i)
+                prev = cmax.clone() if track else None
                 op.courant_max(courant, dt_i, cmax, cedge)
+                if track:
+                    cstep = torch.where(cmax > prev, i, cstep)
                 out1 = op.cell_stage(flux, qq, dt_i, es, stage=stages[0],
                                      emit_prim=accumulate)
                 qs = out1.q_out
@@ -353,6 +372,8 @@ def make_interval_advancer(
                 bigger = step_courant > cmax
                 cmax = torch.where(bigger, step_courant, cmax)
                 cedge = torch.where(bigger, r1.courant_edge, cedge)
+                if track:
+                    cstep = torch.where(bigger, i, cstep)
                 # a step past t_end (dt_i == 0) leaves the state unchanged
                 qs = torch.where(dt_i > 0.0, q_new, qq)
                 fb, prim = r1.boundary_fluxes, r1.prim
@@ -368,10 +389,26 @@ def make_interval_advancer(
         return IntervalResult(
             q=qq, t=tt, max_courant=cmax, courant_edge=cedge,
             bflux_accum=bfa, accum_sol=asol, accum_prim=aprim,
-            accum_time=atime,
+            accum_time=atime, courant_step=cstep,
         )
 
     return advance
+
+
+def with_exchange(op: SWEOperator, exchange: Callable) -> SWEOperator:
+    """A shallow copy of a shard's operator (its class kept, so a
+    linearization twin stays one) whose edge phase `fluxes`, which
+    `apply`, `rhs` and stage mode all go through, first fills the ghost
+    rows of q in place by exchange(q)."""
+    out = copy.copy(op)
+    inner = op.fluxes
+
+    def fluxes(q, boundary_values, dt):
+        exchange(q)
+        return inner(q, boundary_values, dt)
+
+    out.fluxes = fluxes
+    return out
 
 
 def adapt_timestep(

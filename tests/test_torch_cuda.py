@@ -29,7 +29,9 @@ the CPU run (1e-10 in f64). The row-strip modes of K2 (4 strips of a
 their plain versions the same way
 and to the whole raster's launch bit for bit, and 20 steps of 4 strips on
 one card (euler; rk4 with tracers; MUSCL ssprk2) to the single strip bit
-for bit. K1c is held to its plain version exactly (max, index and run
+for bit, and 20 steps of the unstructured path in 2 shards on one card
+(euler; rk4 with tracers; MUSCL ssprk2) to one device on the same cell
+order bit for bit. K1c is held to its plain version exactly (max, index and run
 fold; NaN, ties, infinities, signed zeros, misaligned slices, 1 to 5.77M
 values, f32 and f64) and counted as one kernel per call by torch.profiler;
 K2 at every tracer count and Riemann option on ragged rasters (a single
@@ -851,6 +853,40 @@ def test_strips_on_one_card_match_the_single_strip(dev, deck):
         assert np.array_equal(getattr(one, name), getattr(four, name)), name
     assert np.array_equal(one.get_solution(), four.get_solution())
     assert [4 * n for n in l1] == l4 and l1[0] == l1[2] == 20
+
+
+@pytest.mark.parametrize("deck", [
+    dict(scheme="euler"), dict(scheme="rk4", tracers=True),
+    dict(scheme="ssprk2", second_order=True)])
+def test_two_shards_on_one_card_match_one_device(dev, deck):
+    """20 steps of the unstructured path in 2 shards in one process on one
+    card (the shards side by side as one unit), bit for bit the single
+    device on the same cell order (partitioning: auto is RCM): q, t, the
+    Courant number and edge and the accumulators, each kernel launched as
+    often as on one device."""
+    mesh = structured_tri(64, 16, 0.0, 2.0, 0.0, 0.5)
+    mesh.regions = {"__id_1": np.arange(mesh.num_cells, dtype=np.int32)}
+    runs = []
+    for n_dev in (1, 2):
+        cfg = strip_deck(n_dev, **deck)
+        cfg.numerics.edge_flux_backend = "xla"
+        if n_dev == 1:
+            cfg.numerics.cell_ordering = "rcm"
+        sim = Simulation(cfg, mesh=mesh, device=dev,
+                         strip_devices=[dev] * 2 if n_dev > 1 else None)
+        assert (sim._sharded is not None) == (n_dev > 1)
+        kernels.reset_launch_counts()
+        sim.run()
+        runs.append((sim, launches()))
+    (one, l1), (two, l2) = runs
+    assert one.step == two.step == 20 and one.t == two.t
+    assert (one.get_courant_number_diagnostics()
+            == two.get_courant_number_diagnostics())
+    assert one.prev_max_courant > 0.0
+    for name in ("bflux_accum", "accum_sol", "accum_prim"):
+        assert np.array_equal(getattr(one, name), getattr(two, name)), name
+    assert np.array_equal(one.get_solution(), two.get_solution())
+    assert l1 == l2 and l1[0] > 0
 
 
 # ------------------------------------------- K1c and K2 redesigned (tiles)

@@ -192,16 +192,19 @@ def test_momentum_sources_are_refused_on_the_fused_raster(tmp_path):
 
 
 @pytest.mark.parametrize("deck", [
-    # second order, row strips and beuler run on the raster; the
-    # unstructured path in strips is not ported yet
+    # second order, row strips and beuler run on the raster, and the
+    # unstructured path in shards; BS2002 and beuler in shards are not
+    # ported yet (item 16b)
     dict(backend="xla", numerics=", second_order: true",
+         flow=", well_balancing: bs2002",
          extra="parallel: {n_devices: 2}\n"),
     dict(scheme="beuler", backend="xla", extra="parallel: {n_devices: 2}\n"),
-    dict(backend="xla", extra="parallel: {n_devices: 2}\n"),
+    dict(backend="xla", flow=", well_balancing: bs2002",
+         extra="parallel: {n_devices: 2}\n"),
 ])
 def test_unported_raster_features_raise(tmp_path, deck):
     path = write_deck(tmp_path, bflux=0, **deck)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 16b"):
         Simulation(load_config(path), device="cpu")
 
 

@@ -12,7 +12,7 @@ accumulators to 1e-5 of their largest magnitude (the tolerances of the
 single-device raster deck; the JAX package takes the strips' boundary
 fluxes from its raster twin in float64). Every refusal of the JAX
 package's row-strip routing is the port's too, with its message; the
-unstructured path in strips is not ported (ROADMAP queue 1 item 16). The
+unstructured path runs in shards instead (ROADMAP item 16). The
 coupling setters and the CLI on a strip deck are in
 tests/test_torch_strips_coupling.py, decks in 2 and 8 strips under the
 other schemes in tests/test_torch_strips_decks.py.
@@ -88,15 +88,17 @@ def test_strip_refusals_of_both_packages(tmp_path, deck, match):
 
 
 def test_strips_elsewhere_raise(tmp_path):
-    # the unstructured path in strips is not ported yet
+    # the unstructured path runs in shards (tests/test_torch_sharded*.py),
+    # strip_devices naming one device per shard
     path = write_deck(tmp_path, backend="xla", extra=STRIPS)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        Simulation(load_config(path), device="cpu")
+    sim = Simulation(load_config(path), device="cpu",
+                     strip_devices=["cpu"] * 4)
+    assert sim._sharded is not None and sim._sharded.P == 4
     # strip_devices: one per strip, and only for a strip deck
     with pytest.raises(ValueError, match="names 2 devices"):
         Simulation(load_config(write_deck(tmp_path, ny=32, extra=STRIPS)),
                    device="cpu", strip_devices=["cpu", "cpu"])
-    with pytest.raises(ValueError, match="runs in strips"):
+    with pytest.raises(ValueError, match="in one process"):
         Simulation(load_config(write_deck(tmp_path)), device="cpu",
                    strip_devices=["cpu"])
     # strips of a CPU simulation stay on the CPU

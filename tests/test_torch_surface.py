@@ -56,8 +56,9 @@ def test_every_public_member_of_the_jax_simulation_exists(sim):
     jax_names = public_members("rdycore_tpu/simulation.py")
     missing = {n for n in jax_names - public_members(
         "rdycore_tpu_torch/simulation.py")}
-    # the JAX package's state property q is the port's state attribute
-    assert missing == {"q"} and sim.q.shape == (3, 12)
+    # q is a property in both packages (the port's gathers the state
+    # from its shards or rank strips, ROADMAP item 16)
+    assert missing == set() and sim.q.shape == (3, 12)
     assert jax_names - {"q"} >= set(PORTED_LAST)
 
 
