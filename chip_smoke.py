@@ -119,7 +119,7 @@ Phases, each printing as it goes; any failure exits non-zero:
    HR at eta 0.05 m (a fifth of the cells dry) must keep the momentum
    rows of `apply` below 1e-4; BS2002 at eta 0.1 m keeps no lake at rest
    (fault 19), so its rows and its max |hu|, |hv| after 100 steps are
-   printed beside those without well-balancing.
+   printed.
 
 8. Row strips (the raster in parallel.n_devices = 4 strips of 352 rows,
    all on the one card through an explicit device list; halo rows copied
@@ -150,12 +150,12 @@ Phases, each printing as it goes; any failure exits non-zero:
    relative to 1 +
    |q|), h finite and >= -1e-6, the closed box's volume to 1e-5; one more
    step split by CUDA events into residual kernels, JVPs and glue, with
-   its Newton residual norm beside its start. (c) The same on the raster
-   (K2 in rhs mode 25 times a step, K1c and boundary K1a once; JVPs
-   through the plain `structured` operator). (d) The raster at second
-   order (K2 MUSCL in rhs mode, minmod), 1 step, the kernel-vs-plain
-   difference printed unbounded. Each path's kernels are held against
-   their plain versions and timed at its shapes.
+   its Newton residual norm beside its start. (c) The raster (K2 in rhs
+   mode 25 times a step, K1c and boundary K1a once; JVPs through the
+   plain `structured` operator): 1 step on the kernels, exact launches
+   and the closed box. (d) The raster at second order (K2 MUSCL in rhs
+   mode, minmod), likewise. Each path's kernels are held against their
+   plain versions and timed at its shapes.
 
 10. The MMS driver (`mms.MMSDriver`, what `python -m rdycore_tpu_torch
    deck.yaml --mms` runs) in f64 on the manufactured solution of
@@ -181,12 +181,11 @@ Phases, each printing as it goes; any failure exits non-zero:
    Thacker's bowl (tests/test_thacker.py's deck, tools/torch_thacker.py)
    on 1696x1696 quads (2,876,416 cells), f64, one period under euler:
    first order at a Courant number near 0.28 (h >= 0, the mass to 1e-11,
-   the front moved, L1/mean < 0.08, the momenta back near 0); MUSCL with
-   the limiter at that dt, which diverges on the kernels and on the plain
-   versions alike (ROADMAP fault 22), printed unbounded; then first order
-   and MUSCL at half that dt, MUSCL finite and its error at most 1.05
+   the front moved, L1/mean < 0.08, the momenta back near 0); then first
+   order and MUSCL at half that dt (MUSCL diverges at the full dt in both
+   packages, ROADMAP fault 22), MUSCL finite and its error at most 1.05
    times first order's. Exact launches in each run, the cells whose donor
-   factor fell below 1 in each quarter period of each MUSCL run, and the
+   factor fell below 1 in each quarter period of the MUSCL run, and the
    MUSCL path's kernels held and timed at its shapes.
 
 11. The coupler's path at full size: phase 3-4's mesh written once as an
@@ -223,11 +222,11 @@ Phases, each printing as it goes; any failure exits non-zero:
    builder and on its numpy plain versions, equal array for array; the
    seconds of each, and of RCM. (b) 200 euler steps (dt 0.25 s, the
    channel 1 m deep, the floodplain dry, a Dirichlet depth at the outlet)
-   in file order, under `cell_ordering: rcm` and in the generator's order
-   through `run_main_path` (10 steps against the plain versions, exact
-   launches, h >= 0, the volume budget), the three end states by natural
-   id to 1e-5, each order's K1a, K1b and K1c held against their plain
-   versions and timed beside their bounds. (c) The flood through the
+   in file order and under `cell_ordering: rcm` through `run_main_path`
+   (10 steps against the plain versions, exact launches, h >= 0, the
+   volume budget), the two end states by natural id to 1e-5, each order's
+   K1a, K1b and K1c held against their plain versions and timed beside
+   their bounds. (c) The flood through the
    CLI's `main` (what `python -m rdycore_tpu_torch` runs): the Exodus deck
    under RCM, two hourly rain rasters (--raster-rain-dir) and the outlet's
    depth series (--homogeneous-bc-file), coupling intervals of 120 s, to t
@@ -298,6 +297,32 @@ Phases, each printing as it goes; any failure exits non-zero:
    strip's K2, K1c, K1a) are held against their plain versions at its
    shapes and timed beside their bounds.
 
+15. What the shards run since ROADMAP item 16b, in 2 gloo ranks sharing
+   the card (`phase_shards_16b`, `shards_16b_rank`). (a) Phase 7's BS2002
+   deck (1448x996 triangles, 2,884,416 cells, the bumpy bed, f32,
+   `partitioning: auto`): per rank the owned, ghost, vertex-ring ghost
+   and frontier cells; 10 steps on the kernels against the shards'
+   plain versions (every row of q to 1e-4), and bit for bit one process
+   on the RCM order (q, t, Courant number and edge, boundary fluxes); a
+   100-step interval timed between CUDA events beside one card's, K5,
+   K1a, K1b and K1c once a step per rank, h >= 0 and the volume budget,
+   the exchange per stage; then BS2002 with MUSCL (ssprk2) for 24 steps bit for bit,
+   with the owned cells whose donor factor falls below 1 over dt and 40
+   dt. (b) Phase 9's closed dam break under beuler (DT_BEULER, one
+   interval of BEULER_STEPS): within 1e-4 (relative to 1 + |q|) of phase
+   9b's step on one card, by natural id, K1a and K1b 25 times a step and
+   K1c once,
+   the collectives a step, the closed box's volume; one more step split
+   by CUDA events into residual kernels, JVPs, global sums and glue, with
+   the global Newton residual before and after. (c) 13b's AMR run through
+   the CLI in 2 shards (`partitioning: none`, every rank reading the
+   datasets): after each event q, t and step bit for bit 13b's
+   one-process run, the volume across it, `refine_marked` and rebuild
+   seconds, peak device memory; K1a, K1b and K1c once a step. Rank 0's
+   kernels at its shard's shapes (K5, K1a BS2002, K1b and K1c; the MUSCL
+   path's; K1a and K1b in rhs mode and K1c under beuler) are held
+   against their plain versions and timed beside their bounds.
+
 Before the last line it prints the card's name and power limit and a JSON
 line {"kernels": [...]} with one row per kernel and path ("path":
 "unstructured", "raster", "unstructured+tracers", "raster+tracers" (these
@@ -309,8 +334,10 @@ beuler+muscl", "unstructured mms", "unstructured mms+muscl", "unstructured
 mms+sediment", "unstructured thacker+muscl", "coupler raster",
 "coupler unstructured", "exodus file order", "exodus rcm", "raster+rain",
 "unstructured ensemble4", "unstructured amr", "unstructured sharded",
-"unstructured sharded+muscl" or "raster strips, ranks" (these three with
-"ranks"), these eighteen with "launches_per_step", phase 10's
+"unstructured sharded+muscl", "raster strips, ranks", "unstructured
+sharded+bs2002", "unstructured sharded+bs2002+muscl" or "unstructured
+sharded beuler" (these six with "ranks"), these twenty-one with
+"launches_per_step", phase 10's
 with "dtype": "float64", phase 11's with the C host's launches; a
 strip row names its strip [row0, rows, halo_lo, halo_hi]),
 each with that path's own launches, times and bound, and "timers" naming
@@ -967,14 +994,18 @@ def kernel_row(card, name, path, fns, launches, err, nbytes, nops, dtype,
     same function or None), each timed here; the bound from nbytes and
     nops; "timers" names the timer that gave each time (`device_time`, or
     CUDA events where its time is under the HBM time of the bytes beyond
-    the L2's 50 MB)."""
+    the L2's 50 MB; the plain version's between CUDA events)."""
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     t_ops = 1e3 * nops / PEAK_OPS_PER_S[dtype]
     # all but the L2's worth of the bytes come from HBM: a time under this
     # floor means that both profiler sessions dropped records of the call
     t_floor = 1e3 * max(nbytes - L2_BYTES, 0.0) / HBM_BYTES_PER_S
-    times = [None if f is None else device_time(f, reps=5 if i == 1 else 20)
-             for i, f in enumerate(fns)]
+    # the plain version (hundreds of small launches a call, host-bound)
+    # between CUDA events: the profiler's two sessions over it cost a
+    # second or more a row
+    times = [None if f is None else
+             (cuda_ms(f, reps=5), "cuda events") if i == 1 else
+             device_time(f, reps=20) for i, f in enumerate(fns)]
     for i, (f, t) in enumerate(zip(fns, times)):
         if t is not None and t[0] < t_floor:
             log(f"  {name}: profiler time {t[0]:.4f} ms under the "
@@ -1025,7 +1056,7 @@ def dam_break_npz(mesh, link):
     from rdycore_tpu_torch.mesh import save_mesh_npz
 
     path = MESH_NPZ.get(id(mesh))
-    if path is None:
+    if path is None or not os.path.exists(path):
         path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "output", "chip_smoke_mesh", "dam_break.npz")
         os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -2397,12 +2428,11 @@ def dam_eta(floodplain):
     return lambda x: np.where(x < 1024 * DX, H_RESERVOIR, floodplain)
 
 
-def phase_wb(steps, errs, dev, mesh):
-    """The well-balanced main paths at full size (`run_main_path`): HR
-    euler, BS2002 euler, and BS2002 with MUSCL and the positivity limiter
-    under ssprk2; each kernel of the path held against its plain version
-    and timed at the path's shapes; then a lake at rest on the same
-    mesh."""
+def wb_kernel_rows(card, path, op, q, bv, dt, launches, errs, **extra):
+    """Each kernel of a well-balanced path (`op`, its state q and boundary
+    values bv, its step dt): held against its plain version on q, then
+    timed beside its bound; the {"kernels": ...} rows of `path`, with
+    `extra` in each."""
     from rdycore_tpu_torch.ops.kernels import muscl as mk
     from rdycore_tpu_torch.ops.kernels.cell_stage import swe_cell_stage_plain
     from rdycore_tpu_torch.ops.kernels.courant import courant_argmax_plain
@@ -2410,6 +2440,104 @@ def phase_wb(steps, errs, dev, mesh):
     from rdycore_tpu_torch.ops.swe.bs2002 import eta_vertices
     from rdycore_tpu_torch.ops.swe.muscl import ls_gradients
 
+    dev, muscl = q.device, op.second_order
+    a, s = op.arrays, q.element_size()
+    run = (torch.zeros((), dtype=q.dtype, device=dev),
+           torch.zeros((), dtype=torch.int32, device=dev))
+    stage = dict(stage=(0.0, 1.0, 1.0), emit_prim=True)
+    kw = dict(tiny_h=op.tiny_h, h_anuga=op.h_anuga,
+              xq2018_threshold=op.xq2018_threshold,
+              source_method=op.source_method, hr=op.well_balancing_hr)
+    wb_kw = dict(hr=op.well_balancing_hr, bs=a.bs2002)
+    pairs, calls = {}, {}
+    eta_v = grad = None
+    if op.well_balancing_bs2002:
+        eta_v = op.eta_vertices(q[0])
+        ev = eta_vertices(a.bs2002, q[0], op.tiny_h)
+        pairs["swe_eta_vertex"] = [(eta_v, ev)]
+        calls["swe_eta_vertex"] = (
+            lambda: op.eta_vertices(q[0]),
+            lambda: eta_vertices(a.bs2002, q[0], op.tiny_h), None)
+        wb_kw["eta_v"] = ev
+    if muscl:
+        grad = op.muscl_grad(q)
+        gp = ls_gradients(a, q)
+        pairs["swe_muscl_grad"] = [(grad, gp)]
+        calls["swe_muscl_grad"] = (lambda: op.muscl_grad(q),
+                                   lambda: ls_gradients(a, q), None)
+        wb_kw.update(grad=gp, limiter=op.limiter)
+    flux, courant = op.edge_flux(q, bv, wb_kw.get("grad"),
+                                 wb_kw.get("eta_v"))
+    fp, cp = swe_edge_flux_plain(a, q, bv, op.tiny_h, op.h_anuga,
+                                 **wb_kw)
+    pairs["swe_edge_flux"] = [(flux, fp), (courant, cp)]
+    calls["swe_edge_flux"] = (
+        lambda: op.edge_flux(q, bv, grad, eta_v),
+        lambda: swe_edge_flux_plain(a, q, bv, op.tiny_h, op.h_anuga,
+                                    **dict(wb_kw, eta_v=eta_v,
+                                           grad=grad)),
+        None)
+    if muscl:
+        sk = mk.swe_positivity_drain(a, fp, q[0], dt)
+        sp = mk.positivity_drain_plain(a, fp, q[0], dt)
+        pairs["swe_positivity_drain"] = [(sk, sp)]
+        pairs["swe_positivity_scale"] = [(
+            mk.swe_positivity_scale(a, fp.clone(), sp),
+            mk.positivity_scale_plain(a, fp.clone(), sp))]
+        calls["swe_positivity_drain"] = (
+            lambda: mk.swe_positivity_drain(a, flux, q[0], dt),
+            lambda: mk.positivity_drain_plain(a, flux, q[0], dt), None)
+        calls["swe_positivity_scale"] = (
+            lambda: mk.swe_positivity_scale(a, flux, sk),
+            lambda: mk.positivity_scale_plain(a, flux, sk), None)
+    ok_ = op.cell_stage(fp, q, dt, None, **stage)
+    op_ = swe_cell_stage_plain(a, fp, q, dt, None, **kw, **stage)
+    pairs["swe_cell_stage"] = [(ok_.q_out, op_.q_out),
+                               (ok_.prim, op_.prim)]
+    calls["swe_cell_stage"] = (
+        lambda: op.cell_stage(flux, q, dt, None, **stage),
+        lambda: swe_cell_stage_plain(a, flux, q, dt, None, **kw,
+                                     **stage), None)
+    mk_, ik = op.courant_max(cp, dt, *run)
+    mp, ip = courant_argmax_plain(cp)
+    calls["courant_argmax"] = (
+        lambda: op.courant_max(courant, dt, *run),
+        lambda: courant_argmax_plain(courant, dt, *run),
+        lambda: torch.max(courant, 0))
+    rel = {k: max(rel_err(g, w) for g, w in v) for k, v in pairs.items()}
+    err = {k: max(abs_err(g, w) for g, w in v) for k, v in pairs.items()}
+    rel["courant_argmax"] = abs(float(mk_) - float(mp)) / float(mp)
+    err["courant_argmax"] = abs(float(mk_) - float(mp))
+    log(f"  full-size kernels vs plain on the {path} path (relative): "
+        f"{rel}; courant idx {int(ik)} (plain {int(ip)})")
+    if not (all(v <= TOL[q.dtype] for v in rel.values())
+            and int(ik) == int(ip)):
+        raise SystemExit(f"full-size {path} kernel check failed")
+    n_pairs = eta_pairs(a.bs2002) if a.bs2002 is not None else 0
+    nbytes = wb_bytes(op, q.numel() * s, s)
+    nops = wb_ops(op, n_pairs)
+    mode = ("hr" if op.well_balancing_hr else
+            "bs2002 muscl" if muscl else "bs2002")
+    keys = {"swe_edge_flux": f"swe_edge_flux {mode}",
+            "swe_cell_stage": ("swe_cell_stage hr"
+                               if op.well_balancing_hr
+                               else "swe_cell_stage")}
+    replaces = dict(
+        REPLACES, swe_edge_flux=_SLOTTED + (":3180" if muscl else ":1254"),
+        swe_cell_stage=_SLOTTED + ":1441")
+    return [kernel_row(
+        card, name, path, fns, launches[name],
+        max(err[name], errs.get(keys.get(name, name), 0.0)),
+        nbytes[name], nops[name], q.dtype, replaces, **extra)
+        for name, fns in calls.items()]
+
+
+def phase_wb(steps, errs, dev, mesh):
+    """The well-balanced main paths at full size (`run_main_path`): HR
+    euler, BS2002 euler, and BS2002 with MUSCL and the positivity limiter
+    under ssprk2; each kernel of the path held against its plain version
+    and timed at the path's shapes; then a lake at rest on the same
+    mesh."""
     card = nvidia_smi_line()
     area = mesh.cell_area
     rows = []
@@ -2449,96 +2577,8 @@ def phase_wb(steps, errs, dev, mesh):
         # each kernel of the path at its shapes: held against its plain
         # version on the final state, then timed
         op, q, bv = sim.operator, sim.q, sim.boundary_values
-        a, s = op.arrays, q.element_size()
         dt = torch.tensor(deck["dt"], dtype=q.dtype, device=dev)
-        run = (torch.zeros((), dtype=q.dtype, device=dev),
-               torch.zeros((), dtype=torch.int32, device=dev))
-        stage = dict(stage=(0.0, 1.0, 1.0), emit_prim=True)
-        kw = dict(tiny_h=op.tiny_h, h_anuga=op.h_anuga,
-                  xq2018_threshold=op.xq2018_threshold,
-                  source_method=op.source_method, hr=op.well_balancing_hr)
-        wb_kw = dict(hr=op.well_balancing_hr, bs=a.bs2002)
-        pairs, calls = {}, {}
-        eta_v = grad = None
-        if op.well_balancing_bs2002:
-            eta_v = op.eta_vertices(q[0])
-            ev = eta_vertices(a.bs2002, q[0], op.tiny_h)
-            pairs["swe_eta_vertex"] = [(eta_v, ev)]
-            calls["swe_eta_vertex"] = (
-                lambda: op.eta_vertices(q[0]),
-                lambda: eta_vertices(a.bs2002, q[0], op.tiny_h), None)
-            wb_kw["eta_v"] = ev
-        if muscl:
-            grad = op.muscl_grad(q)
-            gp = ls_gradients(a, q)
-            pairs["swe_muscl_grad"] = [(grad, gp)]
-            calls["swe_muscl_grad"] = (lambda: op.muscl_grad(q),
-                                       lambda: ls_gradients(a, q), None)
-            wb_kw.update(grad=gp, limiter=op.limiter)
-        flux, courant = op.edge_flux(q, bv, wb_kw.get("grad"),
-                                     wb_kw.get("eta_v"))
-        fp, cp = swe_edge_flux_plain(a, q, bv, op.tiny_h, op.h_anuga,
-                                     **wb_kw)
-        pairs["swe_edge_flux"] = [(flux, fp), (courant, cp)]
-        calls["swe_edge_flux"] = (
-            lambda: op.edge_flux(q, bv, grad, eta_v),
-            lambda: swe_edge_flux_plain(a, q, bv, op.tiny_h, op.h_anuga,
-                                        **dict(wb_kw, eta_v=eta_v,
-                                               grad=grad)),
-            None)
-        if muscl:
-            sk = mk.swe_positivity_drain(a, fp, q[0], dt)
-            sp = mk.positivity_drain_plain(a, fp, q[0], dt)
-            pairs["swe_positivity_drain"] = [(sk, sp)]
-            pairs["swe_positivity_scale"] = [(
-                mk.swe_positivity_scale(a, fp.clone(), sp),
-                mk.positivity_scale_plain(a, fp.clone(), sp))]
-            calls["swe_positivity_drain"] = (
-                lambda: mk.swe_positivity_drain(a, flux, q[0], dt),
-                lambda: mk.positivity_drain_plain(a, flux, q[0], dt), None)
-            calls["swe_positivity_scale"] = (
-                lambda: mk.swe_positivity_scale(a, flux, sk),
-                lambda: mk.positivity_scale_plain(a, flux, sk), None)
-        ok_ = op.cell_stage(fp, q, dt, None, **stage)
-        op_ = swe_cell_stage_plain(a, fp, q, dt, None, **kw, **stage)
-        pairs["swe_cell_stage"] = [(ok_.q_out, op_.q_out),
-                                   (ok_.prim, op_.prim)]
-        calls["swe_cell_stage"] = (
-            lambda: op.cell_stage(flux, q, dt, None, **stage),
-            lambda: swe_cell_stage_plain(a, flux, q, dt, None, **kw,
-                                         **stage), None)
-        mk_, ik = op.courant_max(cp, dt, *run)
-        mp, ip = courant_argmax_plain(cp)
-        calls["courant_argmax"] = (
-            lambda: op.courant_max(courant, dt, *run),
-            lambda: courant_argmax_plain(courant, dt, *run),
-            lambda: torch.max(courant, 0))
-        rel = {k: max(rel_err(g, w) for g, w in v) for k, v in pairs.items()}
-        err = {k: max(abs_err(g, w) for g, w in v) for k, v in pairs.items()}
-        rel["courant_argmax"] = abs(float(mk_) - float(mp)) / float(mp)
-        err["courant_argmax"] = abs(float(mk_) - float(mp))
-        log(f"  full-size kernels vs plain on the {path} path (relative): "
-            f"{rel}; courant idx {int(ik)} (plain {int(ip)})")
-        if not (all(v <= TOL[q.dtype] for v in rel.values())
-                and int(ik) == int(ip)):
-            raise SystemExit(f"full-size {path} kernel check failed")
-        n_pairs = eta_pairs(a.bs2002) if a.bs2002 is not None else 0
-        nbytes = wb_bytes(op, q.numel() * s, s)
-        nops = wb_ops(op, n_pairs)
-        mode = ("hr" if op.well_balancing_hr else
-                "bs2002 muscl" if muscl else "bs2002")
-        keys = {"swe_edge_flux": f"swe_edge_flux {mode}",
-                "swe_cell_stage": ("swe_cell_stage hr"
-                                   if op.well_balancing_hr
-                                   else "swe_cell_stage")}
-        replaces = dict(
-            REPLACES, swe_edge_flux=_SLOTTED + (":3180" if muscl else ":1254"),
-            swe_cell_stage=_SLOTTED + ":1441")
-        path_rows = [kernel_row(
-            card, name, path, fns, launches[name],
-            max(err[name], errs.get(keys.get(name, name), 0.0)),
-            nbytes[name], nops[name], q.dtype, replaces)
-            for name, fns in calls.items()]
+        path_rows = wb_kernel_rows(card, path, op, q, bv, dt, launches, errs)
         rows += path_rows
         # SWEOperator.apply (the rk4 rhs, the TPU's fused rhs kernel with
         # its well-balancing branch): the edge phase, K1c and K1b rhs
@@ -2557,40 +2597,37 @@ def phase_wb(steps, errs, dev, mesh):
 def lake_at_rest(dev, mesh):
     """A lake at rest on the phase-7 mesh, all walls reflecting: HR at eta
     0.05 m (partly dry), BS2002 at eta 0.1 m (submerged). The momentum rows
-    of `apply` and, after 100 steps, max |hu|, |hv| beside the same state
-    under no well-balancing. HR must keep the rows below 1e-4 (the bound
-    of the JAX package's f32 test, tests/test_pallas.py:424-441); BS2002
-    keeps no lake at rest, in either package (ROADMAP fault 19): its
-    numbers are printed beside those of no well-balancing."""
+    of `apply` and, after 100 steps, max |hu|, |hv|. HR must keep the
+    rows below 1e-4 (the bound of the JAX package's f32 test,
+    tests/test_pallas.py:424-441); BS2002 keeps no lake at rest, in
+    either package (ROADMAP fault 19): its numbers are printed (those
+    without well-balancing, printed beside them before, are cut from the
+    script's time)."""
     card = nvidia_smi_line()
     lake_steps = 100
     for wb, level in (("hydrostatic_reconstruction", H_FLOODPLAIN),
                       ("bs2002", H_WB_SUBMERGED)):
-        out = {}
-        for mode in (wb, "none"):
-            sim = wb_simulation(lake_steps, dev, mesh,
-                                lambda x: np.full_like(x, level),
-                                wb=mode, dt=DT_WB, outflow=False)
-            dry = float(np.mean(sim.get_height() == 0.0))
-            r = sim.operator.apply(
-                sim.q, torch.tensor(DT_WB, dtype=sim.q.dtype, device=dev),
-                sim.boundary_values, None)
-            rhs = float(r.rhs[1:3].abs().max())
-            sim.run()
-            torch.cuda.synchronize()
-            hu = float(np.abs(sim.get_x_momentum()).max())
-            hv = float(np.abs(sim.get_y_momentum()).max())
-            out[mode] = (rhs, hu, hv)
-            log(f"  [{card}] lake at rest at eta {level} m ({dry:.3f} of "
-                f"the cells dry), {mode}: momentum rhs of apply "
-                f"{rhs:.4e}; after {sim.step} steps max |hu| {hu:.4e}, "
-                f"max |hv| {hv:.4e}")
-            del sim
-        if wb == "hydrostatic_reconstruction" and not out[wb][0] < 1e-4:
-            raise SystemExit(f"HR lake at rest: momentum rhs {out[wb][0]} "
-                             ">= 1e-4")
-        if not all(np.isfinite(v) for v in out[wb]):
-            raise SystemExit(f"{wb} lake at rest is not finite: {out[wb]}")
+        sim = wb_simulation(lake_steps, dev, mesh,
+                            lambda x: np.full_like(x, level),
+                            wb=wb, dt=DT_WB, outflow=False)
+        dry = float(np.mean(sim.get_height() == 0.0))
+        r = sim.operator.apply(
+            sim.q, torch.tensor(DT_WB, dtype=sim.q.dtype, device=dev),
+            sim.boundary_values, None)
+        rhs = float(r.rhs[1:3].abs().max())
+        sim.run()
+        torch.cuda.synchronize()
+        hu = float(np.abs(sim.get_x_momentum()).max())
+        hv = float(np.abs(sim.get_y_momentum()).max())
+        log(f"  [{card}] lake at rest at eta {level} m ({dry:.3f} of the "
+            f"cells dry), {wb}: momentum rhs of apply {rhs:.4e}; after "
+            f"{sim.step} steps max |hu| {hu:.4e}, max |hv| {hv:.4e}")
+        del sim
+        if wb == "hydrostatic_reconstruction" and not rhs < 1e-4:
+            raise SystemExit(f"HR lake at rest: momentum rhs {rhs} >= 1e-4")
+        if not all(np.isfinite(v) for v in (rhs, hu, hv)):
+            raise SystemExit(f"{wb} lake at rest is not finite: "
+                             f"{(rhs, hu, hv)}")
 
 
 # ------------------------------------------------------------------ phase 8
@@ -2860,20 +2897,22 @@ def run_beuler_path(path, make_sim, steps, per_step, check,
     plain=True): the kernels replaced by their plain versions, the JVPs
     through the twin either way), kept aside; then every launch count set
     to 0, and the path on the kernels: its first coupling interval, held
-    to the plain run to `plain_bound` relative to 1 + |q| (2e-5: the JAX package's
-    bound for kernel against XLA residuals; None: printed only), and the
+    to the plain run to `plain_bound` relative to 1 + |q| (2e-5: the JAX
+    package's bound for kernel against XLA residuals; None: no plain run,
+    the kernels held at the path's shapes by its rows alone), and the
     remaining steps; exact launches per step over all `steps` (the counted
     window holds the path's run alone); then check(sim, q0). Returns the
     simulation, the launches and the wall milliseconds per step."""
     from rdycore_tpu_torch.ops import kernels
 
     card = nvidia_smi_line()
-    plain = make_sim(steps, plain=True)
-    plain.advance()
-    torch.cuda.synchronize()
-    qp, c_plain, n_plain = (plain.get_solution(), plain.prev_max_courant,
-                            plain.step)
-    del plain
+    if plain_bound is not None:
+        plain = make_sim(steps, plain=True)
+        plain.advance()
+        torch.cuda.synchronize()
+        qp, c_plain, n_plain = (plain.get_solution(),
+                                plain.prev_max_courant, plain.step)
+        del plain
     sim = make_sim(steps)
     q0 = sim.get_solution().astype(np.float64)
     kernels.reset_launch_counts()
@@ -2882,15 +2921,15 @@ def run_beuler_path(path, make_sim, steps, per_step, check,
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
     n_first = sim.step
-    qk = sim.get_solution()
-    rel = float((np.abs(qk - qp) / (1.0 + np.abs(qp))).max())
-    log(f"  {n_first} steps, kernel residuals vs plain residuals: max "
-        f"|dq| / (1 + |q|) {rel:.3e}; Courant {sim.prev_max_courant:.6f} "
-        f"vs {c_plain:.6f}")
-    if not (n_first == n_plain == min(steps, 2)
-            and (plain_bound is None or rel <= plain_bound)):
-        raise SystemExit(f"{path}: kernel residuals differ from plain: "
-                         f"{rel}")
+    if plain_bound is not None:
+        qk = sim.get_solution()
+        rel = float((np.abs(qk - qp) / (1.0 + np.abs(qp))).max())
+        log(f"  {n_first} steps, kernel residuals vs plain residuals: max "
+            f"|dq| / (1 + |q|) {rel:.3e}; Courant "
+            f"{sim.prev_max_courant:.6f} vs {c_plain:.6f}")
+        if not (n_first == n_plain == min(steps, 2) and rel <= plain_bound):
+            raise SystemExit(f"{path}: kernel residuals differ from plain: "
+                             f"{rel}")
     t0 = time.perf_counter()
     sim.run()
     torch.cuda.synchronize()
@@ -3094,11 +3133,12 @@ def raster_rhs_rows(card, path, sim, launches, per_step, errs):
 def phase_implicit(errs, dev, mesh):
     """Phase 9: the IMEX and implicit schemes at full size. (a) ark_imex on
     the unstructured path (`run_main_path`); (b) beuler on the
-    unstructured path, (c) on the raster and (d) on the raster at second
-    order (`run_beuler_path`), in a closed box at a Courant number above
-    1, each with one more step split into residual kernels, JVPs and glue
-    (`beuler_split`). The rows of each path name it and carry its
-    launches per step."""
+    unstructured path (against plain residuals, then one more step split
+    into residual kernels, JVPs and glue, `beuler_split`), (c) on the
+    raster and (d) on the raster at second order (the kernels' step
+    alone), all through `run_beuler_path` in a closed box at a Courant
+    number above 1. The rows of each path name it and carry its launches
+    per step."""
     from rdycore_tpu_torch.operator import linearization_twin
 
     card = nvidia_smi_line()
@@ -3135,6 +3175,8 @@ def phase_implicit(errs, dev, mesh):
         BEULER_STEPS, beuler_step,
         lambda sim, q0: check_closed_box(sim, q0, area))
     op, bv, q = sim.operator, sim.boundary_values, sim.q
+    # 15b's reference: the state (in the mesh's own order) and wall ms
+    REFERENCE["beuler"] = (sim.get_solution(), wall)
     dt = torch.tensor(DT_BEULER, dtype=q.dtype, device=dev)
     twin = linearization_twin(op)
     splits["unstructured beuler"] = dict(wall_ms_per_step=wall, **beuler_split(
@@ -3160,24 +3202,15 @@ def phase_implicit(errs, dev, mesh):
                 n, dev, mesh, "beuler", plain,
                 lambda k, b, s: closed_dam_break_config(k, b, s, so))
 
-        # at second order the rhs has the limiter's kinks and the JVPs are
-        # first order: Newton converges slowly there, and the rounding of
-        # kernel against plain residuals can change a line-search choice;
-        # that difference is printed, unbounded (ROADMAP item 7)
+        # the raster's beuler steps are the script's dearest (17-18 s each
+        # on the card, host-bound JVPs): the kernels' step alone, K2's rhs
+        # mode held at the path's shapes by its rows (the plain-residual
+        # step and the step split were measured on the card before,
+        # PERF.md)
         sim, launches, wall = run_beuler_path(
             f"{tag} path", make, BEULER_STEPS, per_step,
-            lambda sim, q0: check_closed_box(sim, q0, area),
-            None if second_order else 2e-5)
-        st = sim._structured
-        op, lin, q = st["op"], st["lin_op"], sim.q
-        ny, nx = st["ny"], st["nx"]
-        dt = torch.tensor(DT_BEULER, dtype=q.dtype, device=dev)
-        es3 = torch.zeros((3, ny, nx), dtype=q.dtype, device=dev)
-        splits[tag] = dict(wall_ms_per_step=wall, **beuler_split(
-            card, tag, lambda u: op.step(u, dt),
-            lambda u: op.step(u, dt).out,
-            lambda u: lin.apply(u.reshape(3, ny, nx), dt, es3)[0].reshape(
-                3, -1), q, dt))
+            lambda sim, q0: check_closed_box(sim, q0, area), None)
+        splits[tag] = dict(wall_ms_per_step=wall)
         rows += raster_rhs_rows(card, tag, sim, launches, per_step, errs)
         del sim
     log(f"  [{card}] beuler steps (ms): {json.dumps(splits)}")
@@ -3430,12 +3463,14 @@ def phase_thacker(card, errs, dev):
     `tools/torch_thacker.py`) on THACKER_N^2 quads, f64, one period under
     euler. First order at dt = THACKER_DT (a Courant number near 0.28): h
     finite and >= 0, the mass to 1e-11, the front moved, L1/mean < 0.08,
-    the momenta back near 0. MUSCL minmod with the positivity limiter at
-    that dt diverges, on the kernels and on the plain versions alike
-    (ROADMAP fault 22): its run is printed, unbounded. At dt / 2 MUSCL is
-    held to the test's rule against first order at the same dt: finite,
-    its error at most 1.05 times first order's. For each MUSCL run, the
-    cells whose donor factor fell below 1 in each quarter period; exact
+    the momenta back near 0. (MUSCL minmod with the positivity limiter at
+    that dt diverges in both packages, ROADMAP fault 22; the run that
+    showed it on the card before, PERF.md, is cut from the script's
+    time.) At
+    dt / 2 MUSCL is held to the test's rule against first order at the
+    same dt: finite, its error at most 1.05 times first order's. For the
+    MUSCL run, the cells whose donor factor fell below 1 in each quarter
+    period; exact
     launches in every run; the MUSCL path's kernels held and timed at its
     shapes."""
     from rdycore_tpu_torch.constants import GRAVITY
@@ -3517,7 +3552,6 @@ def phase_thacker(card, errs, dev):
             and moved > 50 and l1 < 0.08 and hu_max < hu_bound):
         raise SystemExit("Thacker bowl at first order failed")
     del q1
-    run(True, THACKER_DT)  # ROADMAP fault 22: printed, unbounded
 
     dt = THACKER_DT / 2
     _, _, l1_first, _ = run(False, dt)
@@ -4016,7 +4050,7 @@ FLOOD_DT = 0.25
 FLOOD_STEPS, FLOOD_INTERVAL_STEPS = 200, 50
 FLOOD_STOP, FLOOD_COUPLING = 3720.0, 120.0
 RAIN_RATE, RAIN_STEPS = 2e-3, 40
-ORDERS = ("exodus file order", "exodus rcm", "generated order")
+ORDERS = ("exodus file order", "exodus rcm")
 
 
 def same_mesh(a, b) -> bool:
@@ -4147,10 +4181,11 @@ def flood_config(steps, ordering, work):
         series=FLOOD_INTERVAL_STEPS)).validate()
 
 
-def phase_files_order(errs, dev, work, out, exo, labelled):
-    """12b: 200 euler steps of the valley deck in file order, under RCM
-    and in generated order through `run_main_path`, the end states by
-    natural id, and the kernels at each order's shapes."""
+def phase_files_order(errs, dev, work, exo):
+    """12b: 200 euler steps of the valley deck in file order and under
+    RCM through `run_main_path`, the end states by natural id, and the
+    kernels at each order's shapes (the generator's order, timed beside
+    them before, is cut from the script's time)."""
     from rdycore_tpu_torch import Simulation
 
     card = nvidia_smi_line()
@@ -4158,10 +4193,8 @@ def phase_files_order(errs, dev, work, out, exo, labelled):
         f"the valley (channel 1 m deep, floodplain dry, outlet depth "
         f"{0.8} m), dt {FLOOD_DT} s, f32, {exo.num_cells:,} cells")
     per_step = {"swe_edge_flux": 1, "swe_cell_stage": 1, "courant_argmax": 1}
-    decks = {ORDERS[0]: ("file", exo), ORDERS[1]: ("rcm", exo),
-             ORDERS[2]: ("file", labelled)}
+    decks = {ORDERS[0]: ("file", exo), ORDERS[1]: ("rcm", exo)}
     ends, rows = {}, []
-    cperm = out["cperm"]
     for path in ORDERS:
         ordering, mesh = decks[path]
 
@@ -4177,15 +4210,12 @@ def phase_files_order(errs, dev, work, out, exo, labelled):
             path, make_sim, FLOOD_STEPS, per_step,
             lambda sim, q0: check_state_and_budget(sim, q0,
                                                    sim.mesh.cell_area))
-        q = sim.get_solution()
-        # by natural id (file order); the generated order maps through
-        # the shuffle: file cell i is generated cell cperm[i]
-        ends[path] = (q[:, cperm] if path == ORDERS[2]
-                      else q[:, np.argsort(sim.get_natural_ids())])
+        # by natural id (file order)
+        ends[path] = sim.get_solution()[:, np.argsort(
+            sim.get_natural_ids())]
         path_rows = coupler_rows(card, path, sim, launches, errs,
                                  dt=FLOOD_DT)
-        if path != ORDERS[2]:
-            rows += path_rows
+        rows += path_rows
         ms, rate = STEADY[path]
         log(f"  [{card}] {path}: {ms:.4f} ms/step, {rate:.4e} "
             "cell-updates/s; per launch "
@@ -4409,7 +4439,7 @@ def phase_files(errs, dev, dam_mesh):
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     out, exo, labelled = phase_files_read(work)
-    rows = phase_files_order(errs, dev, work, out, exo, labelled)
+    rows = phase_files_order(errs, dev, work, exo)
     del exo, labelled
     phase_files_flood(dev, work, out)
     rows += phase_files_rain(errs, dev, work, dam_mesh)
@@ -4587,43 +4617,58 @@ def phase_ensemble(errs, dev, npz):
                         launches, errs, per_step=size)
 
 
-def phase_amr(errs, dev, work, mesh):
-    """13b: AMR twice through the CLI's main on phase 3's deck (dt
-    AMR_DT): the datasets of minutes 0 and 2 mark bands of columns; each
-    event's cells, the volume across it, exact launches, the Courant
-    number, h and the volume budget against the outflow over all three
-    meshes, 10 steps on the kernels against the plain versions on the
-    final mesh; the rows of "unstructured amr"."""
+def amr_inputs(work, mesh, dev, P=1):
+    """13b's inputs in `work` (which holds dam_break.npz): the datasets of
+    minutes 0 and 2 on `mesh` and phase 3's deck at dt AMR_DT (in P shards
+    under `partitioning: none` where P > 1); the CLI's argv."""
     import datetime
     import os
 
-    from rdycore_tpu_torch import Simulation, amr
-    from rdycore_tpu_torch.__main__ import main as cli_main
     from rdycore_tpu_torch.forcing import dataset_filename
     from rdycore_tpu_torch.io.petsc_binary import write_petsc_vec
-    from rdycore_tpu_torch.ops import kernels
-    from rdycore_tpu_torch.timestepping import make_interval_advancer
 
-    card = nvidia_smi_line()
     amr_dir = os.path.join(work, "amr")
-    os.makedirs(amr_dir)
-    x = mesh.cell_centroid[:, 0]
-    for minute, centre, half in AMR_BANDS:
-        band = np.abs(x - centre) < half
-        write_petsc_vec(dataset_filename(amr_dir, datetime.datetime(2011, 1, 1)
-                                         + datetime.timedelta(minutes=minute)),
-                        band.astype(np.float64))
-        log(f"  dataset of minute {minute}: {int(band.sum()):,} cells with "
-            f"|x - {centre}| < {half} m")
+    if not os.path.isdir(amr_dir):
+        os.makedirs(amr_dir)
+        x = mesh.cell_centroid[:, 0]
+        for minute, centre, half in AMR_BANDS:
+            band = np.abs(x - centre) < half
+            write_petsc_vec(dataset_filename(
+                amr_dir, datetime.datetime(2011, 1, 1)
+                + datetime.timedelta(minutes=minute)),
+                band.astype(np.float64))
+            log(f"  dataset of minute {minute}: {int(band.sum()):,} cells "
+                f"with |x - {centre}| < {half} m")
     d = dam_break_dict(AMR_STEPS)
     d["grid"] = {"file": "dam_break.npz"}
     d["time"].update(stop=AMR_STEPS * AMR_DT, time_step=AMR_DT,
                      coupling_interval=AMR_INTERVAL * AMR_DT)
-    deck = os.path.join(work, "amr.yaml")
+    if P > 1:
+        d["parallel"] = {"n_devices": P, "partitioning": "none"}
+    deck = os.path.join(work, "amr.yaml" if P == 1 else f"amr_{P}.yaml")
     with open(deck, "w") as f:  # JSON is YAML
         json.dump(d, f)
-    argv = [deck, "--amr-dataset-dir", amr_dir, "--amr-area-threshold",
+    return [deck, "--amr-dataset-dir", amr_dir, "--amr-area-threshold",
             str(AMR_THRESHOLD)] + (["--cpu"] if dev.type == "cpu" else [])
+
+
+def phase_amr(errs, dev, work, mesh):
+    """13b: AMR twice through the CLI's main on phase 3's deck (dt
+    AMR_DT): the datasets of minutes 0 and 2 mark bands of columns (the
+    state after each event kept for phase 15c); each
+    event's cells, the volume across it, exact launches, the Courant
+    number, h and the volume budget against the outflow over all three
+    meshes, 10 steps on the kernels against the plain versions on the
+    final mesh; the rows of "unstructured amr"."""
+    import os
+
+    from rdycore_tpu_torch import Simulation, amr
+    from rdycore_tpu_torch.__main__ import main as cli_main
+    from rdycore_tpu_torch.ops import kernels
+    from rdycore_tpu_torch.timestepping import make_interval_advancer
+
+    card = nvidia_smi_line()
+    argv = amr_inputs(work, mesh, dev)
     log(f"== phase 13b: AMR through the CLI: python -m rdycore_tpu_torch "
         f"{' '.join(os.path.relpath(a) if os.sep in a else a for a in argv)}"
         f" (phase 3's deck, f32, euler, dt {AMR_DT} s, {AMR_STEPS} steps in "
@@ -4666,6 +4711,9 @@ def phase_amr(errs, dev, work, mesh):
         ev.update(after=self.num_cells, seconds=time.perf_counter() - t0,
                   v_after=volume(self))
         rec["events"].append(ev)
+        # phase 15c's reference: the state just after the event
+        REFERENCE.setdefault("amr_events", []).append(
+            (self.get_solution(), self.t, self.step))
 
     def timed_refine(m, marked):
         t0 = time.perf_counter()
@@ -5253,6 +5301,455 @@ def phase_ranks(steps, dev, mesh):
     return got[0]["rows"]
 
 
+# ----------------------------------------------------------------- phase 15
+SHARD_WB_STEPS = 100  # 15a: the timed BS2002 interval after the first 10
+SHARD_WB_MUSCL_STEPS = 24  # 15a: BS2002 with MUSCL, ssprk2
+# 15b: beuler's launches a step (row 5's: K1a and K1b in rhs mode 25
+# times, K1c once)
+BEULER_STEP = {"swe_edge_flux": 25, "swe_cell_stage": 25,
+               "courant_argmax": 1}
+
+
+def wb_shard_simulation(steps, dev, mesh, ranks, partitioning, eta,
+                        **deck):
+    """A phase-7 deck in `ranks` shards (a process group of that size),
+    its depths set to max(eta(x) - cell_z, 0) on the simulation's own cell
+    order (RCM's under partitioning: auto; the setter is collective)."""
+    from rdycore_tpu_torch import Simulation
+
+    cfg = wb_config(steps, **deck)
+    cfg.parallel.n_devices = ranks
+    cfg.parallel.partitioning = partitioning
+    sim = Simulation(cfg, mesh=mesh, device=dev)
+    m = sim.mesh
+    sim.set_height(np.maximum(eta(m.cell_centroid[:, 0]) - m.cell_z, 0.0))
+    return sim
+
+
+def wb_rcm_simulation(steps, dev, rmesh, eta, **deck):
+    """The same deck on one device, on the shards' (RCM) cell order."""
+    from rdycore_tpu_torch import Simulation
+
+    sim = Simulation(wb_config(steps, **deck), mesh=rmesh, device=dev)
+    sim.set_height(np.maximum(eta(rmesh.cell_centroid[:, 0])
+                              - rmesh.cell_z, 0.0))
+    return sim
+
+
+def limited_cells(op, q, bv, dt, nown):
+    """The owned cells of a shard state q (fresh ghosts) whose donor factor
+    is below 1 over dt (K3b drain's plain version)."""
+    from rdycore_tpu_torch.ops.kernels.muscl import positivity_drain_plain
+
+    flux, _ = op.edge_flux(q, bv, op.muscl_grad(q), op.eta_vertices(q[0]))
+    s = positivity_drain_plain(op.arrays, flux, q[0], dt)
+    return int((s[:nown] < 1.0).sum())
+
+
+def sharded_beuler_split(card, sh, u, q, bv, dt):
+    """One more backward-Euler step of unit u of the shards `sh` from q,
+    each residual, each JVP and each global sum between CUDA events: ms
+    of the step split into residual kernels (the exchanges inside), JVPs
+    (theirs inside), global sums and glue (the rest); the collectives of
+    the step; the global Newton residual norm after the last iteration
+    beside its start (collective: every rank calls it)."""
+    from rdycore_tpu_torch.operator import linearization_twin
+    from rdycore_tpu_torch.timestepping import (
+        newton_beuler_solve,
+        with_exchange,
+    )
+
+    def ex(x):
+        sh.exchange(u, x)
+
+    op = with_exchange(sh.ops[u], ex)
+    twin = with_exchange(linearization_twin(sh.ops[u]), ex)
+    spans = {"residual": [], "jvp": [], "global sum": []}
+
+    def timed(kind, fn):
+        def g(*x):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            out = fn(*x)
+            e1.record()
+            spans[kind].append((e0, e1))
+            return out
+        return g
+
+    def F(x):
+        return op.rhs(x, dt, bv, None)
+
+    def gdot(a, b):
+        return sh.gdot(u, a, b)
+
+    counts = dict(sh.counts)
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    timed("residual", lambda x: op.apply(x, dt, bv, None))(q)
+    u1 = newton_beuler_solve(
+        timed("residual", F),
+        timed("jvp", lambda x: twin.rhs(x, dt, bv, None)), q, dt,
+        timed("global sum", gdot))
+    e1.record()
+    torch.cuda.synchronize()
+    total = e0.elapsed_time(e1)
+    calls = {k: sh.counts[k] - counts[k] for k in counts}
+    ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+    glue = total - sum(ms.values())
+    r = dt * F(q)
+    r0 = float(torch.sqrt(gdot(r, r)))
+    r = u1 - q - dt * F(u1)
+    r1 = float(torch.sqrt(gdot(r, r)))
+    log(f"  [{card}] sharded beuler step split (CUDA events): {total:.1f} ms"
+        f" = residual kernels {ms['residual']:.1f} ms "
+        f"({len(spans['residual'])} calls) + JVPs {ms['jvp']:.1f} ms "
+        f"({len(spans['jvp'])} calls) + global sums "
+        f"{ms['global sum']:.1f} ms ({len(spans['global sum'])} calls) + "
+        f"glue {glue:.1f} ms; collectives {calls}; global Newton residual "
+        f"{r0:.4e} at u^n -> {r1:.4e} ({r1 / r0:.3e})")
+    if not (np.isfinite(r1) and r1 < r0):
+        raise SystemExit("sharded beuler: the Newton residual did not fall")
+    return dict(step_ms=total, residual_ms=ms["residual"], jvp_ms=ms["jvp"],
+                global_sum_ms=ms["global sum"], glue_ms=glue,
+                collectives=calls, residual_start=r0, residual_end=r1)
+
+
+def amr_rank_run(argv):
+    """The CLI's main on `argv` in this rank (13b's run in shards): the
+    state, time and step after each refinement event (collective), the
+    volume across it, `refine_marked` and rebuild seconds and the peak
+    device memory of the rebuild, the launches and the final state."""
+    from rdycore_tpu_torch import Simulation, amr
+    from rdycore_tpu_torch.__main__ import main as cli_main
+    from rdycore_tpu_torch.ops import kernels
+
+    def volume(sim):
+        return float(np.sum(sim.get_height().astype(np.float64)
+                            * sim.mesh.cell_area))
+
+    rec = {"events": [], "refine_s": [], "rebuild": [], "sim": None}
+    perform, rebuild = Simulation.perform_amr, Simulation.rebuild_on_mesh
+    refine = amr.refine_marked
+
+    def timed_perform(self):
+        rec["sim"] = self
+        v0 = volume(self)
+        perform(self)
+        rec["events"].append(dict(state=(self.get_solution(), self.t,
+                                         self.step),
+                                  v_before=v0, v_after=volume(self),
+                                  cells=self.num_cells))
+
+    def timed_refine(m, marked):
+        t0 = time.perf_counter()
+        out = refine(m, marked)
+        rec["refine_s"].append(time.perf_counter() - t0)
+        return out
+
+    def timed_rebuild(self, new_mesh, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rebuild(self, new_mesh, n)
+        torch.cuda.synchronize()
+        rec["rebuild"].append((time.perf_counter() - t0,
+                               torch.cuda.max_memory_allocated(self.device)
+                               / 1e9))
+
+    Simulation.perform_amr, Simulation.rebuild_on_mesh = (timed_perform,
+                                                          timed_rebuild)
+    amr.refine_marked = timed_refine
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = cli_main(argv)
+    finally:
+        Simulation.perform_amr, Simulation.rebuild_on_mesh = (perform,
+                                                              rebuild)
+        amr.refine_marked = refine
+    sim = rec.pop("sim")
+    rec.update(rc=rc, seconds=time.perf_counter() - t0,
+               launches={k.__name__: k.launches for k in kernels.KERNELS},
+               final=(sim.get_solution(), sim.t, sim.step),
+               transport=type(sim._sharded.transport).__name__)
+    return rec
+
+
+def shards_16b_rank(rank, world, argv):
+    """Phase 15a-c in one of `world` gloo ranks on the one card: what the
+    parent compares, and rank 0's kernel rows."""
+    import torch.distributed as dist
+
+    from rdycore_tpu_torch import Simulation
+    from rdycore_tpu_torch.ops import kernels
+
+    dev = rank_device()
+    card = nvidia_smi_line()
+    out = {"rank": rank, "rows": []}
+    eta = dam_eta(H_WB_SUBMERGED)
+    bs = dict(wb="bs2002", dt=DT_WB)
+
+    # (a) phase 7's BS2002 deck in shards (partitioning: auto, RCM)
+    t0 = time.perf_counter()
+    mesh = wb_mesh()
+    sim = wb_shard_simulation(10 + SHARD_WB_STEPS, dev, mesh, world, "auto",
+                              eta, **bs)
+    torch.cuda.synchronize()
+    out["a_setup_s"] = time.perf_counter() - t0
+    del mesh
+    sh = sim._sharded
+    u = sh.units[0]
+    plan = sh.plans[rank]
+    out.update(owned=plan.nown, ghosts=len(plan.ghosts),
+               vertex_ghosts=plan.vertex_ghosts, frontier=plan.frontier,
+               neighbours=sorted(plan.recv))
+    rmesh = sim.mesh
+    q0 = sim.get_solution().astype(np.float64)
+    qs0 = {u: sim._qs[u].clone()}
+    sim.coupling_interval = 10 * DT_WB
+    sim.advance()
+    # the same 10 steps of the shards on the plain versions (an interval
+    # of their own, without the accumulators)
+    kernel_op = sh.ops[u]
+    sh.ops[u] = plain_operator(kernel_op)
+    plain = sh.make_interval_fn("euler", accumulate=False,
+                                ext_sources=False)(
+        qs0, 0.0, DT_WB, 10, 10 * DT_WB, sim._bvs, sim._ess)
+    sh.ops[u] = kernel_op
+    err = {"q": rows_rel_err(sim.q, sh.gather_state(plain.qs,
+                                                    torch.device("cpu")))}
+    ck, cp = sim.prev_max_courant, plain.max_courant
+    err["courant"] = abs(ck - cp) / max(abs(cp), 1e-30)
+    out["a_err"] = err
+    out["a10"] = run_state(sim)
+    del plain, qs0
+    torch.cuda.reset_peak_memory_stats(dev)
+    sim.coupling_interval = SHARD_WB_STEPS * DT_WB
+    kernels.reset_launch_counts()
+    dist.barrier()
+    t0 = time.perf_counter()
+    out["a_ms"] = events_ms(sim.advance) / SHARD_WB_STEPS
+    out["a_wall_ms"] = 1e3 * (time.perf_counter() - t0) / SHARD_WB_STEPS
+    out["a_launches"] = {k.__name__: k.launches for k in kernels.KERNELS}
+    out["a_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    check_state_and_budget(sim, q0, rmesh.cell_area)
+    q = sim._qs[u]
+    tr = sh.transport
+    dist.barrier()
+    out["a_exchange_ms"] = events_ms(lambda: tr.exchange(u, q), reps=20)
+    if rank == 0:
+        dt = torch.tensor(DT_WB, dtype=q.dtype, device=dev)
+        out["rows"] += wb_kernel_rows(
+            card, "unstructured sharded+bs2002", sh.ops[u], q, sim._bvs[u],
+            dt, out["a_launches"], {}, ranks=world, shard_cells=q.shape[1],
+            launches_per_step={k: v / SHARD_WB_STEPS for k, v in
+                               out["a_launches"].items() if v})
+    dist.barrier()
+    del sim, q
+
+    # (a) then BS2002 with MUSCL and the positivity limiter (ssprk2)
+    sim = wb_shard_simulation(SHARD_WB_MUSCL_STEPS, dev, rmesh, world,
+                              "none", eta, scheme="ssprk2",
+                              second_order=True, **bs)
+    sh = sim._sharded
+    kernels.reset_launch_counts()
+    sim.run()
+    out["a2_launches"] = {k.__name__: k.launches for k in kernels.KERNELS}
+    out["a2"] = run_state(sim)
+    out["a2_rings"] = sh.plans[rank].rings
+    q = sim._qs[u]
+    sh.transport.exchange(u, q)
+    op = sh.ops[u]
+    out["a2_limited"] = [
+        limited_cells(op, q, sim._bvs[u],
+                      torch.tensor(k * DT_WB, dtype=q.dtype, device=dev),
+                      sh.plans[rank].nown) for k in (1, 40)]
+    if rank == 0:
+        dt = torch.tensor(DT_WB, dtype=q.dtype, device=dev)
+        out["rows"] += wb_kernel_rows(
+            card, "unstructured sharded+bs2002+muscl", op, q, sim._bvs[u],
+            dt, out["a2_launches"], {}, ranks=world, shard_cells=q.shape[1],
+            launches_per_step={k: v / SHARD_WB_MUSCL_STEPS for k, v in
+                               out["a2_launches"].items() if v})
+    dist.barrier()
+    del sim, q, op, rmesh
+
+    # (b) phase 9's closed dam break under beuler
+    mesh = dam_break_mesh()
+    sim = Simulation(sharded_config(BEULER_STEPS, world,
+                                    closed_dam_break_config),
+                     mesh=mesh, device=dev)
+    del mesh
+    sh = sim._sharded
+    u = sh.units[0]
+    q0 = sim.get_solution().astype(np.float64)
+    counts = dict(sh.counts)
+    kernels.reset_launch_counts()
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run()
+    torch.cuda.synchronize()
+    out["b_wall_ms"] = 1e3 * (time.perf_counter() - t0) / BEULER_STEPS
+    out["b_launches"] = {k.__name__: k.launches for k in kernels.KERNELS}
+    out["b_collectives"] = {k: (sh.counts[k] - counts[k]) / BEULER_STEPS
+                            for k in counts}
+    out["b"] = run_state(sim)
+    out["b_natural"] = sim.get_natural_ids()
+    check_closed_box(sim, q0, sim.mesh.cell_area)
+    q, bv = sim._qs[u], sim._bvs[u]
+    dt = torch.tensor(DT_BEULER, dtype=q.dtype, device=dev)
+    dist.barrier()
+    out["b_split"] = sharded_beuler_split(card, sh, u, q, bv, dt)
+    sh.transport.exchange(u, q)  # collective: every rank
+    if rank == 0:
+        rows = unstructured_rows(card, "unstructured sharded beuler",
+                                 sh.ops[u], q, bv, dt, out["b_launches"],
+                                 BEULER_STEP, {}, prim=False)
+        for r in rows:
+            r.update(ranks=world, shard_cells=q.shape[1])
+        out["rows"] += rows
+    dist.barrier()
+    del sim, q, bv
+
+    # (c) 13b's AMR run through the CLI in shards (partitioning: none)
+    torch.cuda.reset_peak_memory_stats(dev)
+    dist.barrier()
+    out["c"] = amr_rank_run(argv)
+    dist.barrier()
+    return out
+
+
+def phase_shards_16b(dev, mesh):
+    """Phase 15: what the shards did not run before (ROADMAP item 16b), in
+    RANKS gloo ranks sharing the one card: (a) BS2002, first order and
+    with MUSCL, (b) beuler, (c) AMR through the CLI; the parent's
+    one-process references. Returns rank 0's kernel rows."""
+    import os
+    import shutil
+    import tempfile
+
+    from rdycore_tpu_torch.mesh.core import rcm_reorder
+    from rdycore_tpu_torch.parallel.comm import spawn
+
+    card = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    log(f"== phase 15: {RANKS} gloo ranks on one card: (a) BS2002 in shards "
+        f"(phase 7's deck, first order and MUSCL), (b) beuler in shards "
+        f"(phase 9's closed box), (c) AMR in shards through the CLI "
+        f"(13b's run), f32")
+    eta = dam_eta(H_WB_SUBMERGED)
+    bs = dict(wb="bs2002", dt=DT_WB)
+    refs = {}
+    rwb = rcm_reorder(wb_mesh())
+    ref = wb_rcm_simulation(10 + SHARD_WB_STEPS, dev, rwb, eta, **bs)
+    ref.coupling_interval = 10 * DT_WB
+    ref.advance()
+    refs["a10"] = run_state(ref)
+    ref.coupling_interval = SHARD_WB_STEPS * DT_WB
+    one_ms = {"a": events_ms(ref.advance) / SHARD_WB_STEPS}
+    ref = wb_rcm_simulation(SHARD_WB_MUSCL_STEPS, dev, rwb, eta,
+                            scheme="ssprk2", second_order=True, **bs)
+    ref.run()
+    refs["a2"] = run_state(ref)
+    del ref, rwb
+    # 15b against phase 9b's step on one card (the mesh's own order)
+    q_one, one_ms["b"] = REFERENCE["beuler"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "output", "chip_smoke_shards")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    dam_break_npz(mesh, os.path.join(work, "dam_break.npz"))
+    argv = amr_inputs(work, mesh, dev, RANKS)
+    with tempfile.TemporaryDirectory(dir=os.path.join(root, "output")) as st:
+        t0 = time.perf_counter()
+        got = spawn(shards_16b_rank, RANKS, "gloo", st, args=(argv,),
+                    timeout=RANK_TIMEOUT, device="cuda:0")
+        t_ranks = time.perf_counter() - t0
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(os.path.join(root, "output", "chip_smoke_mesh"),
+                  ignore_errors=True)
+    amr_ref = REFERENCE.get("amr_events", [])
+    bad = []
+    for r in got:
+        k = r["rank"]
+        a_ok = all(v <= 1e-4 for v in r["a_err"].values())
+        same = {key: same_run(r[key], refs[key]) for key in ("a10", "a2")}
+        qb = np.empty_like(q_one)
+        qb[:, r["b_natural"]] = r["b"][0]
+        b_rel = float((np.abs(qb - q_one) / (1.0 + np.abs(q_one))).max())
+        c = r["c"]
+        c_same = [np.array_equal(ev["state"][0], want[0])
+                  and ev["state"][1:] == want[1:]
+                  for ev, want in zip(c["events"], amr_ref)]
+        c_ok = (c["rc"] == 0 and len(c_same) == len(amr_ref) == 2
+                and all(c_same) and c["transport"] == "DistTransport"
+                and all(abs(ev["v_after"] - ev["v_before"]) / ev["v_before"]
+                        <= 1e-6 for ev in c["events"]))
+        log(f"  rank {k} 15a: {r['owned']:,} owned cells, {r['ghosts']:,} "
+            f"ghosts of which {r['vertex_ghosts']:,} BS2002 vertex-ring "
+            f"ghosts, {r['frontier']:,} frontier cells, neighbours "
+            f"{r['neighbours']}; setup {r['a_setup_s']:.2f} s (mesh, RCM, "
+            f"operator and partition on the host); 10 steps, kernels vs "
+            f"plain (worst row) " + ", ".join(
+                f"{n} {v:.3e}" for n, v in r["a_err"].items())
+            + "; against one process on the RCM order (q, t, Courant "
+            f"number and edge, boundary fluxes): "
+            f"{'bit for bit' if same['a10'] else 'DIFFERENT'}")
+        log(f"  [{card}] rank {k} 15a: {SHARD_WB_STEPS}-step interval "
+            f"{r['a_ms']:.4f} ms/step between CUDA events "
+            f"({r['a_wall_ms']:.4f} ms wall; one card on the same deck "
+            f"{one_ms['a']:.4f}), peak device memory {r['a_peak_gb']:.3f} "
+            f"GB, exchange {r['a_exchange_ms']:.4f} ms a stage; launches "
+            f"{r['a_launches']}")
+        log(f"  rank {k} 15a: {SHARD_WB_MUSCL_STEPS} BS2002 MUSCL ssprk2 "
+            f"steps (rings {r['a2_rings']}) against one process on the RCM "
+            f"order: {'bit for bit' if same['a2'] else 'DIFFERENT'}; owned "
+            f"cells whose donor factor is below 1 at the end, over dt and "
+            f"40 dt: {r['a2_limited']}; launches {r['a2_launches']}")
+        sp = r["b_split"]
+        log(f"  [{card}] rank {k} 15b: beuler, {BEULER_STEPS} step(s) "
+            f"against phase 9b's on one card (by natural id): max |dq| / "
+            f"(1 + |q|) {b_rel:.3e}; {r['b_wall_ms']:.1f} ms/step wall (one "
+            f"card {one_ms['b']:.1f}); collectives a step {r['b_collectives']};"
+            f" launches {r['b_launches']}; one more step split: "
+            f"{json.dumps({k2: v for k2, v in sp.items()})}")
+        log(f"  [{card}] rank {k} 15c: the CLI's AMR run in shards (rc "
+            f"{c['rc']}, {c['transport']}) {c['seconds']:.1f} s; events "
+            + "; ".join(
+                f"{ev['cells']:,} cells, volume {ev['v_before']:.9e} -> "
+                f"{ev['v_after']:.9e}, refine_marked {rs:.2f} s, rebuild "
+                f"{rb:.2f} s, peak device memory {pk:.3f} GB"
+                for ev, rs, (rb, pk) in zip(c["events"], c["refine_s"],
+                                            c["rebuild"]))
+            + f"; after each event against the one-process run (q, t, "
+            f"step): {c_same}; launches {c['launches']}")
+        check_launches(f"rank {k} 15a", r["a_launches"], {
+            "swe_eta_vertex": SHARD_WB_STEPS,
+            "swe_edge_flux": SHARD_WB_STEPS,
+            "swe_cell_stage": SHARD_WB_STEPS,
+            "courant_argmax": SHARD_WB_STEPS})
+        n = SHARD_WB_MUSCL_STEPS
+        check_launches(f"rank {k} 15a MUSCL", r["a2_launches"], dict(
+            {key: 2 * n for key in ("swe_eta_vertex", "swe_muscl_grad",
+                                    "swe_edge_flux", "swe_positivity_drain",
+                                    "swe_positivity_scale",
+                                    "swe_cell_stage")},
+            courant_argmax=n))
+        check_launches(f"rank {k} 15b", r["b_launches"],
+                       {key: v * BEULER_STEPS
+                        for key, v in BEULER_STEP.items()})
+        check_launches(f"rank {k} 15c", c["launches"],
+                       {key: AMR_STEPS for key in K1})
+        if not (a_ok and all(same.values()) and b_rel <= 1e-4 and c_ok):
+            bad.append(k)
+    log(f"  phase 15: the ranks {t_ranks:.1f} s (spawn included), in all "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if bad:
+        raise SystemExit(f"phase 15 failed: ranks {bad}")
+    return got[0]["rows"]
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -5265,27 +5762,38 @@ def main():
 
     t_start = time.perf_counter()
     errs = {}
-    phase_build()
+    seconds = {}
+
+    def timed(name, fn, *a):
+        """fn(*a), its seconds kept under `name`."""
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    timed("1", phase_build)
     dev = torch.device("cuda")
-    phase_kernels(args.seed, errs, dev)
+    timed("2", phase_kernels, args.seed, errs, dev)
     mesh = dam_break_mesh()
     # one row per kernel and path, each with that path's own launches
-    rows = phase_main(args.steps, errs, dev, mesh)
-    rows += phase_raster(args.steps, errs, dev, mesh)
-    phase_tracer_kernels(args.seed, errs, dev)
-    rows += phase_tracers(args.steps, errs, dev, mesh)
-    phase_muscl_kernels(args.seed, errs, dev)
-    rows += phase_muscl(args.steps, errs, dev, mesh)
-    phase_wb_kernels(args.seed, errs, dev)
-    rows += phase_wb(args.steps, errs, dev, wb_mesh())
-    rows += phase_strips(args.steps, dev, mesh)
-    rows += phase_implicit(errs, dev, mesh)
-    rows += phase_coupler(errs, dev, mesh)
-    rows += phase_files(errs, dev, mesh)
-    rows += phase_ensemble_amr(errs, dev, mesh)
-    rows += phase_ranks(args.steps, dev, mesh)
+    rows = timed("3", phase_main, args.steps, errs, dev, mesh)
+    rows += timed("4", phase_raster, args.steps, errs, dev, mesh)
+    timed("5 kernels", phase_tracer_kernels, args.seed, errs, dev)
+    rows += timed("5", phase_tracers, args.steps, errs, dev, mesh)
+    timed("6 kernels", phase_muscl_kernels, args.seed, errs, dev)
+    rows += timed("6", phase_muscl, args.steps, errs, dev, mesh)
+    timed("7 kernels", phase_wb_kernels, args.seed, errs, dev)
+    rows += timed("7", lambda: phase_wb(args.steps, errs, dev, wb_mesh()))
+    rows += timed("8", phase_strips, args.steps, dev, mesh)
+    rows += timed("9", phase_implicit, errs, dev, mesh)
+    rows += timed("11", phase_coupler, errs, dev, mesh)
+    rows += timed("12", phase_files, errs, dev, mesh)
+    rows += timed("13", phase_ensemble_amr, errs, dev, mesh)
+    rows += timed("14", phase_ranks, args.steps, dev, mesh)
+    rows += timed("15", phase_shards_16b, dev, mesh)
     del mesh
-    rows += phase_mms(errs, dev)
+    rows += timed("10", phase_mms, errs, dev)
+    log(f"seconds by phase: {json.dumps(seconds)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi_line())
     print(json.dumps({"kernels": rows}))

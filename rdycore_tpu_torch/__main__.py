@@ -39,7 +39,9 @@ joins the ranks (`parallel.comm.init_from_env`: NCCL, each rank on the
 card LOCAL_RANK; with --cpu gloo on the CPU) unless a process group
 exists already (a caller that made one calls main() in each rank); the
 deck's parallel.n_devices must be the world size. Rank 0 writes the
-outputs.
+outputs. With --amr-dataset-dir every rank reads the datasets and refines
+the same cells (the refined mesh is partitioned again over the ranks);
+the deck needs parallel.partitioning: none there (ROADMAP fault 24).
 """
 
 from __future__ import annotations

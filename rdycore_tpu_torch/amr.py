@@ -185,23 +185,39 @@ def perform_amr(sim, marked: np.ndarray) -> None:
     used to inject base-mesh datasets onto the current mesh) pass to the
     children by parent; the source setters' bookkeeping follows the
     injected plane, so a source on the coarse mesh streams on the fine
-    one. Under `cell_ordering: rcm` it is a ConfigError (ROADMAP fault 24):
-    the rebuild reorders the refined mesh, and the JAX package then sets
-    the state in the unreordered order."""
-    if sim.config.numerics.cell_ordering == "rcm":
+    one. Under `cell_ordering: rcm`, and in shards under
+    `parallel.partitioning: auto`, it is a ConfigError (ROADMAP fault 24):
+    the rebuild reorders the refined mesh by RCM, and the JAX package then
+    sets the state in the unreordered order.
+
+    In shards (one process or ranks) the state and sources are gathered
+    from the shards, injected on the host and scattered to the new
+    shards; in ranks it is collective, each rank calling it with the same
+    `marked` (`refine_marked` is deterministic, the same mesh on every
+    rank)."""
+    cfg = sim.config
+    if cfg.numerics.cell_ordering == "rcm":
         raise ConfigError(
             "adaptive mesh refinement under numerics.cell_ordering: rcm: "
             "the rebuild reorders the refined mesh and the JAX package "
             "injects the state in the unreordered order, scrambling it "
             "(ROADMAP fault 24); use cell_ordering: file")
+    if (sim._sharded is not None and cfg.parallel.n_devices > 1
+            and cfg.parallel.partitioning == "auto"):
+        raise ConfigError(
+            "adaptive mesh refinement in shards under parallel."
+            "partitioning: auto: the rebuild reorders the refined mesh by "
+            "RCM and the JAX package injects the state in the unreordered "
+            "order, scrambling it (ROADMAP fault 24); use partitioning: "
+            "none")
     t0 = time.perf_counter()
     new_mesh, parent = refine_marked(sim.mesh, marked)
     if new_mesh is sim.mesh:
         return
     t_refine = time.perf_counter() - t0
-    idx = torch.as_tensor(parent, device=sim.device)
-    q = sim.q[:, idx]  # piecewise-constant injection
-    src = sim.ext_src[:, idx]
+    q, src = sim.q, sim.ext_src  # on the host in shards
+    q = q[:, torch.as_tensor(parent, device=q.device)]  # injection
+    src = src[:, torch.as_tensor(parent, device=src.device)]
     mannings = sim.mannings_n[parent]
     base_map = getattr(sim, "amr_base_map", None)
     if base_map is None:

@@ -59,6 +59,7 @@ import numpy as np
 import torch
 
 from ...constants import GRAVITY
+from ..math import power
 from ..swe import boundary as bc_mod
 from ..swe.riemann import regularized_velocity, roe_flux
 from ..tracer.sources import SedimentParams
@@ -270,7 +271,7 @@ def cell_update(plan: StructuredPlan, q, div, dz_dx, dz_dy, mannings_n, dt,
     h_safe = torch.where(wet, h, 1.0)
     inv_h = 1.0 / h_safe
     uu, vv = hu * inv_h, hv * inv_h
-    cd = g * mannings_n * mannings_n * torch.pow(h_safe, -1.0 / 3.0)
+    cd = g * mannings_n * mannings_n * power(h_safe, -1.0 / 3.0)
     tb = cd * torch.sqrt(uu * uu + vv * vv) * inv_h
     factor = tb / (1.0 + dt * tb)
     tbx = torch.where(wet, (hu + dt * div[1] - dt * bedx) * factor, 0.0)

@@ -11,6 +11,15 @@ subgradient 0 at x == 0, as the JAX package's custom JVPs give
 `cbrt` below. They stand exactly where the JAX package calls its own;
 elsewhere the port keeps `torch.sqrt` and `cbrt`.
 
+`power(x, e)` is torch.pow(x, e) whose bits do not depend on where an
+element sits in the tensor: on the CPU, the elements that torch's loop
+leaves past its last full vector take its scalar path, whose pow differs
+from the vector path's by an ulp (in about 1% of float64 elements on
+AVX512), so a shard's root of a cell (a tail of its shorter tensor) could
+differ from the whole operator's. `power` pads the flat tensor to whole
+vectors and takes it in pieces below torch's grain size (one thread, no
+tail inside); on CUDA it is torch.pow.
+
 `maximum0`, `minimum0` and `clip01` are max(x, 0), min(x, 0) and
 clip(x, 0, 1) with the bits of `torch.clamp`, but with the JAX package's
 tangent at a tie (half the tangent where x sits on the bound;
@@ -24,18 +33,36 @@ from __future__ import annotations
 import torch
 
 
+# whole vectors of torch's CPU loop (2 vectors of 8 doubles or 16 floats
+# under AVX512, unrolled) and its grain size (a loop below it takes one
+# thread)
+_WHOLE_VECTORS = 64
+_GRAIN = 32768
+
+
+def power(x: torch.Tensor, e: float) -> torch.Tensor:
+    """x ** e, each element's bits independent of its place in x."""
+    if x.device.type != "cpu":
+        return torch.pow(x, e)
+    flat = x.reshape(-1)
+    n = flat.numel()
+    pad = -n % _WHOLE_VECTORS
+    if pad:
+        flat = torch.cat([flat, flat.new_ones(pad)])
+    pieces = [torch.pow(piece, e) for piece in flat.split(_GRAIN)]
+    if not pad and len(pieces) == 1:
+        return pieces[0].reshape(x.shape)
+    # a tensor of its own, not a view (a custom Function returns it)
+    return torch.cat(pieces)[:n].reshape(x.shape).clone()
+
+
 def cbrt(x: torch.Tensor) -> torch.Tensor:
     """Cube root of a non-negative tensor. torch has no cbrt, so this is
-    pow(x, 1/3); the CUDA kernels call cbrt(). The two differ by an ulp at
-    most, inside every tolerance the tests state. A float32 tensor takes
-    the root in float64, rounded back: on the CPU, torch.pow's vector path
-    and its scalar path (which takes the elements a vector does not fill)
-    differ by an ulp in float32, so the root of an element would otherwise
-    depend on the tensor's length, and a raster cut into row strips would
-    not reproduce the whole raster bit for bit."""
-    if x.dtype == torch.float32:
-        return torch.pow(x.double(), 1.0 / 3.0).to(x.dtype)
-    return torch.pow(x, 1.0 / 3.0)
+    pow(x, 1/3) (`power`: an element's root does not depend on where it
+    sits, so row strips and shards reproduce the whole bit for bit); the
+    CUDA kernels call cbrt(). The two differ by an ulp at most, inside
+    every tolerance the tests state."""
+    return power(x, 1.0 / 3.0)
 
 
 class _SafeSqrt(torch.autograd.Function):

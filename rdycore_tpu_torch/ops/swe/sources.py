@@ -25,7 +25,7 @@ from typing import NamedTuple
 import torch
 
 from ...constants import GRAVITY
-from ..math import safe_sqrt
+from ..math import power, safe_sqrt
 
 SOURCE_SEMI_IMPLICIT = 0
 SOURCE_IMPLICIT_XQ2018 = 1
@@ -85,7 +85,7 @@ def apply_source_semi_implicit(
     h_safe = torch.where(wet, h, 1.0)
     u = hu / h_safe
     v = hv / h_safe
-    cd = g * mannings_n * mannings_n * torch.pow(h_safe, -1.0 / 3.0)
+    cd = g * mannings_n * mannings_n * power(h_safe, -1.0 / 3.0)
     speed = safe_sqrt(u * u + v * v)
     tb = cd * speed / h_safe
     factor = tb / (1.0 + dt * tb)
@@ -112,7 +112,7 @@ def friction_implicit_stage_solve(m, mannings_n, dt_imp, tiny_h: float):
     h, mx, my = m[0], m[1], m[2]
     wet = h >= tiny_h
     h_safe = torch.where(wet, h, 1.0)
-    K = dt_imp * g * mannings_n * mannings_n * torch.pow(h_safe, -7.0 / 3.0)
+    K = dt_imp * g * mannings_n * mannings_n * power(h_safe, -7.0 / 3.0)
     M = safe_sqrt(mx * mx + my * my)
     ratio = 2.0 / (1.0 + torch.sqrt(1.0 + 4.0 * (K * M)))
     ratio = torch.where(wet, ratio, 1.0)
@@ -149,7 +149,7 @@ def apply_source_xq2018(
     n2g = g * mannings_n * mannings_n
     ux = mx / h_safe
     uy = my / h_safe
-    lam = (n2g * torch.pow(h_safe, -4.0 / 3.0)
+    lam = (n2g * power(h_safe, -4.0 / 3.0)
            * safe_sqrt(ux * ux + uy * uy))
 
     dtlam = dt * lam
@@ -162,7 +162,7 @@ def apply_source_xq2018(
     qy1 = torch.where(small, my, qy_impl)
 
     qmag = safe_sqrt(qx1 * qx1 + qy1 * qy1)
-    h73 = n2g * torch.pow(h_safe, -7.0 / 3.0)
+    h73 = n2g * power(h_safe, -7.0 / 3.0)
     tbx = torch.where(wet, h73 * qx1 * qmag, 0.0)
     tby = torch.where(wet, h73 * qy1 * qmag, 0.0)
     return _result(q, bedx, bedy, tbx, tby, ext_src, tiny_h, h_anuga)

@@ -25,7 +25,7 @@ from typing import NamedTuple
 import torch
 
 from ...constants import GRAVITY
-from ..math import safe_sqrt
+from ..math import power, safe_sqrt
 
 DENSITY_OF_WATER = 1000.0
 DEFAULT_KP_CONSTANT = 0.001
@@ -79,7 +79,7 @@ def tracer_source_terms(
     v = torch.where(wet, hv / h_safe, 0.0)
     ci = torch.where(wet, hci / h_safe, 0.0)
 
-    cd = g * mannings_n * mannings_n * torch.pow(h_safe, -1.0 / 3.0)
+    cd = g * mannings_n * mannings_n * power(h_safe, -1.0 / 3.0)
     speed = safe_sqrt(u * u + v * v)
     tb = cd * speed / h_safe
     factor = tb / (1.0 + dt * tb)

@@ -31,6 +31,17 @@ and gathers per-unit tensors from all units (`all_gather`).
   refuses). The group's timeout turns a dead peer into an error; nothing
   carries on with fewer ranks.
 
+Each transport also takes a global sum of per-shard partials
+(`global_sum(u, x)`, x the partials of unit u's shards): every shard's
+partial is gathered and they are added one after the other in shard
+order, the same additions on every rank and in every transport (no
+all_reduce, whose order the backend picks), so that every rank holds the
+same scalar and a run with a given P repeats bit for bit (the
+determinism contract of docs/architecture.md, L1). `exchange_dual`
+moves a forward-mode AD dual tensor's halo: its primal and tangent as one
+buffer of 2 ndof rows, one message, both written back (neither
+torch.distributed nor the copies carry a tangent).
+
 `OwnedAccumulators` holds the accumulators of a run in shards or rank
 strips on the units' devices, each unit's owned part, and gathers them
 only when they are read.
@@ -51,12 +62,38 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 import torch.distributed as dist
 
 # the process group's timeout: a rank that waits longer on a peer fails
 DEFAULT_TIMEOUT_S = 600.0
 # the most that one all-gather of DistTransport moves over all ranks
 GATHER_BYTES = 1 << 28
+
+
+def ordered_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """parts[0] + parts[1] + ... in that order."""
+    acc = parts[0]
+    for x in parts[1:]:
+        acc = acc + x
+    return acc
+
+
+def exchange_dual(exchange: Callable[[torch.Tensor], None],
+                  q: torch.Tensor) -> None:
+    """exchange(q) (fill q's ghost rows in place); for a dual tensor of
+    forward-mode AD, its primal and tangent stacked into one buffer [2
+    ndof, C], exchanged as one message, and both written back into q."""
+    primal, tangent = fwAD.unpack_dual(q)
+    if tangent is None:
+        exchange(q)
+        return
+    n = q.shape[0]
+    buf = torch.cat([primal, tangent])
+    exchange(buf)
+    with torch.no_grad():
+        primal.copy_(buf[:n])
+        tangent.copy_(buf[n:])
 
 
 class LocalTransport:
@@ -114,6 +151,23 @@ class LocalTransport:
             q.index_copy_(1, dst, x.index_select(1, src).to(q.device))
         if self._barrier is not None:
             self._barrier.wait()
+
+    def global_sum(self, u: int, x: torch.Tensor) -> torch.Tensor:
+        """The sum of every shard's partial (x: unit u's, [len(units[u])]),
+        added in shard order, on x's device."""
+        if self._barrier is None:
+            got = {u: x}
+        else:
+            self._posted[u] = x
+            self._barrier.wait()
+            got = {su: self._posted[su].to(x.device)
+                   for su in range(len(self.units))}
+            self._barrier.wait()
+        parts = [None] * self.P
+        for su, ps in enumerate(self.units):
+            for k, p in enumerate(ps):
+                parts[p] = got[su][k]
+        return ordered_sum(parts)
 
     def run(self, fn: Callable[[int], object]) -> Dict[int, object]:
         """fn(u) for every unit: with one unit here, with more (several
@@ -257,8 +311,20 @@ class DistTransport:
         q.index_copy_(1, self._ghost_rows,
                       flat.index_select(1, self._ghost_src))
 
+    def global_sum(self, u: int, x: torch.Tensor) -> torch.Tensor:
+        """The sum of every rank's partial (x: this rank's, [1]), gathered
+        and added in rank order on every rank, on x's device."""
+        if self.backend == "nccl":
+            out = x.new_empty(self.P)
+            dist.all_gather_into_tensor(out, x)
+        else:
+            out = torch.cat(self._gather_equal(x.cpu())).to(x.device)
+        return ordered_sum(list(out))
+
     def _pinned(self, key, shape, dtype) -> torch.Tensor:
-        """The pinned host buffer `key` of this shape and dtype."""
+        """The pinned host buffer `key` of this shape and dtype (one for
+        each number of rows: a state's, and a dual state's twice that)."""
+        key = key + (shape[0],)
         buf = self._host.get(key)
         if buf is None or buf.shape != shape or buf.dtype != dtype:
             buf = torch.empty(shape, dtype=dtype, pin_memory=True)

@@ -35,6 +35,23 @@ arrays.
   the interior edges incident to an owned cell and the owned boundary
   edges. Each boundary edge is owned by exactly one shard, which alone
   accumulates its flux.
+- Under BS2002 the eta of an edge's endpoint vertex averages every cell
+  around the vertex, and the correction it gives an edge's momentum
+  fluxes reaches the owned cells through the edges of theirs. The
+  endpoints of the owned cells' edges (interior and owned boundary) reach
+  a last ring of ghosts, the vertex ring: the cells around them that no
+  edge ring holds, in global order (the JAX package's ring,
+  sharded.py:503-535). Its cells are exchanged like any other ghost and
+  keep no `cell_edges` row. At second order the 1-deep ghosts' positivity
+  drains read only the water row of their edges' fluxes, which the
+  correction leaves alone, so the ring needs no wider base. Each shard
+  keeps the BS2002 arrays of its own vertex universe, the endpoints of
+  its local edges in global order: each vertex's `vertex_cells` row in
+  the global row's slot order, mapped to local ids, a cell the shard
+  does not hold and the padding both taken to C_loc (K5 skips c >= C;
+  C_loc - 1 is the dummy cell, which it would read), and the global
+  `vertex_inv_count`. So K5 sums the same cells in the same order with
+  the same weight at every vertex whose eta a kept flux reads.
 - The halo: shard p sends shard r the cells it owns among r's ghosts, in
   r's ghost order (`send[r]`), and r writes them to their ghost rows
   (`recv[p]`), one buffer per pair of shards that border each other.
@@ -72,6 +89,7 @@ class ShardPlan:
     recv: Dict[int, np.ndarray]  # peer -> local ghost rows its buffer fills
     arrays: Dict[str, np.ndarray]  # the shard's operator arrays (host)
     edge_gidx: np.ndarray  # [E_loc] global edge id of each local edge
+    vertex_ghosts: int = 0  # the last ghosts: BS2002's vertex ring
 
     @property
     def nown(self) -> int:
@@ -135,14 +153,49 @@ def _shard_sets(p, P, B, C, il, ir, bl, depth):
             [len(r) for r in rings], b_own, np.nonzero(in_kept[bl])[0])
 
 
+def _vertex_ring(gbs, lo, hi, ghosts, il, ir, eids, be, C):
+    """BS2002's vertex ring of the shard owning [lo, hi) (global ids, in
+    global order): the cells around the endpoints of the owned cells'
+    edges (interior among `eids`, and the owned boundary edges `be`) that
+    the edge rings do not hold."""
+    own = np.zeros(C, bool)
+    own[lo:hi] = True
+    ie = eids[own[il[eids]] | own[ir[eids]]]
+    verts = np.unique(np.concatenate([
+        gbs["int_vbeg"][ie], gbs["int_vend"][ie],
+        gbs["bnd_vbeg"][be], gbs["bnd_vend"][be]]).astype(np.int64))
+    adj = np.unique(gbs["vertex_cells"][verts])
+    held = np.zeros(C + 1, bool)  # C: the padding
+    held[lo:hi] = True
+    held[ghosts] = True
+    held[C] = True
+    return adj[~held[adj]].astype(np.int64)
+
+
+def _shard_bs2002(gbs, lmap, C_loc, eids, bnd, cell_field):
+    """The BS2002 arrays of a shard (host arrays) over its vertex
+    universe, the endpoints of its local edges (`eids`, `bnd`) in global
+    order; lmap maps global cells to local ids (-1: not held)."""
+    ends = [gbs[k][eids] for k in ("int_vbeg", "int_vend")] + [
+        gbs[k][bnd] for k in ("bnd_vbeg", "bnd_vend")]
+    verts = np.unique(np.concatenate(ends).astype(np.int64))
+    # a cell the shard does not hold, and the padding C, become C_loc
+    to_local = np.append(np.where(lmap >= 0, lmap, C_loc), C_loc)
+    out = {k: cell_field(gbs[k], 0.0) for k in ("z1", "z2", "z3")}
+    out.update(
+        vertex_cells=to_local[gbs["vertex_cells"][verts]],
+        vertex_inv_count=gbs["vertex_inv_count"][verts],
+        int_zvbeg=gbs["int_zvbeg"][eids], int_zvend=gbs["int_zvend"][eids],
+        bnd_zvbeg=gbs["bnd_zvbeg"][bnd], bnd_zvend=gbs["bnd_zvend"][bnd])
+    for k, e in zip(("int_vbeg", "int_vend", "bnd_vbeg", "bnd_vend"), ends):
+        out[k] = np.searchsorted(verts, e)
+    return out
+
+
 def build_partition(op: SWEOperator, P: int) -> List[ShardPlan]:
     """The P shards of the operator `op` (its arrays are read on the host;
     build it on the CPU). The shards' arrays keep op's dtype, so a shard's
     operator holds exactly the values of the single-device one."""
-    if op.well_balancing_bs2002:
-        raise NotImplementedError(
-            "BS2002 well balancing in shards (its vertex ring) is not "
-            "ported to rdycore_tpu_torch yet (ROADMAP item 16b)")
     g = op.arrays.numpy()
     C, Ei, Eb = op.num_cells, op.num_internal_edges, op.num_boundary_edges
     E = Ei + Eb
@@ -156,10 +209,17 @@ def build_partition(op: SWEOperator, P: int) -> List[ShardPlan]:
     so = op.second_order
     depth = MUSCL_DEPTH if so else 1
 
+    bs = op.arrays.bs2002
+    gbs = ({k: v.cpu().numpy() for k, v in bs._asdict().items()}
+           if op.well_balancing_bs2002 else None)
     sets = [_shard_sets(p, P, B, C, il, ir, bl, depth) for p in range(P)]
     plans = []
     for p, (eids, ghosts, rings, b_own, b_extra) in enumerate(sets):
         lo, hi = p * B, min((p + 1) * B, C)
+        n_vring = 0
+        if gbs is not None:
+            ring = _vertex_ring(gbs, lo, hi, ghosts, il, ir, eids, b_own, C)
+            ghosts, n_vring = np.concatenate([ghosts, ring]), len(ring)
         nown, G = hi - lo, len(ghosts)
         C_loc = nown + G + 1
         lmap = np.full(C, -1, np.int64)
@@ -221,10 +281,14 @@ def build_partition(op: SWEOperator, P: int) -> List[ShardPlan]:
             if (a[k] < 0).any():
                 raise AssertionError(f"shard {p}: {k} reaches a cell it "
                                      "does not hold")
+        if gbs is not None:
+            a["bs2002"] = _shard_bs2002(gbs, lmap, C_loc, eids, bnd,
+                                        cell_field)
         plans.append(ShardPlan(
             p=p, lo=lo, hi=hi, ghosts=ghosts, rings=rings, int_edges=eids,
             bnd_edges=bnd, n_bnd_owned=len(b_own), send={}, recv={},
-            arrays=a, edge_gidx=np.concatenate([eids, Ei + bnd])))
+            arrays=a, edge_gidx=np.concatenate([eids, Ei + bnd]),
+            vertex_ghosts=n_vring))
 
     # the halo: r's ghosts that p owns, in r's ghost order
     for r, pr in enumerate(plans):
@@ -291,6 +355,26 @@ _INT_FIELDS = ("int_cn", "int_sn", "int_dxl", "int_dyl", "int_dxr",
 _BND_FIELDS = ("bnd_cn", "bnd_sn", "bnd_code", "bnd_len")
 
 
+def _merge_bs2002(ps, offs, order_i, order_b):
+    """The BS2002 arrays of the shards `ps` side by side: their vertex
+    universes one after the other, each vertex's cells moved by its
+    shard's cell offset (a shard's padding C_loc to the group's)."""
+    bss = [pl.arrays["bs2002"] for pl in ps]
+    voff = np.cumsum([0] + [len(b["vertex_inv_count"]) for b in bss])
+    out = {k: np.concatenate([b[k] for b in bss])
+           for k in ("z1", "z2", "z3", "vertex_inv_count")}
+    out["vertex_cells"] = np.concatenate([
+        np.where(b["vertex_cells"] < pl.num_cells, b["vertex_cells"] + o,
+                 offs[-1]) for b, pl, o in zip(bss, ps, offs)])
+    for side, order in (("int", order_i), ("bnd", order_b)):
+        for k in ("vbeg", "vend"):
+            out[f"{side}_{k}"] = np.concatenate([
+                b[f"{side}_{k}"] + v for b, v in zip(bss, voff)])[order]
+            out[f"{side}_z{k}"] = np.concatenate([
+                b[f"{side}_z{k}"] for b in bss])[order]
+    return out
+
+
 def merge_shards(plans: List[ShardPlan], shards: List[int]) -> ShardGroup:
     """The ShardGroup of `shards` (indices into plans)."""
     ps = [plans[p] for p in shards]
@@ -340,6 +424,8 @@ def merge_shards(plans: List[ShardPlan], shards: List[int]) -> ShardGroup:
     a["edge_courant_coef"] = cc
     for k in ("int_left", "int_right", "bnd_left", "cell_edges"):
         a[k] = a[k].astype(np.int32)
+    if "bs2002" in first:
+        a["bs2002"] = _merge_bs2002(ps, offs, order_i, order_b)
 
     owned_bnd = np.concatenate([
         pos_b[eb[s]:eb[s] + pl.n_bnd_owned] for s, pl in enumerate(ps)])

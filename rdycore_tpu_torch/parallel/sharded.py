@@ -9,11 +9,19 @@ sharded.py), with its names (`scatter_state`, `gather_state`,
 - the partition (parallel/partition.py) gives each shard the port's plain
   operator arrays over its local cell space, so each shard runs the
   single-device kernels (K1a, K1b, K1c; K3a and K3b at second order; K1a
-  and K1b in their HR modes) on its own `SWEOperator`;
-- each shard's interval is `timestepping.make_interval_advancer` with one
-  hook, the halo exchange before every edge phase; ghost rows left stale
-  by a stage are overwritten by the next exchange (sharded.py:316-320),
-  and only the owned rows are gathered;
+  and K1b in their HR modes; K5 and K1a's BS2002 correction over the
+  shard's vertex ring under BS2002) on its own `SWEOperator`;
+- each shard's interval is `timestepping.make_interval_advancer` with its
+  hooks: the halo exchange before every edge phase (a dual tensor's
+  primal and tangent in one message, `comm.exchange_dual`); ghost rows
+  left stale by a stage are overwritten by the next exchange
+  (sharded.py:316-320), and only the owned rows are gathered;
+- beuler's Newton-GMRES (`newton_beuler_solve`) takes every inner product
+  over the owned columns of each shard, then the transport's global sum
+  of the P partials in shard order (the JAX package's psum,
+  timestepping.py:127-133); its JVPs go through each shard's
+  linearization twin with the exchange inside, so the Jacobian is the
+  global one;
 - the Courant number: each shard folds its own maximum, the step of it
   and the edge (its global id); the P triples are gathered and every
   shard picks the largest maximum, then the earliest step, then the
@@ -27,10 +35,13 @@ sharded.py), with its names (`scatter_state`, `gather_state`,
   when read. No sum across shards, no float atomics. (The JAX package's
   sharded path does not accumulate at all, ROADMAP fault 27.)
 
-The shards of a run give the single-device run bit for bit: state, time,
-Courant maximum and edge, accumulators. Schemes: euler, ssprk2, ssprk3,
-rk4 and ark_imex (its friction solve is cell-local). BS2002 (its vertex
-ring) and beuler (a distributed GMRES) are ROADMAP item 16b.
+The shards of a run give the single-device run bit for bit (BS2002
+included): state, time, Courant maximum and edge, accumulators, under
+euler, ssprk2, ssprk3, rk4 and ark_imex (its friction solve is
+cell-local). beuler's global sums add per-shard partials, so it agrees
+with the single device to rounding, and repeats bit for bit at a given
+P. `counts` tells the collectives this process's first unit entered:
+halo exchanges and global sums.
 """
 
 from __future__ import annotations
@@ -43,7 +54,7 @@ import torch
 
 from ..operator import SWEOperator, arrays_from_numpy
 from ..timestepping import make_interval_advancer
-from .comm import LocalTransport, OwnedAccumulators
+from .comm import LocalTransport, OwnedAccumulators, exchange_dual
 from .partition import (
     ShardGroup,
     ShardPlan,
@@ -52,7 +63,6 @@ from .partition import (
     neighbor_only,
 )
 
-SHARD_SCHEMES = ("euler", "ssprk2", "ssprk3", "rk4", "ark_imex")
 
 
 class ShardedResult(NamedTuple):
@@ -65,21 +75,6 @@ class ShardedResult(NamedTuple):
     max_courant: float
     courant_edge: int  # global edge id (the operator's edge order)
     accum_time: float
-
-
-def refuse_in_shards(op: SWEOperator, scheme: str) -> None:
-    """NotImplementedError for what the shards do not run yet."""
-    if op.well_balancing_bs2002:
-        feature = "BS2002 well balancing (its vertex ring)"
-    elif scheme == "beuler":
-        feature = "temporal: beuler (a distributed GMRES)"
-    elif scheme not in SHARD_SCHEMES:
-        raise ValueError(f"unknown temporal scheme '{scheme}'")
-    else:
-        return
-    raise NotImplementedError(
-        f"{feature} in shards (parallel.n_devices > 1) is not ported to "
-        "rdycore_tpu_torch yet (ROADMAP item 16b)")
 
 
 class ShardedSWE:
@@ -138,6 +133,28 @@ class ShardedSWE:
                        for ps in tr.units]
         self.accumulators = OwnedAccumulators(
             tr, self._owned, op.ndof, op.num_cells, op.num_boundary_edges)
+        # each unit's shards' owned rows: (first row, count)
+        self._spans = {u: [(o, self.plans[p].nown) for p, o in zip(
+            self.groups[u].shards, self.groups[u].cell_offset)]
+            for u in self.units}
+        self.counts = {"exchange": 0, "global_sum": 0}
+
+    def exchange(self, u: int, q: torch.Tensor) -> None:
+        """Fill unit u's ghost rows of q in place (a dual tensor's primal
+        and tangent alike)."""
+        if u == self.units[0]:
+            self.counts["exchange"] += 1
+        exchange_dual(lambda x: self.transport.exchange(u, x), q)
+
+    def gdot(self, u: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """The global inner product of two states of unit u: each shard's
+        sum over its owned columns, then the global sum of the P partials
+        in shard order (collective)."""
+        if u == self.units[0]:
+            self.counts["global_sum"] += 1
+        parts = torch.stack([(a[:, o:o + n] * b[:, o:o + n]).sum()
+                             for o, n in self._spans[u]])
+        return self.transport.global_sum(u, parts)
 
     def device_of(self, u: int) -> torch.device:
         return self.transport.device_of(u)
@@ -215,13 +232,13 @@ class ShardedSWE:
         state, boundary values and sources from `scatter_state` /
         `scatter_boundary`). With `accumulate`, each unit's interval is
         added to `accumulators`."""
-        refuse_in_shards(self.ref_op, scheme)
         tr = self.transport
         advs = {
             u: make_interval_advancer(
                 self.ops[u], scheme, accumulate=accumulate,
                 ext_sources=ext_sources,
-                exchange=lambda q, u=u: tr.exchange(u, q))
+                exchange=lambda q, u=u: self.exchange(u, q),
+                gdot=lambda a, b, u=u: self.gdot(u, a, b))
             for u in self.units}
         host = torch.device("cpu")
 

@@ -26,14 +26,14 @@ with an `ensemble` section runs its base configuration here, as in the JAX
 package; ensemble.py runs its members.
 
 Multi-process runs (parallel.n_devices > 1 under torch.distributed, ROADMAP
-item 16): one shard of the unstructured path, or one raster row strip,
-per rank (`Simulation`'s docstring).
+items 16 and 16b): one shard of the unstructured path (every scheme,
+BS2002 and AMR included), or one raster row strip, per rank
+(`Simulation`'s docstring).
 
-It runs on the CUDA device unless built with device="cpu". Every feature
-outside these paths raises NotImplementedError naming the ROADMAP item
-that will port it, or the JAX package's own ConfigError where that
-package refuses it too; what needs h5py where it is absent is a
-ConfigError naming h5py (io/hdf5.py); nothing degrades silently.
+It runs on the CUDA device unless built with device="cpu". A feature
+that the JAX package refuses too raises that package's own ConfigError;
+what needs h5py where it is absent is a ConfigError naming h5py
+(io/hdf5.py); nothing degrades silently.
 """
 
 from __future__ import annotations
@@ -62,7 +62,7 @@ from .mesh.gmsh import read_gmsh
 from .operator import SWEOperator, build_operator
 from .parallel.comm import OwnedAccumulators, transport_for
 from .parallel.partition import partition_stats
-from .parallel.sharded import ShardedSWE, refuse_in_shards
+from .parallel.sharded import ShardedSWE
 from .ops.kernels.raster_step import StructuredPlan
 from .ops.structured import (
     FUSED_SCHEMES,
@@ -103,12 +103,6 @@ _SOURCE_CODES = {
 }
 
 
-def _not_ported(feature: str, item: str):
-    raise NotImplementedError(
-        f"{feature} is not ported to rdycore_tpu_torch yet (ROADMAP {item})"
-    )
-
-
 # the public RDyConditionType of each BC code (include/rdycore.h:133-139:
 # dirichlet 0, neumann 1, reflecting 2, critical-outflow 3, runoff 4)
 _PUBLIC_BC_TYPES = {bc_mod.BC_DIRICHLET: 0, bc_mod.BC_REFLECTING: 2,
@@ -130,10 +124,10 @@ def path_of(config: Config) -> str:
 
 
 def check_slice(config: Config) -> None:
-    """Raise for any configured feature outside the ported paths: single
-    device, unstructured or on the uniform raster (edge_flux_backend
-    structured or fused_structured). What depends on the path is refused
-    by `refuse_on_path`."""
+    """Raise for any configured feature that no path runs, as the JAX
+    package refuses it or where it runs it wrongly (a ConfigError naming
+    the ROADMAP fault). What depends on the path is refused by
+    `refuse_on_path`."""
     p, n = config.physics, config.numerics
     if p.flow.source.method == "ark_imex" and n.temporal != "ark_imex":
         # the JAX package runs semi-implicit friction for it without a
@@ -171,26 +165,20 @@ def check_slice(config: Config) -> None:
     refuse_on_path(config, path_of(config))
 
 
-# The features that depend on the path, and how each path refuses them:
-# (feature, ROADMAP item) = not ported yet, NotImplementedError;
-# _CONFIG_ERROR = refused by the JAX package too, one ConfigError listing
-# them all, as it lists them. A path that runs a feature has no entry.
-_CONFIG_ERROR = None
+# The features that depend on the path, and the paths that refuse them as
+# the JAX package does: one ConfigError listing them all, as it lists them.
 _PATH_REFUSALS = (
-    ("tracers/sediment", lambda c: num_tracers(c) > 0,
-     {"structured": _CONFIG_ERROR}),
-    ("second_order", lambda c: c.numerics.second_order,
-     {"structured": _CONFIG_ERROR}),
+    ("tracers/sediment", lambda c: num_tracers(c) > 0, ("structured",)),
+    ("second_order", lambda c: c.numerics.second_order, ("structured",)),
     ("well_balancing",
-     lambda c: c.physics.flow.well_balancing not in (None, "", "none"), {
-         "fused_structured": _CONFIG_ERROR, "structured": _CONFIG_ERROR}),
-    ("parallel.n_devices > 1", lambda c: c.parallel.n_devices > 1, {
-        "structured": _CONFIG_ERROR}),
+     lambda c: c.physics.flow.well_balancing not in (None, "", "none"),
+     ("fused_structured", "structured")),
+    ("parallel.n_devices > 1", lambda c: c.parallel.n_devices > 1,
+     ("structured",)),
     ("time_series.boundary_fluxes",
-     lambda c: bool(c.output.time_series.boundary_fluxes),
-     {"structured": _CONFIG_ERROR}),
+     lambda c: bool(c.output.time_series.boundary_fluxes), ("structured",)),
     ("time-averaged output fields", lambda c: wants_means(c),
-     {"structured": _CONFIG_ERROR}),
+     ("structured",)),
 )
 
 
@@ -206,14 +194,8 @@ def refuse_on_path(config: Config, path: str) -> None:
     table above). The raster paths' temporal schemes, source method and
     walls are checked where the raster kind is decided
     (`Simulation._init_structured_backend`)."""
-    unsupported = []
-    for feature, present, refusals in _PATH_REFUSALS:
-        if path not in refusals or not present(config):
-            continue
-        if refusals[path] is _CONFIG_ERROR:
-            unsupported.append(feature)
-        else:
-            _not_ported(*refusals[path])
+    unsupported = [feature for feature, present, paths in _PATH_REFUSALS
+                   if path in paths and present(config)]
     if unsupported:
         raise ConfigError(
             f"edge_flux_backend: {path} does not support: "
@@ -577,7 +559,6 @@ class Simulation:
         one per rank of the process group, else all here on the devices of
         `_strip_device_list`; the operator stays on the host, each shard's
         part on its device."""
-        refuse_in_shards(self.operator, self.config.numerics.temporal)
         devices = ([self.device] if self._ranks
                    else self._strip_device_list(n_shards))
         self._sharded = sh = ShardedSWE(
@@ -589,15 +570,20 @@ class Simulation:
         self.log.info(
             f"parallel: {n_shards} shards of {sh.B} cells ({where}); halo "
             f"{'neighbours only' if sh.neighbor_only else 'any shard'}")
-        self.log.detail(f"partition: ghosts per shard {ghosts}, frontier "
-                        f"cells per shard {frontier}")
+        vring = ([pl.vertex_ghosts for pl in sh.plans]
+                 if self.operator.well_balancing_bs2002 else None)
+        self.log.detail(
+            f"partition: ghosts per shard {ghosts}, frontier cells per "
+            f"shard {frontier}"
+            + (f", BS2002 vertex-ring ghosts per shard {vring}" if vring
+               else ""))
         cards = {d for d in devices if d.type == "cuda"}
         if not self._ranks and len(cards) > 1:
             self.log.warning(
                 f"{n_shards} shards on {len(cards)} cards in one process run "
                 "one thread per card under one interpreter lock: on four "
                 "H100s 12-17 times slower a step than one card (ROADMAP "
-                "item 16b). One rank per card scales: torchrun --standalone "
+                "item 7n). One rank per card scales: torchrun --standalone "
                 f"--nproc-per-node {n_shards} -m rdycore_tpu_torch deck.yaml")
 
     @property
@@ -1260,10 +1246,12 @@ class Simulation:
         partial interval, ROADMAP fault 26). The caller sets the state
         and sources afterwards (amr.perform_amr). On a CUDA device the
         log's info line gives the device memory before, after and at peak:
-        the old operator's tensors are alive while the new one is built."""
-        if self._sharded is not None or self._rank_strip is not None:
-            _not_ported("a mesh rebuild (AMR) in shards or rank strips",
-                        "item 16b")
+        the old operator's tensors are alive while the new one is built.
+
+        In shards the new simulation partitions the new mesh again, over
+        the same devices or process group (in ranks a collective: every
+        rank calls it with the same mesh); in rank strips, as on one
+        raster, the refined mesh is no raster (the ConfigError)."""
         dev = self.device
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)

@@ -49,8 +49,10 @@ exactly like the reference (rdyadvance.c:303-343).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import threading
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -137,17 +139,42 @@ def _ark_imex_step(op: SWEOperator, q, dt, bv, es, mannings_n):
     return q_new, r1
 
 
-def _beuler_step(op: SWEOperator, lin_op: SWEOperator, q, dt, bv, es):
+def _beuler_step(op: SWEOperator, lin_op: SWEOperator, q, dt, bv, es,
+                 gdot: Optional[Callable] = None):
     """One backward-Euler step (rdycore_tpu/timestepping.py:83-119): R(u) =
     u - u^n - dt*F(u) driven to zero by `newton_beuler_solve`, F the
     operator's rhs on the kernels, its JVPs through `lin_op` (the
-    linearization twin). Returns the new q and the first `apply`'s
-    RHSResult (the step's diagnostics, at u^n)."""
+    linearization twin), its inner products `gdot`. Returns the new q and
+    the first `apply`'s RHSResult (the step's diagnostics, at u^n)."""
     r1 = op.apply(q, dt, bv, es)
     q_new = newton_beuler_solve(
         lambda u: op.rhs(u, dt, bv, es),
-        lambda u: lin_op.rhs(u, dt, bv, es), q, dt)
+        lambda u: lin_op.rhs(u, dt, bv, es), q, dt, gdot)
     return q_new, r1
+
+
+_LEVEL_LOCK = threading.Lock()
+_LEVEL_USERS = [0]
+
+
+@contextlib.contextmanager
+def shared_dual_level():
+    """A forward-mode AD level shared by the threads of this process:
+    PyTorch holds one level at a time in a process, so shards stepped in
+    threads (one per card, parallel/comm.LocalTransport) could not each
+    enter their own. The first thread in opens it, the last out closes
+    it."""
+    with _LEVEL_LOCK:
+        if _LEVEL_USERS[0] == 0:
+            fwAD.enter_dual_level()
+        _LEVEL_USERS[0] += 1
+    try:
+        yield
+    finally:
+        with _LEVEL_LOCK:
+            _LEVEL_USERS[0] -= 1
+            if _LEVEL_USERS[0] == 0:
+                fwAD.exit_dual_level()
 
 
 def jvp(F: Callable, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -155,7 +182,7 @@ def jvp(F: Callable, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     F on the dual tensor (u, v). The same tangent as torch.func.jvp(F,
     (u,), (v,))[1], through `torch.autograd.forward_ad` directly, which
     spends a quarter less host time per operation."""
-    with fwAD.dual_level():
+    with shared_dual_level():
         return fwAD.unpack_dual(F(fwAD.make_dual(u, v))).tangent
 
 
@@ -198,7 +225,7 @@ def lstsq_min_norm(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def newton_beuler_solve(F: Callable, F_lin: Callable, q: torch.Tensor,
-                        dt) -> torch.Tensor:
+                        dt, gdot: Optional[Callable] = None) -> torch.Tensor:
     """Newton-GMRES core of the backward-Euler step
     (rdycore_tpu/timestepping.py:122-188): drives R(u) = u - q - dt*F(u)
     to zero from u = q with NEWTON_ITERS Newton iterations, each one
@@ -209,11 +236,15 @@ def newton_beuler_solve(F: Callable, F_lin: Callable, q: torch.Tensor,
     diverged candidate is dropped). Shared by the unstructured path and
     the raster (`ops/structured.make_fused_structured_stepper`). Every
     branch is a torch.where: nothing is read back to the host. The sizes
-    are read at the call (the JAX package's 6 and 16)."""
+    are read at the call (the JAX package's 6 and 16). gdot(a, b) is the
+    global inner product, torch.sum(a * b) by default; a shard passes its
+    own (parallel/sharded.ShardedSWE.gdot: the owned columns, then a
+    global sum), the same scalar on every shard, so that every shard
+    takes the same line-search branch."""
     newton_iters, krylov_m = NEWTON_ITERS, KRYLOV_M
-
-    def gdot(a, b):
-        return torch.sum(a * b)
+    if gdot is None:
+        def gdot(a, b):
+            return torch.sum(a * b)
 
     def res_norm(u):
         R = u - q - dt * F(u)
@@ -270,6 +301,7 @@ def make_interval_advancer(
     accumulate: bool = True,
     ext_sources: bool = True,
     exchange: Optional[Callable[[torch.Tensor], None]] = None,
+    gdot: Optional[Callable] = None,
 ):
     """Build a function advancing one coupling interval.
 
@@ -293,7 +325,9 @@ def make_interval_advancer(
     phase of the operator (each stage of every scheme; rk4's and
     ark_imex's evaluations alike). With it the result also carries
     `courant_step`, the step of the Courant maximum, so that the shards'
-    maxima combine into the single-device one and its edge.
+    maxima combine into the single-device one and its edge. gdot(a, b),
+    beuler's global inner product (`newton_beuler_solve`), is a shard's
+    other hook.
 
     Returns advance(q, t0, dt, n_steps, t_end, bnd_values, ext_src)
     -> IntervalResult, all of it on q's device.
@@ -307,9 +341,13 @@ def make_interval_advancer(
         # rows advance explicitly (the friction solve passes them through)
         base_op = dataclasses.replace(op, source_method=SOURCE_NONE)
     track = exchange is not None
+    # the twin is built from the unwrapped operator (it rebuilds it from
+    # its dataclass fields, which would drop the exchange), then wrapped
+    lin_op = linearization_twin(op) if scheme == TEMPORAL_BEULER else None
     if track:
         op, base_op = (with_exchange(o, exchange) for o in (op, base_op))
-    lin_op = linearization_twin(op) if scheme == TEMPORAL_BEULER else None
+        if lin_op is not None:
+            lin_op = with_exchange(lin_op, exchange)
 
     def step(q, t, dt, bv, es):
         """(q_new, the first apply's RHSResult) of an rk4, ark_imex or
@@ -318,7 +356,7 @@ def make_interval_advancer(
             return _ark_imex_step(base_op, q, dt, bv, es,
                                   op.arrays.mannings_n)
         if scheme == TEMPORAL_BEULER:
-            return _beuler_step(op, lin_op, q, dt, bv, es)
+            return _beuler_step(op, lin_op, q, dt, bv, es, gdot)
         return _rk4_step(lambda q_s, t_s, dt_s: op.apply(q_s, dt_s, bv, es),
                          q, t, dt)
 

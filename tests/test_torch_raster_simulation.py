@@ -18,9 +18,9 @@ schemes are in tests/test_torch_raster_{schemes,rk4}.py and the
 
 A fused_structured deck on a raster that is not 128 cells wide falls back
 to the `structured` kind in both packages, every ConfigError of the JAX
-package's raster routing is raised by both packages, the port's unported raster features raise
-NotImplementedError where the JAX package runs, and the CLI runs a raster
-deck on the CPU.
+package's raster routing is raised by both packages, the decks that leave
+the raster for the unstructured path in shards (BS2002, beuler) run there
+as on one device, and the CLI runs a raster deck on the CPU.
 """
 
 import os
@@ -33,7 +33,7 @@ from rdycore_tpu.config.yaml_input import load_config as jax_load_config
 from rdycore_tpu.mesh import structured_quad
 from rdycore_tpu.mesh.core import save_mesh_npz
 from rdycore_tpu.simulation import Simulation as JaxSimulation
-from rdycore_tpu_torch import Simulation, load_config
+from rdycore_tpu_torch import Simulation, load_config, timestepping
 from rdycore_tpu_torch.__main__ import main as cli_main
 from rdycore_tpu_torch.config.schema import ConfigError
 
@@ -192,9 +192,9 @@ def test_momentum_sources_are_refused_on_the_fused_raster(tmp_path):
 
 
 @pytest.mark.parametrize("deck", [
-    # second order, row strips and beuler run on the raster, and the
-    # unstructured path in shards; BS2002 and beuler in shards are not
-    # ported yet (item 16b)
+    # the unstructured path in shards runs BS2002 (first and second order)
+    # and beuler since they were ported; beuler in row strips stays the
+    # ConfigError of test_config_errors_of_both_packages
     dict(backend="xla", numerics=", second_order: true",
          flow=", well_balancing: bs2002",
          extra="parallel: {n_devices: 2}\n"),
@@ -202,10 +202,35 @@ def test_momentum_sources_are_refused_on_the_fused_raster(tmp_path):
     dict(backend="xla", flow=", well_balancing: bs2002",
          extra="parallel: {n_devices: 2}\n"),
 ])
-def test_unported_raster_features_raise(tmp_path, deck):
+def test_unported_raster_features_raise(tmp_path, deck, monkeypatch):
+    """These decks, refused in shards until BS2002 and beuler were
+    ported, run in 2 shards (partitioning: auto, RCM) and give the single
+    device on the same RCM order: 8 steps bit for bit, beuler's 2 steps
+    (a Newton iteration of GMRES(2)) to 1e-12."""
+    monkeypatch.setattr(timestepping, "NEWTON_ITERS", 1)
+    monkeypatch.setattr(timestepping, "KRYLOV_M", 2)
+    beuler = deck.get("scheme") == "beuler"
+    steps = {"time.stop_n": 2 if beuler else 8}
     path = write_deck(tmp_path, bflux=0, **deck)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16b"):
-        Simulation(load_config(path), device="cpu")
+    sims = []
+    for extra in (None, {"numerics.cell_ordering": "rcm",
+                         "parallel.n_devices": 1}):
+        sim = Simulation(load_config(path, dict(steps, **(extra or {}))),
+                         device="cpu")
+        sim.run()
+        sims.append(sim)
+    two, one = sims
+    assert two._sharded is not None and one._sharded is None
+    assert two.step == one.step == steps["time.stop_n"]
+    np.testing.assert_array_equal(two.get_natural_ids(),
+                                  one.get_natural_ids())
+    if beuler:
+        np.testing.assert_allclose(two.get_solution(), one.get_solution(),
+                                   rtol=0, atol=1e-12)
+    else:
+        np.testing.assert_array_equal(two.get_solution(),
+                                      one.get_solution())
+        assert two.t == one.t
 
 
 def test_cli_runs_a_raster_deck_on_cpu(tmp_path):

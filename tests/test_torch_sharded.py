@@ -11,7 +11,8 @@ is the single-device one); three tracer rows (two sediment classes);
 hydrostatic reconstruction on a bed; and a 2-D block order (`block_order`)
 whose ghosts lie on shards that are not neighbours. One case is held
 against the JAX package's `ShardedSWE.make_interval_fn` (euler, 4 shards,
-atol 1e-13, as tests/test_sharded.py holds it to its single device).
+atol 1e-13, as tests/test_sharded.py holds it to its single device). Only
+an unknown scheme is refused.
 """
 
 import jax
@@ -23,6 +24,7 @@ from jax.sharding import Mesh as DeviceMesh
 
 from rdycore_tpu.mesh import structured_quad as jax_quad
 from rdycore_tpu.parallel.sharded import ShardedSWE as JaxShardedSWE
+from rdycore_tpu_torch import timestepping
 from rdycore_tpu_torch.mesh import structured_quad, structured_tri
 from rdycore_tpu_torch.mesh.core import block_order, reorder_cells
 from rdycore_tpu_torch.operator import build_operator
@@ -184,12 +186,28 @@ def test_against_the_jax_sharded_interval():
     assert r.courant_edge == JaxShardedSWE.courant_location(jinfo)[1]
 
 
-def test_schemes_outside_the_shards_raise():
+def test_schemes_outside_the_shards_raise(monkeypatch):
+    """Only an unknown scheme is refused now: beuler and BS2002, which
+    raised NotImplementedError before they were ported, run in shards and
+    give the single device (tests/test_torch_sharded_bs2002.py and
+    tests/test_torch_sharded_beuler.py hold them fully)."""
     mesh = structured_quad(8, 6, 0, 8, 0, 6)
     op = build_operator(mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        ShardedSWE(op, 2).make_interval_fn("beuler")
-    bs = build_operator(structured_tri(8, 6, 0, 8, 0, 6),
-                        well_balancing_bs2002=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        ShardedSWE(bs, 2)
+    with pytest.raises(ValueError, match="unknown temporal scheme"):
+        ShardedSWE(op, 2).make_interval_fn("leapfrog")
+    monkeypatch.setattr(timestepping, "NEWTON_ITERS", 1)
+    monkeypatch.setattr(timestepping, "KRYLOV_M", 2)
+    q0 = state(mesh)
+    ref = make_interval_advancer(op, "beuler")(
+        q0.clone(), 0.0, 2e-3, 1, 2e-3, op.zero_boundary_values(),
+        torch.zeros_like(q0))
+    sh = ShardedSWE(op, 2)
+    r = sh.make_interval_fn("beuler")(
+        sh.scatter_state(q0), 0.0, 2e-3, 1, 2e-3,
+        sh.scatter_boundary(op.zero_boundary_values()),
+        sh.scatter_state(torch.zeros_like(q0)))
+    got = sh.gather_state(r.qs, torch.device("cpu"))
+    assert (got - ref.q).abs().max() < 1e-12
+    tri = structured_tri(8, 6, 0, 8, 0, 6, z_fn=lambda x, y: 0.1 * np.sin(x))
+    bs = build_operator(tri, well_balancing_bs2002=True, device="cpu")
+    assert_sharded_is_single(bs, "euler", state(tri), P_list=(2,), n=2)

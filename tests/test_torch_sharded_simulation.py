@@ -8,8 +8,9 @@ so the states are compared in natural order, within 1e-12. The port's
 shards are its single-device run on the same RCM order bit for bit: the
 state, the accumulators, the Courant diagnostics and the boundary-flux
 time series, while the JAX package's sharded run writes zeros there: its sharded
-advance never updates the accumulators (ROADMAP fault 27). BS2002 and
-beuler in shards raise NotImplementedError naming ROADMAP item 16b.
+advance never updates the accumulators (ROADMAP fault 27). BS2002 in 2
+shards is its single-device run bit for bit, and beuler agrees with it
+to 1e-12.
 """
 
 import os
@@ -24,7 +25,7 @@ from rdycore_tpu.io.writers import (
 from rdycore_tpu.mesh import structured_tri
 from rdycore_tpu.mesh.core import save_mesh_npz
 from rdycore_tpu.simulation import Simulation as JaxSimulation
-from rdycore_tpu_torch import Simulation, load_config
+from rdycore_tpu_torch import Simulation, load_config, timestepping
 from rdycore_tpu_torch.io.writers import attach_output_monitors
 
 DECK = """
@@ -181,8 +182,33 @@ def test_boundary_flux_series_is_the_single_device_one(tmp_path):
     dict(flow=", well_balancing: bs2002"),
     dict(scheme="beuler"),
 ])
-def test_what_shards_do_not_run_raises(tmp_path, deck):
-    path, _ = write_deck(str(tmp_path), "refused",
-                         extra="parallel: {n_devices: 2}\n", **deck)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16b"):
-        Simulation(load_config(path), device="cpu")
+def test_what_shards_do_not_run_raises(tmp_path, deck, monkeypatch):
+    """BS2002 and beuler, refused in shards until they were ported, now
+    run there: 2 shards (RCM, partitioning: auto) against the single
+    device on the same RCM order, BS2002 over the deck's 24 steps bit for
+    bit, beuler over 2 steps (a Newton iteration of GMRES(2)) to 1e-12
+    (its inner products add per-shard partials)."""
+    monkeypatch.setattr(timestepping, "NEWTON_ITERS", 1)
+    monkeypatch.setattr(timestepping, "KRYLOV_M", 2)
+    steps = {"time.stop_n": 2} if deck.get("scheme") == "beuler" else None
+    p2, _ = write_deck(str(tmp_path), "two",
+                       extra="parallel: {n_devices: 2}\n", **deck)
+    p1, _ = write_deck(str(tmp_path), "one",
+                       numerics=", cell_ordering: rcm", **deck)
+    two = run(Simulation(load_config(p2, steps), device="cpu"),
+              attach_output_monitors)
+    one = run(Simulation(load_config(p1, steps), device="cpu"),
+              attach_output_monitors)
+    assert two._sharded is not None and two._sharded.P == 2
+    assert two.step == one.step == (2 if steps else 24)
+    np.testing.assert_array_equal(two.get_natural_ids(),
+                                  one.get_natural_ids())
+    q2, q1 = two.get_solution(), one.get_solution()
+    assert np.abs(q1[0] - 0.1).max() > 1e-3  # the dam broke
+    if steps:
+        np.testing.assert_allclose(q2, q1, rtol=0, atol=1e-12)
+    else:
+        np.testing.assert_array_equal(q2, q1)
+        np.testing.assert_array_equal(two.bflux_accum, one.bflux_accum)
+        assert (two.get_courant_number_diagnostics()
+                == one.get_courant_number_diagnostics())
