@@ -13,7 +13,10 @@ Phases, each printing as it goes; any failure exits non-zero:
    wet/dry state made with numpy from --seed. On a 256x176 quad mesh and a
    triangle mesh, in f32 and f64, with all three BC codes (Dirichlet values
    non-zero): K1a swe_edge_flux; K1b swe_cell_stage in stage mode for each
-   ssprk3 stage and in rhs mode, with each source method; K1c
+   ssprk3 stage and in rhs mode, with each source method, on K1a's flux
+   records (each edge's fluxes side by side; every kernel check feeds
+   K1b and K3b the plain flux through `edge_flux.flux_records`), and
+   refusing a row-major flux; K1c
    courant_argmax, including a constructed tie whose index must be exact,
    and (f32 and f64) NaN, infinities, signed zeros, one value, odd sizes
    and slices off a 16-byte boundary, its (max, index, run fold) exactly
@@ -748,6 +751,7 @@ def phase_kernels(seed, errs, dev):
             # K1a
             fk, ck = swe_edge_flux(a, q, bv, op.tiny_h, op.h_anuga)
             fp, cp = swe_edge_flux_plain(a, q, bv, op.tiny_h, op.h_anuga)
+            fp = records(fp, op)
             check("swe_edge_flux", f"{tag} flux", fk, fp, dtype)
             check("swe_edge_flux", f"{tag} courant", ck, cp, dtype)
             # K1b, on the plain flux so that errors do not compound
@@ -772,6 +776,15 @@ def phase_kernels(seed, errs, dev):
                                   f"{tag} src{method} {mode} {field}",
                                   getattr(ok_, field), getattr(op_, field),
                                   dtype)
+            # K1b reads K1a's records only: a row-major flux raises
+            try:
+                swe_cell_stage(a, fp.contiguous(), q, dt, ext, **kw)
+            except ValueError:
+                log(f"  {'swe_cell_stage':15s} {tag + ' row-major flux':48s} "
+                    "refused ok")
+            else:
+                failures.append(f"swe_cell_stage {tag} took a row-major "
+                                "flux")
             # K1c: random values, then a constructed tie
             for what, x in (("random", cp.clone()), ("tie", cp.clone())):
                 if what == "tie":
@@ -966,6 +979,14 @@ def courant_bytes(n, s):
     """Bytes K1c must move to fold n Courant values into the running
     maximum: the values, dt, and the running maximum and index."""
     return n * s + s + 4
+
+
+def records(flux, op):
+    """A plain flux [ndof, E + 1] in the record layout that K1b and K3b
+    take on the card (`edge_flux.flux_records`)."""
+    from rdycore_tpu_torch.ops.kernels.edge_flux import flux_records
+
+    return flux_records(flux, op.num_edges)
 
 
 def kernel_bytes(op, q_bytes, s, rhs=False):
@@ -1561,6 +1582,7 @@ def phase_tracer_kernels(seed, errs, dev):
                                        upwind)
                 fp, cp = swe_edge_flux_plain(a, q, bv, op.tiny_h,
                                              op.h_anuga, upwind)
+                fp = records(fp, op)
                 check("swe_edge_flux", f"{tag} flux", fk, fp, dtype)
                 check("swe_edge_flux", f"{tag} courant", ck, cp, dtype)
                 dt = torch.tensor(0.002, dtype=dtype, device=dev)
@@ -1881,12 +1903,14 @@ def phase_muscl_kernels(seed, errs, dev):
                                        grad=gp, limiter=lim)
                 fp, cp = swe_edge_flux_plain(a, q, bv, op.tiny_h, op.h_anuga,
                                              grad=gp, limiter=lim)
+                fp = records(fp, op)
                 for what, g, w in (("flux", fk, fp), ("courant", ck, cp)):
                     check("swe_edge_flux", f"{tag} muscl {lim} {what}", g, w,
                           dtype, "swe_edge_flux muscl")
             # K3b on the plain minmod flux: a fifth of the cells start dry
             fp, _ = swe_edge_flux_plain(a, q, bv, op.tiny_h, op.h_anuga,
                                         grad=gp, limiter="minmod")
+            fp = records(fp, op)
             for dt_s in (0.002, 0.0):
                 dt = torch.tensor(dt_s, dtype=dtype, device=dev)
                 sk = mk.swe_positivity_drain(a, fp, q[0], dt)
@@ -2102,6 +2126,7 @@ def phase_muscl(steps, errs, dev, mesh):
             flux, courant = op.edge_flux(q, bv, gp)
             fp, cp = swe_edge_flux_plain(a, q, bv, op.tiny_h, op.h_anuga,
                                          grad=gp, limiter=op.limiter)
+            fp = records(fp, op)
             # K3b at dt and at 40 times dt, where the donor factors fall
             # below 1: drain on the same flux, scale on the same factors
             sk = mk.swe_positivity_drain(a, fp, q[0], dt)
@@ -2309,6 +2334,7 @@ def phase_wb_kernels(seed, errs, dev):
                                        hr=True)
                 fp, cp = swe_edge_flux_plain(a, q, bv, op.tiny_h, op.h_anuga,
                                              up, hr=True)
+                fp = records(fp, op)
                 check("swe_edge_flux", f"{t} hr flux", fk, fp, dtype,
                       "swe_edge_flux hr")
                 check("swe_edge_flux", f"{t} hr courant", ck, cp, dtype,
@@ -2470,6 +2496,7 @@ def wb_kernel_rows(card, path, op, q, bv, dt, launches, errs, **extra):
                                  wb_kw.get("eta_v"))
     fp, cp = swe_edge_flux_plain(a, q, bv, op.tiny_h, op.h_anuga,
                                  **wb_kw)
+    fp = records(fp, op)
     pairs["swe_edge_flux"] = [(flux, fp), (courant, cp)]
     calls["swe_edge_flux"] = (
         lambda: op.edge_flux(q, bv, grad, eta_v),
@@ -3009,6 +3036,7 @@ def unstructured_rows(card, path, op, q, bv, dt, launches, per_step, errs,
               source_method=op.source_method)
     flux, courant = op.edge_flux(q, bv)
     fp, cp = swe_edge_flux_plain(a, q, bv, op.tiny_h, op.h_anuga)
+    fp = records(fp, op)
     ok_ = op.cell_stage(fp, q, dt, None, emit_prim=prim)
     op_ = swe_cell_stage_plain(a, fp, q, dt, None, emit_prim=prim, **kw)
     mk, ik = op.courant_max(cp)
@@ -3327,6 +3355,7 @@ def mms_rows(card, path, op, q, bv, es, dt, launches, per_step, errs,
 
     flux, courant = op.edge_flux(q, bv, gp)
     fp, cp = edge_plain(gp)
+    fp = records(fp, op)
     pairs["swe_edge_flux"] = [(flux, fp), (courant, cp)]
     calls["swe_edge_flux"] = (lambda: op.edge_flux(q, bv, gk),
                               lambda: edge_plain(gk), None)
@@ -4982,6 +5011,7 @@ def shard_rows(card, path, op, q, bv, launches, steps, muscl):
         flux, courant = op.edge_flux(q, bv, gp)
         fp, cp = swe_edge_flux_plain(a, q, bv, th, ta, grad=gp,
                                      limiter=op.limiter)
+        fp = records(fp, op)
         sp = mk.positivity_drain_plain(a, fp, q[0], dt)
         pairs["swe_muscl_grad"] = [(gk, gp)]
         pairs["swe_positivity_drain"] = [
@@ -5004,6 +5034,7 @@ def shard_rows(card, path, op, q, bv, launches, steps, muscl):
     else:
         flux, courant = op.edge_flux(q, bv)
         fp, cp = swe_edge_flux_plain(a, q, bv, th, ta)
+        fp = records(fp, op)
         calls["swe_edge_flux"] = (
             lambda: op.edge_flux(q, bv),
             lambda: swe_edge_flux_plain(a, q, bv, th, ta), None)

@@ -14,7 +14,9 @@ package's ops/pallas/), each beside its plain PyTorch version:
   vertex eta
 
 K1a and K1b also carry the well-balancing modes (K4): hydrostatic
-reconstruction in both, the BS2002 correction in K1a.
+reconstruction in both, the BS2002 correction in K1a. K1a hands its
+fluxes on as records, each edge's ndof values side by side (a [ndof,
+E + 1] view of an [E + 1, ndof] buffer), the layout K1b and K3b read.
 
 A wrapper launches its kernel for CUDA tensors and takes the plain version
 for CPU tensors; `launches` on each wrapper counts its kernel's launches.

@@ -36,6 +36,7 @@ from ..math import maximum0
 from ..swe.sources import SOURCE_NONE, apply_source
 from ..tracer.sources import SedimentParams, tracer_source_terms
 from . import build
+from .edge_flux import check_records
 
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 
@@ -152,7 +153,8 @@ def swe_cell_stage(
     qA: Optional[torch.Tensor] = None, emit_prim: bool = False,
     hr: bool = False,
 ) -> CellStageOut:
-    """One launch over all cells. flux [ndof, E + 1] from `swe_edge_flux`,
+    """One launch over all cells. flux [ndof, E + 1] from `swe_edge_flux`
+    (on the card in its record layout only: `edge_flux.check_records`),
     q [ndof, C] the stage input (ndof = 3, or 3 + the tracers, of which the
     first num_sediment are sediment classes), dt a 0-dim tensor (the step
     dt, read on the device), ext_src [ndof, C] or None for no external
@@ -178,7 +180,7 @@ def swe_cell_stage(
     ck = build.check
     ck(q, "q", dtype, (ndof, C), dev)
     E = a.int_left.shape[0] + a.bnd_left.shape[0]
-    ck(flux, "flux", dtype, (ndof, E + 1), dev)
+    check_records(flux, ndof, E, dtype, dev, "swe_cell_stage")
     ck(a.cell_edges, "cell_edges", torch.int32, (C, K), dev)
     ck(a.cell_edge_coef, "cell_edge_coef", dtype, (C, K), dev)
     ck(dt, "dt", dtype, (), dev)
@@ -223,7 +225,7 @@ def swe_cell_stage(
           else lib.rdy_swe_cell_stage_f64)
     with torch.cuda.device(dev):
         status = fn(
-            flux.data_ptr(), flux.shape[1], a.cell_edges.data_ptr(),
+            flux.data_ptr(), E + 1, a.cell_edges.data_ptr(),
             a.cell_edge_coef.data_ptr(), K, q.data_ptr(), ptr(qA),
             dt.data_ptr(), ptr(ext_src), a.mannings_n.data_ptr(),
             a.dz_dx.data_ptr(), a.dz_dy.data_ptr(), C, tiny_h, h_anuga,

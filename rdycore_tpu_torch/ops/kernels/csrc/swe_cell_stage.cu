@@ -7,7 +7,7 @@
 // equations and for the coupled flow + tracer system (ndof = 3 + NT).
 //
 // One thread per cell. It pulls its edge fluxes over cell_edges in slot
-// order, div = sum_k coef[c,k] * flux[:, cell_edges[c,k]] (no atomics, so
+// order, div = sum_k coef[c,k] * flux[cell_edges[c,k], :] (no atomics, so
 // the result does not depend on the launch configuration), adds the
 // sources, and then
 //   stage mode: q_out = alpha*qA + beta*(qB + dt*(div + src)), or qB when
@@ -49,11 +49,29 @@
 // edge's 4*ndof bytes counted once. In f32 on the 2.88M-cell dam break
 // with prim and no sources: about 104 bytes per cell flow-only, 300 MB, at
 // least 0.090 ms at the H100's 3.35 TB/s; about 164 bytes per cell with
-// NT = 3, 471 MB, 0.141 ms. Design: consecutive threads take consecutive
-// cells, so the per-cell streams are coalesced; the [C, 4] index and
-// coefficient rows are read as one 16-byte (f32) or 32-byte (f64) row per
-// thread, and the flux gathers hit neighbouring columns for neighbouring
-// cells on a row-major raster.
+// NT = 3, 471 MB, 0.141 ms. What binds is the sectors of the flux
+// gathers. The fluxes come from K1a (csrc/swe_edge_flux.cu) as records,
+// flux[E + 1, ndof], each edge's ndof values side by side (record E the
+// zero dummy), so a slot gathers ndof adjacent values: in f32 on average
+// 1.25 32-byte sectors at ndof = 3 and 1.5 at ndof = 6. A row-major
+// flux[ndof, E + 1] would cost a sector per row where neighbouring cells
+// share no edges: a triangle's three slots 9 sectors (288 bytes) for 36
+// useful bytes in a shuffled file order, about 870 MB of traffic a launch
+// on the 2,884,416-triangle valley against its 283 MB bound. Records are
+// not padded to 16 bytes for vector loads: that would add 4 bytes an edge
+// to K1a's writes and K1b's reads on every path. Design: consecutive
+// threads take consecutive cells, so the per-cell streams are coalesced;
+// the [C, 4] index and coefficient rows are read as one 16-byte (f32) or
+// 32-byte (f64) row per thread, and the flux gathers hit neighbouring
+// records for neighbouring cells on a row-major raster or under RCM.
+// Measured in an euler stage with the primitives on an NVIDIA H100 80GB
+// HBM3 at 700 W, f32 (tools/torch_kernel_times.py --cases gathers, the
+// kernel on a row-major flux timed in the same call): the valley in its
+// Exodus file order 0.1591-0.1592 ms against 0.2506-0.2507 (bound
+// 0.0844), under RCM 0.0929-0.0930 against 0.0933-0.0935, in the
+// generator's order 0.1079 against 0.1083-0.1096, the 2048x1408 dam break
+// 0.0967-0.0973 against 0.0982-0.0984 (bound 0.0895); the same outputs
+// to the bit.
 #include "swe_physics.cuh"
 
 namespace {
@@ -73,7 +91,7 @@ struct HrArrays {
 
 template <typename T, int NT, bool kHR>
 __global__ void __launch_bounds__(256) swe_cell_stage_kernel(
-    const T* __restrict__ flux, int64_t flux_ld,
+    const T* __restrict__ flux, int64_t num_rec,
     const int32_t* __restrict__ cell_edges, const T* __restrict__ coef,
     int K, const T* __restrict__ q, const T* __restrict__ qA,
     const T* __restrict__ dt_ptr, const T* __restrict__ ext,
@@ -97,8 +115,10 @@ __global__ void __launch_bounds__(256) swe_cell_stage_kernel(
   for (int k = 0; k < K; ++k) {
     const int64_t e = cell_edges[c * K + k];
     const T w = coef[c * K + k];
+    // the slot's edge record: its ND fluxes side by side
+    const T* __restrict__ rec = flux + e * ND;
 #pragma unroll
-    for (int r = 0; r < ND; ++r) d[r] += flux[r * flux_ld + e] * w;
+    for (int r = 0; r < ND; ++r) d[r] += rec[r] * w;
     if constexpr (kHR) {
       T hn = hc, zn = z, cn = T(0), sn = T(0);
       if (e < hr.Ei) {
@@ -107,7 +127,7 @@ __global__ void __launch_bounds__(256) swe_cell_stage_kernel(
         zn = hr.cell_z[n];
         cn = hr.int_cn[e];
         sn = hr.int_sn[e];
-      } else if (e < flux_ld - 1) {
+      } else if (e < num_rec - 1) {
         cn = hr.bnd_cn[e - hr.Ei];
         sn = hr.bnd_sn[e - hr.Ei];
       }
@@ -183,7 +203,7 @@ __global__ void __launch_bounds__(256) swe_cell_stage_kernel(
 }
 
 template <typename T>
-int launch(const void* flux, int64_t flux_ld, const void* cell_edges,
+int launch(const void* flux, int64_t num_rec, const void* cell_edges,
            const void* coef, int K, const void* q, const void* qA,
            const void* dt, const void* ext, const void* mann,
            const void* dzdx, const void* dzdy, int64_t C, T tiny_h,
@@ -200,7 +220,7 @@ int launch(const void* flux, int64_t flux_ld, const void* cell_edges,
   const rdy::SedimentParams<T> sp{kp, ws, tau_ce, tau_cd, rhow};
   auto run = [&](auto kernel) {
     kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const T*)flux, flux_ld, (const int32_t*)cell_edges, (const T*)coef,
+        (const T*)flux, num_rec, (const int32_t*)cell_edges, (const T*)coef,
         K, (const T*)q, (const T*)qA, (const T*)dt, (const T*)ext,
         (const T*)mann, (const T*)dzdx, (const T*)dzdy, C, tiny_h, h_anuga,
         xq_threshold, method, num_sediment, sp, alpha, beta, (T*)q_out,
@@ -221,11 +241,11 @@ int launch(const void* flux, int64_t flux_ld, const void* cell_edges,
 // parameters kp, ws, tau_ce, tau_cd, rhow. hr != 0: hydrostatic-
 // reconstruction mode on the interior edges' int_left, int_right, int_cn,
 // int_sn [Ei], the boundary edges' bnd_cn, bnd_sn [Eb] and cell_z [C]
-// (else those may be NULL; flux_ld = Ei + Eb + 1). Returns
+// (else those may be NULL; num_rec = Ei + Eb + 1). Returns
 // cudaGetLastError().
 #define RDY_CELL_STAGE_API(SUFFIX, T)                                        \
   extern "C" int rdy_swe_cell_stage_##SUFFIX(                                \
-      const void* flux, int64_t flux_ld, const void* cell_edges,             \
+      const void* flux, int64_t num_rec, const void* cell_edges,             \
       const void* coef, int K, const void* q, const void* qA,                \
       const void* dt, const void* ext, const void* mann, const void* dzdx,   \
       const void* dzdy, int64_t C, T tiny_h, T h_anuga, T xq_threshold,      \
@@ -239,7 +259,7 @@ int launch(const void* flux, int64_t flux_ld, const void* cell_edges,
                              (const int32_t*)int_right, (const T*)int_cn,    \
                              (const T*)int_sn, (const T*)bnd_cn,             \
                              (const T*)bnd_sn, (const T*)cell_z, Ei};        \
-    return launch<T>(flux, flux_ld, cell_edges, coef, K, q, qA, dt, ext,     \
+    return launch<T>(flux, num_rec, cell_edges, coef, K, q, qA, dt, ext,     \
                      mann, dzdx, dzdy, C, tiny_h, h_anuga, xq_threshold,     \
                      method, nt, num_sediment, kp, ws, tau_ce, tau_cd, rhow, \
                      alpha, beta, q_out, flux_div, rhs, prim, hr, arrays,    \

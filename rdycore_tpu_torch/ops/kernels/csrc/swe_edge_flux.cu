@@ -11,9 +11,14 @@
 // boundary edges in segment order). A thread gathers its left/right cell
 // states, regularizes the velocities, forms the ghost state of a boundary
 // edge from its BC code, solves Roe, applies the dry mask and writes
-//   flux[ndof, E + 1]  (column E = 0, the dummy slot of cell_edges)
+//   flux[E + 1, ndof]  one record of ndof fluxes per edge, side by side
+//                      (record E = 0, the dummy slot of cell_edges)
 //   courant[E]         amax * edge_courant_coef
-// flux[:, Ei:E] is the raw boundary flux the time-series accumulators use.
+// The wrapper hands back flux's transpose, a [ndof, E + 1] view, whose
+// columns Ei:E are the raw boundary fluxes the time-series accumulators
+// use. K1b (csrc/swe_cell_stage.cu) and K3b (csrc/swe_positivity.cu) read
+// the records: a cell slot gathers its edge's ndof values from one or two
+// 32-byte sectors instead of one sector per row.
 //
 // The tracer count NT is a template parameter (0..kMaxTracers, dispatched
 // at launch), so each thread's concentrations and fluxes stay in registers;
@@ -67,11 +72,15 @@
 // 2048x1408 dam break about 242 MB (flow only, at least 0.072 ms at the
 // H100's 3.35 TB/s) or 346 MB (NT = 3, 0.103 ms). The arithmetic (~165
 // operations, 3 sqrt and a few divides, plus ~20 per tracer) is far below
-// the card's rate at that intensity. Design: consecutive threads take
-// consecutive edges, so every per-edge stream is read and written
-// coalesced; the cell-state gathers are coalesced as far as the mesh
-// numbering keeps neighbouring edges on neighbouring cells (row-major
-// rasters do). No shared memory, no atomics.
+// the card's rate at that intensity. What binds is the sectors of the
+// cell-state gathers: 4 bytes of each 32-byte sector are used where
+// neighbouring edges share no cells (a shuffled file order). Design:
+// consecutive threads take consecutive edges, so every per-edge stream is
+// read coalesced, and a warp's ND scalar record stores cover the same
+// 32 * ND values side by side, merged into whole sectors in the L2; the
+// cell-state gathers are coalesced as far as the mesh numbering keeps
+// neighbouring edges on neighbouring cells (row-major rasters and RCM
+// do). No shared memory, no atomics.
 #include "swe_physics.cuh"
 
 namespace {
@@ -108,10 +117,11 @@ __global__ void __launch_bounds__(256) swe_edge_flux_kernel(
   const int64_t E = Ei + Eb;
   const int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   if (e > E) return;
-  const int64_t ld = E + 1;
+  // this edge's flux record: its ND fluxes side by side
+  T* __restrict__ out = flux + e * ND;
   if (e == E) {
 #pragma unroll
-    for (int k = 0; k < ND; ++k) flux[k * ld + e] = T(0);
+    for (int k = 0; k < ND; ++k) out[k] = T(0);
     return;
   }
   T hl, ul, vl, hr, ur, vr, sn, cn;
@@ -200,9 +210,9 @@ __global__ void __launch_bounds__(256) swe_edge_flux_kernel(
     const bool dry = (hl_raw < tiny_h && hr_raw < tiny_h) ||
                      (rec && hl <= tiny_h && hr <= tiny_h);
     const T mask = dry ? T(0) : T(1);
-    flux[e] = f[0] * mask;
-    flux[ld + e] = f[1] * mask;
-    flux[2 * ld + e] = f[2] * mask;
+    out[0] = f[0] * mask;
+    out[1] = f[1] * mask;
+    out[2] = f[2] * mask;
     courant[e] = amax * mask * ccoef[e];
   } else {
     T f[ND], amax;
@@ -213,7 +223,7 @@ __global__ void __launch_bounds__(256) swe_edge_flux_kernel(
                      (!rec || hl > tiny_h || hr > tiny_h);
     const T mask = wet ? T(1) : T(0);
 #pragma unroll
-    for (int k = 0; k < ND; ++k) flux[k * ld + e] = f[k] * mask;
+    for (int k = 0; k < ND; ++k) out[k] = f[k] * mask;
     courant[e] = amax * mask * ccoef[e];
   }
 }
@@ -288,7 +298,8 @@ int launch(const void* q, int64_t C, const void* int_left,
 
 }  // namespace
 
-// nt: tracer rows of q, bvals and flux beyond (h, hu, hv); upwind != 0
+// flux: [E + 1, ndof] records, ndof = 3 + nt. nt: tracer rows of q,
+// bvals and flux beyond (h, hu, hv); upwind != 0
 // takes upwind-Roe tracer fluxes. limiter != 0 (kLim* of swe_physics.cuh,
 // nt = 0 only) takes MUSCL faces from grad [6, C] and the interior edges'
 // offsets dxl, dyl, dxr, dyr [Ei] (else those may be NULL). wb (kWb* of

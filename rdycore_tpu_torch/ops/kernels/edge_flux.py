@@ -19,6 +19,13 @@ mask and amax see those reconstructed depths; boundary edges stay first
 order on the raw state. This replaces the TPU kernel `_muscl_flux_kernel`
 (slotted.py:3180).
 
+The flux comes back as [ndof, E + 1], the transpose of a contiguous
+[E + 1, ndof] buffer: one record per edge, its ndof fluxes side by side,
+record E zero (the dummy slot of cell_edges). That is the layout K1b and
+K3b take on the card (`check_records`; `flux_records` makes it from any
+[ndof, E + 1] flux), and the plain version returns it too; PyTorch
+indexing sees the same shape and values as in a row-major flux.
+
 Two well-balancing modes (the JAX package's `well_balancing_hr` and
 `well_balancing_bs2002`, operator.py:417-460):
 - `hr=True` (first order, any tracer count): hydrostatic reconstruction
@@ -66,6 +73,41 @@ _FUNCTIONS = {
     "rdy_swe_edge_flux_f32": _argtypes(ctypes.c_float),
     "rdy_swe_edge_flux_f64": _argtypes(ctypes.c_double),
 }
+
+
+def is_records(flux: torch.Tensor) -> bool:
+    """Whether flux [ndof, E + 1] is the transpose of a contiguous
+    [E + 1, ndof] buffer of edge records."""
+    return flux.dim() == 2 and flux.t().is_contiguous()
+
+
+def flux_records(flux: torch.Tensor, num_edges: int) -> torch.Tensor:
+    """flux [ndof, num_edges + 1] (3 <= ndof <= 3 + the kernels' tracer
+    rows) in the record layout K1b and K3b take on the card: itself where
+    it is in it already, else a copy. Raises on any other shape."""
+    if (flux.dim() != 2 or flux.shape[1] != num_edges + 1
+            or not 3 <= flux.shape[0] <= 3 + build.MAX_TRACERS):
+        raise ValueError(f"flux of shape {tuple(flux.shape)}: expected "
+                         f"[ndof, {num_edges + 1}], 3 <= ndof <= "
+                         f"{3 + build.MAX_TRACERS}")
+    return flux if is_records(flux) else flux.t().contiguous().t()
+
+
+def check_records(flux, ndof, num_edges: int, dtype, device,
+                  what: str) -> None:
+    """Raise unless flux is K1a's output layout: [ndof, num_edges + 1]
+    (ndof None: any row count) of dtype on device, the transpose of a
+    contiguous [num_edges + 1, ndof] buffer. A kernel reading records never
+    copies another layout, and never falls back."""
+    build.check(flux.t(), f"{what}: flux records (flux.t())", dtype,
+                (num_edges + 1, ndof), device)
+
+
+def _records(fi, fb):
+    """The [ndof, E + 1] records of the interior and boundary fluxes fi
+    [ndof, Ei] and fb [ndof, Eb], a zero dummy record appended."""
+    dummy = fb.new_zeros((1, fb.shape[0]))
+    return torch.cat([fi.t(), fb.t(), dummy]).t()
 
 
 def _masked(f_h, f_hu, f_hv, amax, dry):
@@ -129,7 +171,7 @@ def swe_edge_flux_plain(a, q, bvals, tiny_h: float, h_anuga: float,
     :721-777 and :796-845; with `grad`, the MUSCL branch :388-391; with
     `hr`, hydrostatic reconstruction :417-427 and :752-767; with `eta_v`,
     the BS2002 correction :436-447). Returns (flux [ndof, E + 1] with a
-    zero column E, courant [E])."""
+    zero column E, in the record layout of the kernel, courant [E])."""
     _check_modes(q, grad, hr, bs, eta_v)
     h, hu, hv = q[0], q[1], q[2]
     il, ir = a.int_left, a.int_right
@@ -174,7 +216,7 @@ def swe_edge_flux_plain(a, q, bvals, tiny_h: float, h_anuga: float,
         )
     fb, amax_b = boundary_flux_plain(a, q, bvals, tiny_h, h_anuga, upwind,
                                      bs, eta_v)
-    flux = torch.cat([fi, fb, fb.new_zeros((q.shape[0], 1))], dim=1)
+    flux = _records(fi, fb)
     courant = torch.cat([amax_i, amax_b]) * a.edge_courant_coef
     return flux, courant
 
@@ -203,7 +245,8 @@ def swe_edge_flux(
     limiter: str = "minmod", hr: bool = False,
     bs: Optional[BS2002Arrays] = None, eta_v: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Flux [ndof, E + 1] (column E zero) and courant [E] = amax * coef of
+    """Flux [ndof, E + 1] (column E zero; the transpose of [E + 1, ndof]
+    edge records) and courant [E] = amax * coef of
     all edges of operator arrays `a` for the state q [ndof, C] (ndof = 3,
     or 3 + the tracers). bvals [ndof, >= Eb] holds the Dirichlet (h, hu,
     hv and tracer masses) of each boundary edge. upwind: upwind-Roe tracer
@@ -262,7 +305,7 @@ def swe_edge_flux(
                (Ei if name.startswith("int") else Eb,), dev)
             wb_args[2 + i] = t
 
-    flux = torch.empty((ndof, E + 1), dtype=dt, device=dev)
+    records = torch.empty((E + 1, ndof), dtype=dt, device=dev)
     courant = torch.empty((E,), dtype=dt, device=dev)
     lib = build.load("swe_edge_flux", _FUNCTIONS)
     fn = (lib.rdy_swe_edge_flux_f32 if dt == torch.float32
@@ -274,7 +317,7 @@ def swe_edge_flux(
             a.bnd_left.data_ptr(), a.bnd_cn.data_ptr(), a.bnd_sn.data_ptr(),
             a.bnd_code.data_ptr(), bvals.data_ptr(), bvals.shape[1], Eb,
             a.edge_courant_coef.data_ptr(), tiny_h, h_anuga,
-            flux.data_ptr(), courant.data_ptr(), ndof - 3, int(upwind),
+            records.data_ptr(), courant.data_ptr(), ndof - 3, int(upwind),
             None if grad is None else grad.data_ptr(),
             *(None if t is None else t.data_ptr() for t in offsets), lim,
             wb, *(None if t is None else t.data_ptr() for t in wb_args),
@@ -282,7 +325,7 @@ def swe_edge_flux(
         )
     build.check_status(status, "swe_edge_flux")
     swe_edge_flux.launches += 1
-    return flux, courant
+    return records.t(), courant
 
 
 swe_edge_flux.launches = 0

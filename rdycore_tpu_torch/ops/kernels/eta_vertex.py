@@ -5,7 +5,10 @@ takes the plain PyTorch version (`ops/swe/bs2002.py` `eta_vertices`) for
 CPU tensors. The kernel replaces the TPU kernels `_route_kernel` and
 `_accum_kernel` (rdycore_tpu/ops/pallas/routed.py) as the JAX package's
 `eta_slotted` chains them; see the source's header for its bound and
-design. K1a reads the result at each edge's endpoints.
+design. One wrapper call is two device launches, the cell phase (each
+cell's eta into a scratch array the wrapper allocates) and the vertex
+phase; `launches` counts wrapper calls. K1a reads the result at each
+edge's endpoints.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 
 
 def _argtypes(real):
-    return [_P, _INT, _P, _I64, _P, _P, _P, _P, _I64, real, _P, _P]
+    return [_P, _INT, _P, _I64, _P, _P, _P, _P, _I64, real, _P, _P, _P]
 
 
 _FUNCTIONS = {
@@ -47,6 +50,7 @@ def swe_eta_vertex(bs: BS2002Arrays, h: torch.Tensor,
     ck(bs.vertex_inv_count, "vertex_inv_count", dt, (NV,), dev)
     for name in ("z1", "z2", "z3"):
         ck(getattr(bs, name), name, dt, (C,), dev)
+    eta_c = torch.empty((C,), dtype=dt, device=dev)
     eta_v = torch.empty((NV,), dtype=dt, device=dev)
     lib = build.load("swe_eta_vertex", _FUNCTIONS)
     fn = (lib.rdy_swe_eta_vertex_f32 if dt == torch.float32
@@ -55,7 +59,7 @@ def swe_eta_vertex(bs: BS2002Arrays, h: torch.Tensor,
         status = fn(
             bs.vertex_cells.data_ptr(), K, bs.vertex_inv_count.data_ptr(), NV,
             bs.z1.data_ptr(), bs.z2.data_ptr(), bs.z3.data_ptr(),
-            h.data_ptr(), C, tiny_h, eta_v.data_ptr(),
+            h.data_ptr(), C, tiny_h, eta_c.data_ptr(), eta_v.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check_status(status, "swe_eta_vertex")

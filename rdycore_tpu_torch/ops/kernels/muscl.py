@@ -26,11 +26,12 @@ import torch
 from ..math import clip01, minimum0
 from ..swe.muscl import ls_gradients
 from . import build
+from .edge_flux import check_records
 
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _GRAD = [_P, _I64, _P, _P, _I64, _P, _P, _P, _INT, _P, _P]
-_DRAIN = [_P, _P, _P, _INT, _P, _P, _I64, _P, _P]
-_SCALE = [_P, _I64, _INT, _P, _P, _I64, _P, _I64, _P, _P]
+_DRAIN = [_P, _INT, _P, _P, _INT, _P, _P, _I64, _P, _P]
+_SCALE = [_P, _INT, _P, _P, _I64, _P, _I64, _P, _P]
 _GRAD_FUNCTIONS = {"rdy_swe_muscl_grad_f32": _GRAD,
                    "rdy_swe_muscl_grad_f64": _GRAD}
 _POS_FUNCTIONS = {
@@ -109,8 +110,8 @@ def positivity_scale_plain(a, flux, s):
 def swe_positivity_drain(a, flux: torch.Tensor, h: torch.Tensor,
                          dt: torch.Tensor) -> torch.Tensor:
     """Donor factors s [C] of the fluxes flux [ndof, E + 1] (column E
-    zero) for the depths h [C] over a step dt (0-dim, read on the
-    device)."""
+    zero; on the card K1a's record layout only, `edge_flux.check_records`)
+    for the depths h [C] over a step dt (0-dim, read on the device)."""
     if flux.device.type == "cpu":
         return positivity_drain_plain(a, flux, h, dt)
     dev, dtype = flux.device, flux.dtype
@@ -119,7 +120,7 @@ def swe_positivity_drain(a, flux: torch.Tensor, h: torch.Tensor,
     E = a.int_left.shape[0] + a.bnd_left.shape[0]
     K = a.cell_edges.shape[1]
     ck = build.check
-    ck(flux, "flux", dtype, (None, E + 1), dev)
+    check_records(flux, None, E, dtype, dev, "swe_positivity_drain")
     ck(h, "h", dtype, (C,), dev)
     ck(dt, "dt", dtype, (), dev)
     ck(a.cell_edges, "cell_edges", torch.int32, (C, K), dev)
@@ -128,7 +129,7 @@ def swe_positivity_drain(a, flux: torch.Tensor, h: torch.Tensor,
     fn = getattr(build.load("swe_positivity", _POS_FUNCTIONS),
                  f"rdy_swe_positivity_drain_{sfx}")
     with torch.cuda.device(dev):
-        status = fn(flux.data_ptr(), a.cell_edges.data_ptr(),
+        status = fn(flux.data_ptr(), flux.shape[0], a.cell_edges.data_ptr(),
                     a.cell_edge_coef.data_ptr(), K, h.data_ptr(),
                     dt.data_ptr(), C, s.data_ptr(), _stream(dev))
     build.check_status(status, "swe_positivity_drain")
@@ -141,15 +142,15 @@ swe_positivity_drain.launches = 0
 
 def swe_positivity_scale(a, flux: torch.Tensor,
                          s: torch.Tensor) -> torch.Tensor:
-    """flux [ndof, E + 1] scaled in place by the donor factors s [C];
-    returns flux."""
+    """flux [ndof, E + 1] (on the card K1a's record layout only) scaled in
+    place by the donor factors s [C]; returns flux."""
     if flux.device.type == "cpu":
         return positivity_scale_plain(a, flux, s)
     dev, dtype = flux.device, flux.dtype
     sfx = _suffix(dtype)
     Ei, Eb = a.int_left.shape[0], a.bnd_left.shape[0]
     ck = build.check
-    ck(flux, "flux", dtype, (None, Ei + Eb + 1), dev)
+    check_records(flux, None, Ei + Eb, dtype, dev, "swe_positivity_scale")
     ck(s, "s", dtype, (None,), dev)
     for name in ("int_left", "int_right"):
         ck(getattr(a, name), name, torch.int32, (Ei,), dev)
@@ -157,9 +158,9 @@ def swe_positivity_scale(a, flux: torch.Tensor,
     fn = getattr(build.load("swe_positivity", _POS_FUNCTIONS),
                  f"rdy_swe_positivity_scale_{sfx}")
     with torch.cuda.device(dev):
-        status = fn(flux.data_ptr(), flux.shape[1], flux.shape[0],
-                    a.int_left.data_ptr(), a.int_right.data_ptr(), Ei,
-                    a.bnd_left.data_ptr(), Eb, s.data_ptr(), _stream(dev))
+        status = fn(flux.data_ptr(), flux.shape[0], a.int_left.data_ptr(),
+                    a.int_right.data_ptr(), Ei, a.bnd_left.data_ptr(), Eb,
+                    s.data_ptr(), _stream(dev))
     build.check_status(status, "swe_positivity_scale")
     swe_positivity_scale.launches += 1
     return flux

@@ -23,8 +23,11 @@ second-order deck on the card to the CPU run on both paths (1e-10 in f64
 on the unstructured path, 1e-5 in f32 on the raster). So are the
 well-balancing modes over a bumpy bed (K1a and K1b with hydrostatic
 reconstruction at NT = 0 and 3, K1a's BS2002 correction at first order
-and for each limiter, and K5), and a well-balanced deck on the card to
-the CPU run (1e-10 in f64). The row-strip modes of K2 (4 strips of a
+and for each limiter, and K5, also on vertices shuffled against the
+cells), and a well-balanced deck on the card to the CPU run (1e-10 in
+f64). K1b and K3b read K1a's flux records (each edge's fluxes side by
+side): held on a mesh whose cells are shuffled, and their wrappers must
+raise on any other layout and launch nothing. The row-strip modes of K2 (4 strips of a
 256x176 raster) and K2 MUSCL (2-4 strips, the last ragged) are held to
 their plain versions the same way
 and to the whole raster's launch bit for bit, and 20 steps of 4 strips on
@@ -53,11 +56,16 @@ import torch
 from rdycore_tpu_torch import Simulation
 from rdycore_tpu_torch.config.yaml_input import config_from_dict
 from rdycore_tpu_torch.mesh import structured_quad, structured_tri
+from rdycore_tpu_torch.mesh.core import reorder_cells
 from rdycore_tpu_torch.operator import build_operator
 from rdycore_tpu_torch.ops import kernels
 from rdycore_tpu_torch.ops.kernels.cell_stage import swe_cell_stage_plain
 from rdycore_tpu_torch.ops.kernels.courant import courant_argmax_plain
-from rdycore_tpu_torch.ops.kernels.edge_flux import swe_edge_flux_plain
+from rdycore_tpu_torch.ops.kernels.edge_flux import (
+    flux_records,
+    is_records,
+    swe_edge_flux_plain,
+)
 from rdycore_tpu_torch.ops.swe.bs2002 import eta_vertices
 from rdycore_tpu_torch.ops.kernels.muscl import (
     positivity_drain_plain,
@@ -629,6 +637,89 @@ def test_bs2002_kernels_match_plain_versions(dev, mesh, dtype, limiter):
                                 limiter=lim)
     assert rel(f0[1:], fp[1:]) > 1e-3
     assert launches() == [1, 0, 0, 0, 0, 0, 0, 0, 1]
+
+
+@pytest.mark.parametrize("nt", [0, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mesh", [0, 1])
+def test_cell_stage_on_records_in_shuffled_cell_order(dev, mesh, dtype, nt):
+    """K1b on K1a's records over a mesh whose cells are shuffled (the
+    gathers of a file order), against its plain version; K3b drain and
+    scale alike."""
+    m = reorder_cells(MESHES[mesh](), np.random.default_rng(4).permutation(
+        MESHES[mesh]().num_cells))
+    op, q, bv, ext = setup(lambda: m, dtype, dev, nt=nt)
+    a = op.arrays
+    kernels.reset_launch_counts()
+    flux, _ = op.edge_flux(q, bv)
+    assert is_records(flux)
+    fp = flux_records(swe_edge_flux_plain(a, q, bv, op.tiny_h,
+                                          op.h_anuga)[0], op.num_edges)
+    assert rel(flux, fp) <= TOL[dtype]
+    dt = torch.tensor(0.002, dtype=dtype, device=dev)
+    kw = dict(tiny_h=op.tiny_h, h_anuga=op.h_anuga,
+              xq2018_threshold=op.xq2018_threshold, source_method=0,
+              num_sediment=min(nt, 2), emit_prim=True)
+    for mode in (dict(), dict(stage=(0.75, 0.25, 0.25), qA=q.flip(1))):
+        got = kernels.swe_cell_stage(a, fp, q, dt, ext, **kw, **mode)
+        want = swe_cell_stage_plain(a, fp, q, dt, ext, **kw, **mode)
+        for g, w in zip(got, want):
+            if w is not None:
+                assert rel(g, w) <= TOL[dtype]
+    s = kernels.swe_positivity_drain(a, fp, q[0], dt)
+    sp = positivity_drain_plain(a, fp, q[0], dt)
+    assert rel(s, sp) <= TOL[dtype]
+    scaled = kernels.swe_positivity_scale(a, fp.clone(), sp)
+    assert is_records(scaled)
+    assert rel(scaled, positivity_scale_plain(a, fp.clone(), sp)) <= TOL[dtype]
+    assert launches() == [1, 2, 0, 0, 0, 1, 1, 0, 0]
+
+
+def test_record_kernels_refuse_other_layouts(dev):
+    """K1b's and K3b's wrappers raise on a row-major CUDA flux, and launch
+    nothing."""
+    op, q, bv, ext = setup(MESHES[1], torch.float32, dev)
+    a = op.arrays
+    flux, _ = op.edge_flux(q, bv)
+    row_major = flux.contiguous()
+    dt = torch.tensor(0.002, dtype=q.dtype, device=dev)
+    kernels.reset_launch_counts()
+    kw = dict(tiny_h=op.tiny_h, h_anuga=op.h_anuga,
+              xq2018_threshold=op.xq2018_threshold, source_method=0)
+    for bad in (row_major, flux[:, :-1], row_major.t().contiguous()):
+        with pytest.raises(ValueError):
+            kernels.swe_cell_stage(a, bad, q, dt, ext, **kw)
+        with pytest.raises(ValueError):
+            kernels.swe_positivity_drain(a, bad, q[0], dt)
+        with pytest.raises(ValueError):
+            kernels.swe_positivity_scale(a, bad, torch.ones_like(q[0]))
+    assert launches() == [0] * len(kernels.KERNELS)
+    out = kernels.swe_cell_stage(a, flux_records(row_major, op.num_edges),
+                                 q, dt, ext, **kw)
+    want = kernels.swe_cell_stage(a, flux, q, dt, ext, **kw)
+    assert torch.equal(out.rhs, want.rhs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mesh", [0, 1])
+def test_eta_vertex_on_shuffled_vertices(dev, mesh, dtype):
+    """K5 on a mesh whose vertex order is shuffled against its cells
+    (a shard's vertex universe against RCM cells), against
+    `eta_vertices`: the same values, permuted."""
+    op, q, _, _ = setup(MESHES[mesh], dtype, dev, z_fn=bed,
+                        well_balancing_bs2002=True)
+    bs = op.arrays.bs2002
+    NV = bs.vertex_cells.shape[0]
+    perm = torch.as_tensor(np.random.default_rng(5).permutation(NV),
+                           device=dev)
+    shuffled = bs._replace(
+        vertex_cells=bs.vertex_cells[perm].contiguous(),
+        vertex_inv_count=bs.vertex_inv_count[perm].contiguous())
+    kernels.reset_launch_counts()
+    got = kernels.swe_eta_vertex(shuffled, q[0], op.tiny_h)
+    assert rel(got, eta_vertices(shuffled, q[0], op.tiny_h)) <= TOL[dtype]
+    assert torch.equal(got, kernels.swe_eta_vertex(bs, q[0], op.tiny_h)[perm])
+    assert launches() == [0, 0, 0, 0, 0, 0, 0, 0, 2]
 
 
 @pytest.mark.parametrize("wb", ["hydrostatic_reconstruction", "bs2002"])
